@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one CUDA card, end to end.
+"""Drive the PyTorch/CUDA port's main paths on one CUDA card, end to end.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. The card: ``nvidia-smi`` name and power limit, ``torch`` device name.
-2. The build: every CUDA kernel of the join path, built cold with ``nvcc``
-   (one process per source, in parallel); build seconds and ptxas usage.
+2. The build: every CUDA kernel, built cold with ``nvcc`` (one process per
+   source, in parallel); build seconds and ptxas usage.
 3. Every kernel against its plain PyTorch version on the card, at the main
-   path's shapes (TPC-DS SF1 fact/dimension key columns) and at the edge
-   cases (empty sides, all-NULL keys, negative keys).  Results must be
-   exactly equal (integer outputs: tolerance 0).  Each is timed with CUDA
-   events beside its plain version, the one PyTorch call that computes the
-   same function where there is one, and its bound (the least time the
-   card could take: bytes over 3.35 TB/s or integer operations over
-   67 T/s, whichever is larger).
+   paths' shapes and at the edge cases.  Integer and bool outputs must be
+   exactly equal (tolerance 0).  ``edge_spmv`` sums float32 with atomics in
+   an order that changes from run to run, so it and its plain version are
+   each held, per vertex, to twice the recursive-summation bound of a
+   float64 sum of the same inputs:
+   ``|y - y64| <= 2 * deg_in(v) * 2**-24 * sum |x[u]| + 1e-30``.  Each
+   kernel is timed with CUDA events beside its plain version, the one
+   PyTorch call that computes the same function where there is one, and
+   its bound (the least time the card could take: bytes over 3.35 TB/s or
+   integer operations over 67 T/s, whichever is larger).  The join kernels
+   (TPC-DS SF1 key columns) run first; the graph kernels run at the start
+   of phase 6, on the JS-OJ graph's CSR, where their shapes first exist.
 4. The JS-OJ path: ``ExtractionEngine.extract(fraud_model("store"))`` on
    ``make_tpcds(sf=1000)``, cold then warm.  ``Buy`` and ``Sell`` must
    equal the numpy bags (c_sk, i_sk) and (o_sk, i_sk) of store_sales, and
@@ -21,16 +26,32 @@ Run from the root of a checkout:  python3 chip_smoke.py
 5. The JS-MV path: ``ExtractionEngine.extract(dblp_model())`` on
    ``make_dblp(scale=100)``, cold (view built) then warm (plan cache hit,
    view reused); edge counts against numpy, digests against the plain path.
+6. Analytics on the JS-OJ graph (V = 600,502, E = 5,760,000):
+   ``engine.analyze`` PageRank on ``Buy`` cold then warm (CSR and plan
+   cache hits), then WCC, k-hop (8 seeds, k = 3) and degree statistics.
+   WCC, k-hop and the degrees must equal the numpy ground truth
+   (``repro_torch.graph.reference``) exactly.  PageRank, on the kernels
+   and on the plain-torch path, must be within ``D_max * 2**-24`` of the
+   float64 ground truth in L1 (the ranks sum to 1) and in max relative
+   error, where ``D_max`` is the largest in-degree: a float32 sum over that
+   hub may be off by this much relative (the recursive-summation bound),
+   and every vertex's rank shares the error through the dangling mass.
+   The CSR built through the ``segment_counts`` kernel must equal the plain
+   build array for array.
+7. Analytics on the JS-MV graph (dblp scale=100, ~25M edges): PageRank and
+   WCC through the kernels against the plain-torch path on the same CSR:
+   WCC exactly, PageRank to the tolerance of phase 6.
 
-Launch counters are set to 0 just before each path and read just after;
-every kernel must have launched inside each path.  The last lines are a
-JSON object of the kernels, the card's name and power limit, and
+Launch counters are set to 0 just before each of phases 4–7 and read just
+after; every kernel of a path must have launched inside it.  The last lines
+are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -45,6 +66,13 @@ DBLP_SCALE = 100       # wrote 1.8M rows, Auth-Edit ~18M edges
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (fp32 table)
 HASH_OPS = 6                  # multiply, add, shift, xor, modulo, or/test
+
+JOIN_KERNELS = ("sorted_probe", "bloom_build", "bloom_probe")
+GRAPH_KERNELS = ("segment_counts", "edge_spmv", "edge_min_label",
+                 "frontier_expand")
+SPMV_BOUND_FACTOR = 2.0       # x the recursive-summation bound
+KHOP_SEEDS, KHOP_K = 8, 3
+PR_ITERS = 20
 
 
 def log(*parts) -> None:
@@ -88,6 +116,49 @@ def max_abs_err(torch, got, want) -> int:
     if got.numel() == 0:
         return 0
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def record_rows(torch, rows, name, source, replaces, cases, compare=None):
+    """Check and time each case of one kernel; append its JSON row.
+
+    cases: [(label, run_kernel, run_plain, run_library, nbytes, ops)].
+    ``compare(got, want) -> max_abs_err`` raises when the two disagree
+    beyond the kernel's tolerance; the default demands exact equality.
+    """
+    out_cases = []
+    worst = 0
+    for label, run_k, run_p, run_l, nbytes, ops in cases:
+        got, want = run_k(), run_p()
+        if compare is not None:
+            err = compare(got, want)
+        elif isinstance(got, tuple):
+            err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+        else:
+            err = max_abs_err(torch, got, want)
+        if compare is None:
+            assert err == 0, f"{name} {label}: max_abs_err {err}"
+        worst = max(worst, err)
+        # turns: plain, kernel, kernel, plain
+        p1 = cuda_ms(torch, run_p)
+        k1 = cuda_ms(torch, run_k)
+        k2 = cuda_ms(torch, run_k)
+        p2 = cuda_ms(torch, run_p)
+        lib = cuda_ms(torch, run_l) if run_l is not None else None
+        b, by = bound_ms(nbytes, ops)
+        out_cases.append({"shape": label, "ms": min(k1, k2),
+                          "plain_ms": min(p1, p2), "library_ms": lib,
+                          "bound_ms": b, "bound_by": by})
+        log(f"  {name} [{label}] kernel {min(k1, k2):.4f} ms, plain "
+            f"{min(p1, p2):.4f} ms, library "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{b:.4f} ms ({by})")
+    head = out_cases[0]
+    rows.append({"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": 0,
+                 "max_abs_err": worst, "ms": head["ms"],
+                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                 "bound_by": head["bound_by"],
+                 "library_ms": head["library_ms"], "cases": out_cases})
 
 
 def check_kernels(torch, kops, ref, tpcds_np):
@@ -140,40 +211,7 @@ def check_kernels(torch, kops, ref, tpcds_np):
         len(edge_bloom), "all exact")
 
     rows = []
-
-    def record(name, source, replaces, cases):
-        """cases: [(label, run_kernel, run_plain, run_library, nbytes, ops)]"""
-        out_cases = []
-        worst = 0
-        for label, run_k, run_p, run_l, nbytes, ops in cases:
-            got, want = run_k(), run_p()
-            if isinstance(got, tuple):
-                err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
-            else:
-                err = max_abs_err(torch, got, want)
-            assert err == 0, f"{name} {label}: max_abs_err {err}"
-            worst = max(worst, err)
-            # turns: plain, kernel, kernel, plain
-            p1 = cuda_ms(torch, run_p)
-            k1 = cuda_ms(torch, run_k)
-            k2 = cuda_ms(torch, run_k)
-            p2 = cuda_ms(torch, run_p)
-            lib = cuda_ms(torch, run_l) if run_l is not None else None
-            b, by = bound_ms(nbytes, ops)
-            out_cases.append({"shape": label, "ms": min(k1, k2),
-                              "plain_ms": min(p1, p2), "library_ms": lib,
-                              "bound_ms": b, "bound_by": by})
-            log(f"  {name} [{label}] kernel {min(k1, k2):.4f} ms, plain "
-                f"{min(p1, p2):.4f} ms, library "
-                f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-                f"{b:.4f} ms ({by})")
-        head = out_cases[0]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": 0,
-                     "max_abs_err": worst, "ms": head["ms"],
-                     "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                     "bound_by": head["bound_by"],
-                     "library_ms": head["library_ms"], "cases": out_cases})
+    record = functools.partial(record_rows, torch, rows)
 
     def probe_case(label, sk, pk):
         s, p = sk.shape[0], pk.shape[0]
@@ -214,6 +252,165 @@ def check_kernels(torch, kops, ref, tpcds_np):
     return rows
 
 
+def spmv_compare(torch, src, dst, valid, x, n, stats):
+    """``compare`` for edge_spmv: kernel and plain each within
+    ``SPMV_BOUND_FACTOR`` x the recursive-summation bound of a float64 sum
+    of the same inputs, per vertex; returns max |kernel - plain|."""
+    keep = valid & (dst >= 0) & (dst < n)
+    d = dst[keep].to(torch.int64)
+    xs = x[src[keep].clamp(0, x.shape[0] - 1).to(torch.int64)].double()
+    zero = torch.zeros(n, dtype=torch.float64, device=x.device)
+    y64 = zero.clone().index_add_(0, d, xs)
+    deg = zero.clone().index_add_(0, d, torch.ones_like(xs))
+    absum = zero.clone().index_add_(0, d, xs.abs())
+    bound = SPMV_BOUND_FACTOR * deg * 2.0**-24 * absum + 1e-30
+
+    def compare(got, want):
+        assert got.dtype == want.dtype == torch.float32
+        for who, y in (("kernel", got), ("plain", want)):
+            ratio = float(((y.double() - y64).abs() / bound).max()) \
+                if n else 0.0
+            stats[who] = max(stats.get(who, 0.0), ratio)
+            assert ratio <= 1.0, f"edge_spmv {who}: error {ratio} x bound"
+        return float((got - want).abs().max()) if n else 0.0
+    return compare
+
+
+def check_graph_kernels(torch, kops, ref, csr):
+    """Phase 3, graph kernels: each against its plain version at the JS-OJ
+    graph's shapes and at the edge cases; exact, spmv to its bound."""
+    import numpy as np
+
+    dev = csr.device
+    rng = np.random.default_rng(1)
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.asarray(a, dtype=dtype)).to(dev)
+
+    # edge cases: empty, all invalid, one vertex with a self-loop and a
+    # padding slot, -1 destinations on valid slots
+    dst_neg = rng.integers(0, 50, 300)
+    dst_neg[rng.random(300) < 0.3] = -1
+    edge_cases = [
+        ("empty", t([], np.int32), t([], np.int32), t([], bool), 5),
+        ("all invalid", t(rng.integers(0, 8, 16), np.int32),
+         t(rng.integers(0, 8, 16), np.int32), t(np.zeros(16, bool)), 8),
+        ("n=1 self-loop + padding", t([0, 0], np.int32), t([0, 0], np.int32),
+         t([True, False]), 1),
+        ("dst=-1 slots", t(rng.integers(0, 50, 300), np.int32),
+         t(dst_neg, np.int32), t(rng.random(300) < 0.9), 50),
+    ]
+    for name, s, d, v, n in edge_cases:
+        lab = t(rng.permutation(n), np.int32)
+        front = t(rng.random(n) < 0.5)
+        seen = t(rng.random(n) < 0.3)
+        x = t(rng.integers(-4, 5, n), np.float32)   # exact float32 sums
+        pairs = [
+            (kops.segment_counts(d, v, n), ref.segment_counts(d, v, n)),
+            (kops.segment_counts(s, v, n), ref.segment_counts(s, v, n)),
+            (kops.edge_spmv(s, d, v, x, n), ref.edge_spmv(s, d, v, x, n)),
+            (kops.edge_min_label(s, d, v, lab, n),
+             ref.edge_min_label(s, d, v, lab, n)),
+            (kops.frontier_expand(s, d, v, front, seen, n),
+             ref.frontier_expand(s, d, v, front, seen, n)),
+        ]
+        for got, want in pairs:
+            assert got.dtype == want.dtype and torch.equal(got, want), name
+    log("edge cases: graph kernels", len(edge_cases), "all exact")
+
+    rows = []
+    record = functools.partial(record_rows, torch, rows)
+    n = csr.num_vertices
+    sb, db, vb = csr.coo("Buy")                   # PageRank's label
+    sa, da, va = csr.coo()                        # k-hop, degree stats
+    ss, ds, vs = csr.coo(symmetric=True)          # WCC
+    e_b, e_a, e_s = sb.shape[0], sa.shape[0], ss.shape[0]
+
+    def masked(src, dst, valid):
+        keep = valid & (dst >= 0) & (dst < n)
+        return src[keep].to(torch.int64), dst[keep].to(torch.int64)
+
+    sb64, db64 = masked(sb, db, vb)
+    ss64, ds64 = masked(ss, ds, vs)
+    counts_in = sb[vb & (sb >= 0) & (sb < n)].to(torch.int64)
+    record("segment_counts", "src/repro_torch/kernels/csrc/segment_csr.cu",
+           "src/repro/kernels/segment_csr.py:24",
+           [(f"E={e_b} into V={n}",
+             lambda: kops.segment_counts(sb, vb, n),
+             lambda: ref.segment_counts(sb, vb, n),
+             lambda: torch.bincount(counts_in, minlength=n),
+             5 * e_b + 4 * n, e_b)])
+
+    x = t(rng.random(n).astype(np.float32) / n)
+    spmv_stats = {}
+    record("edge_spmv", "src/repro_torch/kernels/csrc/spmv.cu",
+           "src/repro/kernels/spmv.py:31",
+           [(f"E={e_b} V={n}",
+             lambda: kops.edge_spmv(sb, db, vb, x, n),
+             lambda: ref.edge_spmv(sb, db, vb, x, n),
+             lambda: torch.zeros(n, device=dev).index_add_(0, db64, x[sb64]),
+             9 * e_b + 8 * n, e_b)],
+           compare=spmv_compare(torch, sb, db, vb, x, n, spmv_stats))
+    rows[-1]["error_over_bound"] = spmv_stats
+    log(f"  edge_spmv error / bound: {spmv_stats}")
+
+    lab = torch.arange(n, dtype=torch.int32, device=dev)
+    record("edge_min_label", "src/repro_torch/kernels/csrc/label_prop.cu",
+           "src/repro/kernels/label_prop.py:33",
+           [(f"E={e_s} (symmetric) V={n}",
+             lambda: kops.edge_min_label(ss, ds, vs, lab, n),
+             lambda: ref.edge_min_label(ss, ds, vs, lab, n),
+             lambda: lab.clone().scatter_reduce_(0, ds64, lab[ss64], "amin"),
+             9 * e_s + 8 * n, e_s)])
+
+    front = torch.zeros(n, dtype=torch.bool, device=dev)
+    front[:KHOP_SEEDS] = True
+    seen = front.clone()
+    record("frontier_expand", "src/repro_torch/kernels/csrc/frontier.cu",
+           "src/repro/kernels/frontier.py:28",
+           [(f"E={e_a} V={n} frontier={KHOP_SEEDS}",
+             lambda: kops.frontier_expand(sa, da, va, front, seen, n),
+             lambda: ref.frontier_expand(sa, da, va, front, seen, n),
+             None, 9 * e_a + 3 * n, e_a)])
+    return rows
+
+
+def digest_s(graph) -> float:
+    """Seconds of one content digest of ``graph``'s tables (what every
+    ``analyze`` pays to look its CSR up), on a fresh, unmemoized copy."""
+    from repro_torch.core.extract import ExtractedGraph
+
+    fresh = ExtractedGraph(vertices=dict(graph.vertices),
+                           edges=dict(graph.edges))
+    t0 = time.perf_counter()
+    fp = fresh.fingerprint()
+    seconds = time.perf_counter() - t0
+    assert fp == graph.fingerprint()
+    return seconds
+
+
+def pagerank_error(got, want) -> dict:
+    """L1 distance and max relative error of one rank vector to another."""
+    diff = (got.double() - want.double()).abs()
+    return {"l1": float(diff.sum()),
+            "max_rel": float((diff / want.double().abs()).max())}
+
+
+def pagerank_tolerance(ref, csr, label=None) -> float:
+    """``D_max * 2**-24``: the relative recursive-summation bound of one
+    float32 sum over the largest in-degree of the edges PageRank runs on."""
+    _, dst, valid = csr.coo(label)
+    d_max = int(ref.segment_counts(dst.clamp_min(0), valid,
+                                   csr.num_vertices).max())
+    return d_max * 2.0**-24
+
+
+def check_pagerank(err: dict, tol: float, what: str) -> None:
+    err["tolerance"] = tol
+    assert err["l1"] <= tol and err["max_rel"] <= tol, \
+        f"{what}: {err} beyond L1 / max_rel {tol}"
+
+
 def drive(torch, kops, engine, model, label):
     """Cold then warm extract between a counter reset and a counter read."""
     torch.cuda.reset_peak_memory_stats()
@@ -221,7 +418,7 @@ def drive(torch, kops, engine, model, label):
     cold = engine.extract(model)
     warm = engine.extract(model)
     counts = kops.launch_counts()
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in JOIN_KERNELS if counts[k] == 0]
     assert not missing, f"{label}: kernels never launched: {missing}"
     rows = {lab: int(t.valid.sum()) for lab, t in cold.edges.items()}
     assert rows == {lab: int(t.valid.sum()) for lab, t in warm.edges.items()}
@@ -234,6 +431,156 @@ def drive(torch, kops, engine, model, label):
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
         f"{counts}")
     return cold, warm, counts, rows
+
+
+def analytics_oj(torch, kops, ref, ExtractionEngine, db, model, graph):
+    """Phase 6: the graph kernels, then engine.analyze on the JS-OJ graph."""
+    import numpy as np
+
+    from repro_torch.graph import algorithms as talg
+    from repro_torch.graph import build_csr
+    from repro_torch.graph import reference as gref
+
+    t0 = time.perf_counter()
+    plain_csr = build_csr(graph, model, use_kernel=False)
+    torch.cuda.synchronize()
+    log(f"JS-OJ graph: plain CSR build {time.perf_counter() - t0:.4f} s, "
+        f"V={plain_csr.num_vertices} E={plain_csr.edge_counts}")
+    log("graph kernels vs plain, CUDA-event times:")
+    rows = check_graph_kernels(torch, kops, ref, plain_csr)
+
+    engine = ExtractionEngine(db)
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    cold = engine.analyze(model, algorithm="pagerank", label="Buy",
+                          iters=PR_ITERS)
+    warm = engine.analyze(model, algorithm="pagerank", label="Buy",
+                          iters=PR_ITERS)
+    before = kops.launch_counts()["edge_min_label"]
+    wcc = engine.analyze(model, algorithm="wcc")
+    wcc_iters = kops.launch_counts()["edge_min_label"] - before
+    khop = engine.analyze(model, algorithm="khop",
+                          seeds=np.arange(KHOP_SEEDS), k=KHOP_K)
+    deg = engine.analyze(model, algorithm="degree_stats")
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in GRAPH_KERNELS if counts[k] == 0]
+    assert not missing, f"JS-OJ analytics: kernels never launched: {missing}"
+    assert not cold.provenance.csr_cache_hit
+    assert warm.provenance.csr_cache_hit, "warm analyze rebuilt the CSR"
+    assert warm.provenance.extraction.plan_cache_hit
+    for r in (wcc, khop, deg):
+        assert r.provenance.csr_cache_hit and r.csr is cold.csr
+
+    csr = cold.csr
+    assert csr.num_vertices == plain_csr.num_vertices
+    same = [torch.equal(csr.vertex_ids, plain_csr.vertex_ids)]
+    for field in ("offsets", "targets", "sources"):
+        got, want = getattr(csr, field), getattr(plain_csr, field)
+        same += [set(got) == set(want)]
+        same += [torch.equal(got[k], want[k]) for k in want]
+    assert all(same), "kernel-built CSR != plain build"
+
+    n = csr.num_vertices
+    sb, db, vb = [a.cpu().numpy() for a in csr.coo("Buy")]
+    sa, da, va = [a.cpu().numpy() for a in csr.coo()]
+    t0 = time.perf_counter()
+    pr_np = gref.pagerank_np(sb, db, vb, n, iters=PR_ITERS)
+    wcc_np = gref.wcc_np(sa, da, va, n)
+    seeds = np.zeros(n, bool)
+    seeds[:KHOP_SEEDS] = True
+    khop_np = gref.khop_np(sa, da, va, seeds, n, k=KHOP_K)
+    deg_np = gref.degree_stats_np(sa, da, va, n)
+    numpy_s = time.perf_counter() - t0
+    pr_tol = pagerank_tolerance(ref, csr, "Buy")
+    pr_truth = torch.from_numpy(pr_np).to(csr.device)
+    pr_err = pagerank_error(warm.values, pr_truth)
+    check_pagerank(pr_err, pr_tol, "JS-OJ PageRank (kernels) vs numpy")
+    plain_pr = talg.pagerank(csr, label="Buy", iters=PR_ITERS,
+                             use_kernel=False)
+    plain_err = pagerank_error(plain_pr, pr_truth)
+    check_pagerank(plain_err, pr_tol, "JS-OJ PageRank (plain) vs numpy")
+    assert np.array_equal(wcc.values.cpu().numpy(), wcc_np), "WCC != numpy"
+    assert np.array_equal(khop.values.cpu().numpy(), khop_np), "k-hop != numpy"
+    for key in ("out_degree", "in_degree"):
+        assert np.array_equal(deg.values[key].cpu().numpy(), deg_np[key]), key
+    for key in ("num_edges", "max_out_degree", "max_in_degree", "isolated"):
+        assert int(deg.values[key]) == deg_np[key], key
+    # float32 quotient against numpy's float64 one
+    assert abs(float(deg.values["mean_degree"]) - deg_np["mean_degree"]) \
+        <= 1e-6 * deg_np["mean_degree"]
+
+    timing = {
+        "V": n, "E": int(sum(csr.edge_counts.values())),
+        "csr_build_s_cold": cold.timings.csr_build_s,
+        "csr_build_s_warm": warm.timings.csr_build_s,
+        "extract_s_cold": cold.timings.extract_s,
+        "extract_s_warm": warm.timings.extract_s,
+        "analyze_s": {"pagerank_cold": cold.timings.analyze_s,
+                      "pagerank_warm": warm.timings.analyze_s,
+                      "wcc": wcc.timings.analyze_s,
+                      "khop": khop.timings.analyze_s,
+                      "degree_stats": deg.timings.analyze_s},
+        "graph_digest_s": digest_s(cold.extraction.graph),
+        "wcc_iterations": wcc_iters, "pagerank_vs_numpy": pr_err,
+        "plain_pagerank_vs_numpy": plain_err,
+        "max_memory_allocated_gib": peak / 2**30, "launches": counts}
+    log(f"JS-OJ analytics: {json.dumps(timing)}")
+    log(f"  WCC components {len(np.unique(wcc_np))}, k-hop reached "
+        f"{int((khop_np >= 0).sum())}; CSR (kernel) == plain build; "
+        f"WCC, k-hop, degrees == numpy (numpy took {numpy_s:.2f} s); "
+        f"PageRank L1 {pr_err['l1']:.3e} (plain {plain_err['l1']:.3e}), "
+        f"max_rel {pr_err['max_rel']:.3e} (plain {plain_err['max_rel']:.3e})"
+        f" <= {pr_tol:.3e}")
+    return rows, counts, timing
+
+
+def analytics_mv(torch, kops, ref, ExtractionEngine, db, model):
+    """Phase 7: PageRank and WCC on the JS-MV graph, kernels vs plain."""
+    from repro_torch.graph import algorithms as talg
+
+    engine = ExtractionEngine(db)
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    pr = engine.analyze(model, algorithm="pagerank", iters=PR_ITERS)
+    wcc = engine.analyze(model, algorithm="wcc")
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in ("segment_counts", "edge_spmv", "edge_min_label")
+               if counts[k] == 0]
+    assert not missing, f"JS-MV analytics: kernels never launched: {missing}"
+    assert wcc.provenance.csr_cache_hit
+
+    csr = pr.csr
+    t0 = time.perf_counter()
+    plain_pr = talg.pagerank(csr, iters=PR_ITERS, use_kernel=False)
+    torch.cuda.synchronize()
+    plain_pr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_wcc = talg.wcc(csr, use_kernel=False)
+    torch.cuda.synchronize()
+    plain_wcc_s = time.perf_counter() - t0
+    assert torch.equal(wcc.values, plain_wcc), "JS-MV WCC != plain path"
+    pr_err = pagerank_error(pr.values, plain_pr)
+    check_pagerank(pr_err, pagerank_tolerance(ref, csr),
+                   "JS-MV PageRank vs plain path")
+    timing = {
+        "V": csr.num_vertices, "E": int(sum(csr.edge_counts.values())),
+        "csr_build_s_cold": pr.timings.csr_build_s,
+        "csr_build_s_warm": wcc.timings.csr_build_s,
+        "graph_digest_s": digest_s(pr.extraction.graph),
+        "extract_s_cold": pr.timings.extract_s,
+        "extract_s_warm": wcc.timings.extract_s,
+        "analyze_s": {"pagerank": pr.timings.analyze_s,
+                      "wcc": wcc.timings.analyze_s,
+                      "pagerank_plain": plain_pr_s,
+                      "wcc_plain": plain_wcc_s},
+        "pagerank_vs_plain": pr_err,
+        "max_memory_allocated_gib": peak / 2**30, "launches": counts}
+    log(f"JS-MV analytics: {json.dumps(timing)}")
+    log(f"  WCC == plain path; PageRank L1 {pr_err['l1']:.3e}, max_rel "
+        f"{pr_err['max_rel']:.3e} <= {pr_err['tolerance']:.3e}")
+    return counts, timing
 
 
 def digests(edges):
@@ -319,7 +666,8 @@ def main() -> int:
         use_kernel=False, use_bloom=False)).extract(model)
     assert digests(plain.edges) == got, "JS-OJ kernel path != plain path"
     log("  edges == numpy bags == plain-torch path")
-    del plain, cold, warm, tpcds
+    oj_model, oj_graph = model, cold.graph
+    del plain, cold, warm
     torch.cuda.empty_cache()
 
     # 5. the JS-MV path
@@ -351,11 +699,26 @@ def main() -> int:
     assert digests(plain.edges) == digests(cold.edges), \
         "JS-MV kernel path != plain path"
     log("  edge counts == numpy; digests == plain-torch path")
+    del plain, cold, warm
+    torch.cuda.empty_cache()
 
+    # 6. analytics on the JS-OJ graph (and phase 3's graph kernels)
+    graph_rows, counts_oja, _ = analytics_oj(
+        torch, kops, ref, ExtractionEngine, tpcds, oj_model, oj_graph)
+    del tpcds, oj_graph
+    torch.cuda.empty_cache()
+
+    # 7. analytics on the JS-MV graph
+    counts_mva, _ = analytics_mv(torch, kops, ref, ExtractionEngine, dblp,
+                                 model)
+
+    by_path = {"js_oj": counts_oj, "js_mv": counts_mv,
+               "js_oj_analytics": counts_oja, "js_mv_analytics": counts_mva}
+    kernel_rows += graph_rows
     for row in kernel_rows:
-        row["launches"] = counts_oj[row["name"]] + counts_mv[row["name"]]
-        row["launches_by_path"] = {"js_oj": counts_oj[row["name"]],
-                                   "js_mv": counts_mv[row["name"]]}
+        row["launches_by_path"] = {p: c[row["name"]]
+                                   for p, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

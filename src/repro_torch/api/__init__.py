@@ -9,6 +9,9 @@ from repro_torch.api.builder import (
     model_to_spec,
 )
 from repro_torch.api.engine import (
+    AnalyticsProvenance,
+    AnalyticsResult,
+    AnalyticsTimings,
     ExtractionEngine,
     ExtractionResult,
     PlanProvenance,
@@ -18,6 +21,9 @@ __all__ = [
     "ExtractionEngine",
     "ExtractionResult",
     "PlanProvenance",
+    "AnalyticsProvenance",
+    "AnalyticsResult",
+    "AnalyticsTimings",
     "GraphModelBuilder",
     "join_query",
     "model_from_spec",

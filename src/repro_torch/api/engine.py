@@ -17,9 +17,16 @@ Every request runs against ``db.snapshot()``, so views and re-analyzed
 stats never leak into the caller's database.  Everything runs where the
 database's tensors live.
 
-Not in this package yet: incremental maintenance (``refresh`` and
-``auto_refresh``), EXPLAIN, engine forks, graph analytics, schema discovery
-and the baseline methods.
+**Analytics** — :meth:`ExtractionEngine.analyze` extracts (cache-warm),
+converts the graph to a :class:`repro_torch.graph.CSRGraph` through a
+content-addressed CSR cache, and runs one of
+:data:`repro_torch.graph.ALGORITHMS` over it; on the card the CSR build and
+the algorithms run on the ``segment_counts`` / ``edge_spmv`` /
+``edge_min_label`` / ``frontier_expand`` CUDA kernels.
+
+Not in this package yet: incremental maintenance (``refresh``,
+``auto_refresh`` and CSR patching on refresh), EXPLAIN, engine forks and
+schema discovery.
 """
 from __future__ import annotations
 
@@ -27,16 +34,23 @@ import collections
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
+
+import torch
+
+if TYPE_CHECKING:  # pragma: no cover - annotation-only
+    from repro_torch.graph import CSRGraph
 
 from repro_torch import obs
 from repro_torch.core.database import Database, Fingerprint, TableStats
 from repro_torch.core.extract import (
+    BASELINE_METHODS,
     ExtractedGraph,
     PLANNED_METHODS,
     Timings,
     extract_vertices,
     plan_queries,
+    run_baseline,
     run_plan,
     synchronize_tables,
 )
@@ -74,6 +88,10 @@ class ExtractionResult:
     provenance: PlanProvenance
     plan: Optional[ExtractionPlan] = None
     model: Optional[GraphModel] = None
+    _engine: Optional["ExtractionEngine"] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _csr: Optional["CSRGraph"] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def vertices(self) -> Dict[str, Table]:
@@ -82,6 +100,65 @@ class ExtractionResult:
     @property
     def edges(self) -> Dict[str, Table]:
         return self.graph.edges
+
+    def graph_view(self, use_kernel: bool = False) -> "CSRGraph":
+        """The extracted graph as a :class:`repro_torch.graph.CSRGraph`.
+
+        Memoized on the result; results produced by an engine additionally
+        consult the engine's content-addressed CSR cache, so a warm session
+        converts each distinct graph exactly once.
+        """
+        if self.model is None:
+            raise ValueError(
+                "graph_view() needs the originating GraphModel; this result "
+                "was built without one")
+        if self._csr is None:
+            if self._engine is not None:
+                self._csr, _, _ = self._engine._csr_for(
+                    self, use_kernel=use_kernel)
+            else:
+                from repro_torch.graph import build_csr
+                self._csr = build_csr(self.graph, self.model,
+                                      use_kernel=use_kernel)
+        return self._csr
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalyticsProvenance:
+    """Where an ``engine.analyze()`` answer came from."""
+
+    algorithm: str
+    extraction: PlanProvenance
+    csr_cache_hit: bool = False   # True -> the CSR was NOT rebuilt
+    csr_key: str = ""             # content address of the extracted graph
+
+
+@dataclasses.dataclass
+class AnalyticsTimings:
+    extract_s: float = 0.0     # full extraction request (plan + exec)
+    csr_build_s: float = 0.0   # cache key (content digest) + build on a miss
+    analyze_s: float = 0.0     # algorithm loop, ended by a device sync
+
+    @property
+    def total_s(self) -> float:
+        return self.extract_s + self.csr_build_s + self.analyze_s
+
+
+@dataclasses.dataclass
+class AnalyticsResult:
+    """Algorithm output + the extraction it ran over."""
+
+    values: object                 # tensor or dict of tensors (per algorithm)
+    csr: "CSRGraph"
+    extraction: ExtractionResult
+    provenance: AnalyticsProvenance
+    timings: AnalyticsTimings
+
+
+def _synchronize(device: Optional[torch.device]) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class _LRUCache:
@@ -259,9 +336,9 @@ class ExtractionEngine:
     next request.
 
     The caches are LRU-bounded (``max_plans`` / ``max_views`` /
-    ``max_results``) so a long-lived session serving many distinct models
-    cannot grow without bound — cached views pin whole materialized join
-    results.
+    ``max_csrs`` / ``max_results``) so a long-lived session serving many
+    distinct models cannot grow without bound — cached views pin whole
+    materialized join results.
 
     Plan execution runs through a :class:`repro_torch.core.pipeline
     .PipelineCompiler` by default: each plan unit runs as one pre-sized
@@ -274,7 +351,7 @@ class ExtractionEngine:
     """
 
     def __init__(self, db: Database, max_plans: int = 128,
-                 max_views: int = 32,
+                 max_views: int = 32, max_csrs: int = 16,
                  compiler: Optional[PipelineCompiler] = None,
                  compiled: bool = True,
                  auto_refresh: bool = False,
@@ -285,6 +362,7 @@ class ExtractionEngine:
         self.db = db
         self.max_plans = max_plans
         self.max_views = max_views
+        self.max_csrs = max_csrs
         self.max_results = max_results
         self.compiled = bool(compiled)
         self.auto_refresh = False
@@ -306,6 +384,8 @@ class ExtractionEngine:
 
         self._plans: "_LRUCache" = _cache(max_plans, "plans")
         self._views: "_LRUCache" = _cache(max_views, "views")
+        # CSR conversions, content-addressed by graph fingerprint
+        self._csrs: "_LRUCache" = _cache(max_csrs, "csrs")
         # last materialized result per (model signature, method)
         self._results: "_LRUCache" = _cache(max_results, "results")
         # request counters (cache_info "requests")
@@ -329,6 +409,7 @@ class ExtractionEngine:
         with self._lock:
             self._plans.clear()
             self._views.clear()
+            self._csrs.clear()
             self._results.clear()
             if self._owns_compiler:
                 self.compiler.clear()
@@ -350,7 +431,7 @@ class ExtractionEngine:
         with self._lock:
             cstats = self.compiler.cache_info()
             return {"plans": len(self._plans), "views": len(self._views),
-                    "results": len(self._results),
+                    "csrs": len(self._csrs), "results": len(self._results),
                     "epoch": int(self.db.epoch),
                     "executables": int(cstats["executables"]),
                     "executable_hits": int(cstats["hits"]),
@@ -358,9 +439,11 @@ class ExtractionEngine:
                     "pipeline_retries": int(cstats["retries"]),
                     "caches": {"plans": self._plans.info(),
                                "views": self._views.info(),
+                               "csrs": self._csrs.info(),
                                "results": self._results.info()},
                     "cache_bytes": {"plans": self._plans.bytes,
                                     "views": self._views.bytes,
+                                    "csrs": self._csrs.bytes,
                                     "results": self._results.bytes},
                     "device_memory": obs.device_memory_stats(),
                     "requests": dict(self.request_stats)}
@@ -447,7 +530,7 @@ class ExtractionEngine:
     def extract(self, model: GraphModel, method: str = "extgraph",
                 verbose: bool = False,
                 auto_refresh: Optional[bool] = None) -> ExtractionResult:
-        """Extract ``model`` with one of the planned methods.
+        """Extract ``model`` with a planned method or a baseline.
 
         ``auto_refresh=True`` (maintain a cached result instead of
         re-extracting) needs the incremental layer and raises
@@ -462,56 +545,154 @@ class ExtractionEngine:
 
     def _extract_full(self, model: GraphModel, method: str,
                       verbose: bool = False) -> ExtractionResult:
-        if method not in PLANNED_METHODS:
-            raise ValueError(
-                f"method {method!r} is not one of the planned methods "
-                f"{PLANNED_METHODS} (the baselines are not ported yet)")
+        if method not in PLANNED_METHODS + BASELINE_METHODS:
+            raise ValueError(f"unknown method {method!r}")
         queries = model.queries()
         timings = Timings()
         epoch0 = self.db.epoch
         self._count_request("full_extracts")
 
-        t0 = time.perf_counter()
-        with obs.span("plan", category="plan") as plan_sp:
-            self._evict_stale_views()
-            rdb = self._request_db()
-            key = self._plan_key(model, method)
-            plan = self._plans.get(key, count=False)
-            if plan is not None and not all(
-                    v.pattern.signature in self._views
-                    for v in plan.reused):
-                self._plans.pop(key)
-                plan = None  # a reused view was LRU-evicted: replan
-            hit = plan is not None
-            if hit:
-                self._plans._event("hits")
-            else:
-                self._plans._event("misses")
-                cached = [ViewDef(cv.name, cv.pattern)
-                          for cv in self._views.values()]
-                plan = plan_queries(rdb, queries, method,
-                                    verbose=verbose, cached_views=cached)
-                self._plans.put(key, plan)
-            plan_sp.set(cache_hit=hit)
-        timings.plan_s = time.perf_counter() - t0
+        if method in PLANNED_METHODS:
+            t0 = time.perf_counter()
+            with obs.span("plan", category="plan") as plan_sp:
+                self._evict_stale_views()
+                rdb = self._request_db()
+                key = self._plan_key(model, method)
+                plan = self._plans.get(key, count=False)
+                if plan is not None and not all(
+                        v.pattern.signature in self._views
+                        for v in plan.reused):
+                    self._plans.pop(key)
+                    plan = None  # a reused view was LRU-evicted: replan
+                hit = plan is not None
+                if hit:
+                    self._plans._event("hits")
+                else:
+                    self._plans._event("misses")
+                    cached = [ViewDef(cv.name, cv.pattern)
+                              for cv in self._views.values()]
+                    plan = plan_queries(rdb, queries, method,
+                                        verbose=verbose, cached_views=cached)
+                    self._plans.put(key, plan)
+                plan_sp.set(cache_hit=hit)
+            timings.plan_s = time.perf_counter() - t0
 
-        t0 = time.perf_counter()
-        with obs.span("execute", category="execute"):
-            edges, built, reused = run_plan(
-                rdb, plan,
-                compiler=self.compiler if self.compiled else None)
-            synchronize_tables(edges.values())
-        timings.extract_s = time.perf_counter() - t0
-        self._harvest_views(rdb, plan, built, reused)
-        provenance = PlanProvenance(
-            method=method, plan_cache_hit=hit,
-            views_built=tuple(built), views_reused=tuple(reused))
+            t0 = time.perf_counter()
+            with obs.span("execute", category="execute"):
+                edges, built, reused = run_plan(
+                    rdb, plan,
+                    compiler=self.compiler if self.compiled else None)
+                synchronize_tables(edges.values())
+            timings.extract_s = time.perf_counter() - t0
+            self._harvest_views(rdb, plan, built, reused)
+            provenance = PlanProvenance(
+                method=method, plan_cache_hit=hit,
+                views_built=tuple(built), views_reused=tuple(reused))
+        else:
+            plan = None
+            with obs.span("execute", category="execute", baseline=method):
+                edges, ext_s, conv_s = run_baseline(self.db, queries, method)
+            timings.extract_s, timings.convert_s = ext_s, conv_s
+            provenance = PlanProvenance(method=method)
 
         with obs.span("vertices", category="execute"):
             vertices = extract_vertices(self.db, model)
             graph = ExtractedGraph(vertices=vertices, edges=edges)
             graph.block_until_ready()
-        self._remember_result(model, method, plan, graph, epoch0)
+        if method in PLANNED_METHODS:
+            self._remember_result(model, method, plan, graph, epoch0)
         return ExtractionResult(graph=graph, timings=timings,
                                 provenance=provenance, plan=plan,
-                                model=model)
+                                model=model, _engine=self)
+
+    # -- analytics -----------------------------------------------------------
+    def _csr_for(self, result: ExtractionResult, use_kernel: bool = False
+                 ) -> Tuple["CSRGraph", bool, str]:
+        """CSR for a result's graph via the content-addressed cache.
+
+        Returns ``(csr, cache_hit, content_key)``; a hit means the graph
+        was extracted before (by any model/method that produced identical
+        tables) and no rebuild happened.  ``use_kernel`` only selects the
+        build path on a miss — the resulting CSR is identical either way,
+        so the cache is keyed by content alone.
+        """
+        from repro_torch.graph import build_csr
+
+        fp = result.graph.fingerprint()
+        with self._lock:
+            csr = self._csrs.get(fp)
+            hit = csr is not None
+            if not hit:
+                csr = build_csr(result.graph, result.model,
+                                use_kernel=bool(use_kernel))
+                self._csrs.put(fp, csr)
+            return csr, hit, fp
+
+    def analyze(self, model: GraphModel, algorithm: str = "pagerank",
+                method: str = "extgraph", use_kernel: Optional[bool] = None,
+                verbose: bool = False, auto_refresh: Optional[bool] = None,
+                **params) -> AnalyticsResult:
+        """Extract (cache-warm) and run a graph algorithm in one call.
+
+        ``algorithm`` is a key of :data:`repro_torch.graph.ALGORITHMS`
+        (``pagerank`` / ``wcc`` / ``khop`` / ``degree_stats``); extra
+        ``params`` are forwarded (e.g. ``iters=``, ``label=``, ``seeds=``).
+        ``use_kernel=None`` follows the database's device: the CUDA kernels
+        on the card, their plain PyTorch versions on the CPU.  A warm
+        engine serves this without re-planning, view re-materialization,
+        or CSR rebuild (join execution and the graph content digest still
+        run per request, against the snapshot) — see the returned
+        provenance and per-phase timings, each of which ends in a device
+        sync.  ``auto_refresh=True`` raises ``NotImplementedError``, as in
+        :meth:`extract`.
+        """
+        from repro_torch.graph.algorithms import ALGORITHMS
+        from repro_torch.kernels.ops import resolve_use_kernel
+
+        if algorithm not in ALGORITHMS:
+            raise ValueError(
+                f"unknown algorithm {algorithm!r}; "
+                f"have {sorted(ALGORITHMS)}")
+        device = self.db.device
+        use_kernel = resolve_use_kernel(use_kernel, device)
+        with self._lock:
+            self._count_request("analyzes")
+
+        with obs.span("engine.analyze", model=model.name,
+                      algorithm=algorithm) as sp:
+            t0 = time.perf_counter()
+            result = self.extract(model, method=method, verbose=verbose,
+                                  auto_refresh=auto_refresh)
+            extract_s = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            with obs.span("csr", category="csr") as csr_sp:
+                csr, csr_hit, csr_key = self._csr_for(
+                    result, use_kernel=use_kernel)
+                result._csr = csr
+                _synchronize(device)
+                csr_sp.set(cache_hit=csr_hit)
+            csr_build_s = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            with obs.span(f"algorithm:{algorithm}", category="execute"):
+                values = ALGORITHMS[algorithm](csr, use_kernel=use_kernel,
+                                               **params)
+                _synchronize(device)
+            analyze_s = time.perf_counter() - t0
+            sp.set(csr_cache_hit=csr_hit)
+
+        return AnalyticsResult(
+            values=values,
+            csr=csr,
+            extraction=result,
+            provenance=AnalyticsProvenance(
+                algorithm=algorithm,
+                extraction=result.provenance,
+                csr_cache_hit=csr_hit,
+                csr_key=csr_key),
+            timings=AnalyticsTimings(
+                extract_s=extract_s,
+                csr_build_s=csr_build_s,
+                analyze_s=analyze_s),
+        )

@@ -14,7 +14,7 @@ from repro_torch.core.model import (
     query_signature,
 )
 from repro_torch.core.database import Database, TableStats, from_numpy_tables
-from repro_torch.core.extract import ExtractedGraph, Timings
+from repro_torch.core.extract import ExtractedGraph, Timings, extract_graph
 from repro_torch.core.pipeline import PipelineCompiler, clear_executable_cache
 from repro_torch.core.planner import ExtractionPlan, PlanUnit, optimize, plan_cost
 
@@ -34,6 +34,7 @@ __all__ = [
     "TableStats",
     "ExtractedGraph",
     "Timings",
+    "extract_graph",
     "from_numpy_tables",
     "ExtractionPlan",
     "PlanUnit",

@@ -2,26 +2,31 @@
 
 The plan/execute machinery lives here; the public entry point is
 :class:`repro_torch.api.ExtractionEngine`, which adds cross-request plan and
-materialized-view caching on top of these primitives.  The planned methods
-are:
+materialized-view caching on top of these primitives.
+
+``extract_graph(db, model, method=...)`` is kept as a deprecated wrapper
+over a throwaway engine and runs one of:
 
 * ``extgraph`` — Alg 2 hybrid plan (JS-OJ + JS-MV), the paper's method
 * ``extgraph-oj`` / ``extgraph-mv`` — ablations (Fig 16's middle bars)
-
-The baselines (``ringo`` / ``graphgen`` / ``r2gsync``) are not ported yet:
-:func:`plan_queries` returns ``None`` for them, as for any unplanned method.
+* ``ringo`` / ``graphgen`` / ``r2gsync`` — baselines (see baselines.py);
+  :func:`plan_queries` returns ``None`` for them
 
 All methods return the same user-intended graph: {vertex label: Table},
-{edge label: Table(src, dst)}.
+{edge label: Table(src, dst)}; timings split extraction vs conversion the
+way the paper reports them (conversion != 0 only for GraphGen/R2GSync).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import obs
+from repro_torch.core import baselines
 from repro_torch.core.database import Database
 from repro_torch.core.executor import (
     edge_output,
@@ -196,3 +201,45 @@ def plan_queries(db: Database, queries, method: str, verbose: bool = False,
     if method in BASELINE_METHODS:
         return None
     raise ValueError(f"unknown method {method!r}")
+
+
+def run_baseline(db: Database, queries, method: str):
+    """Execute one of the non-planned methods; returns (edges, ext_s, conv_s)."""
+    if method == "ringo":
+        t0 = time.perf_counter()
+        edges = {}
+        for q in queries:
+            res = execute_query(db, q)
+            edges[q.name] = edge_output(res, q.src, q.dst)
+            synchronize_tables([edges[q.name]])
+        return edges, time.perf_counter() - t0, 0.0
+    if method == "graphgen":
+        return baselines.run_graphgen(db, queries)
+    if method == "r2gsync":
+        return baselines.run_r2gsync(db, queries)
+    raise ValueError(f"unknown baseline {method!r}")
+
+
+def extract_graph(
+    db: Database,
+    model: GraphModel,
+    method: str = "extgraph",
+    verbose: bool = False,
+) -> Tuple[ExtractedGraph, Timings]:
+    """Definition 3.1's four steps, timed.
+
+    .. deprecated::
+        One-shot entry point kept for compatibility; it re-plans and
+        re-materializes everything on every call.  Use
+        :class:`repro_torch.api.ExtractionEngine` to share plans and views
+        across requests.
+    """
+    warnings.warn(
+        "extract_graph() is deprecated; use repro_torch.api.ExtractionEngine, "
+        "which caches plans and materialized views across requests",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.api import ExtractionEngine  # lazy: api builds on core
+
+    result = ExtractionEngine(db).extract(model, method=method,
+                                          verbose=verbose)
+    return result.graph, result.timings

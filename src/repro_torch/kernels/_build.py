@@ -37,6 +37,18 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "repro_bloom_build": (_P, _P, _P, _P, _I, _I, _I, _P),
         "repro_bloom_probe": (_P, _P, _P, _I, _I, _I, _P),
     },
+    "segment_csr": {
+        "repro_segment_counts": (_P, _P, _P, _I, _I, _P),
+    },
+    "spmv": {
+        "repro_edge_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
+    "label_prop": {
+        "repro_edge_min_label": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
+    "frontier": {
+        "repro_frontier_expand": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
 }
 
 _LOCK = threading.Lock()
@@ -146,6 +158,19 @@ def check_input(t, dtype, what: str, device=None) -> None:
         raise ValueError(f"{what}: tensor is not contiguous")
     if device is not None and t.device != device:
         raise ValueError(f"{what}: on {t.device}, want {device}")
+
+
+def check_coo(src, dst, valid, what: str) -> None:
+    """The COO edge operands of the graph kernels: int32 ``src`` and
+    ``dst`` (``-1`` = no edge) and a bool ``valid``, one length, one
+    device."""
+    import torch
+
+    check_input(src, torch.int32, f"{what} src")
+    check_input(dst, torch.int32, f"{what} dst", device=src.device)
+    check_input(valid, torch.bool, f"{what} valid", device=src.device)
+    if not src.shape == dst.shape == valid.shape:
+        raise ValueError(f"{what}: src, dst and valid differ in length")
 
 
 def stream_ptr(device) -> int:

@@ -2,7 +2,7 @@
 
 Each wrapper launches its CUDA kernel for CUDA tensors and takes the plain
 PyTorch version for CPU tensors; :func:`resolve_use_kernel` decides whether
-the join path calls the wrappers at all.
+the join path and the graph algorithms call the wrappers at all.
 """
 from __future__ import annotations
 
@@ -11,14 +11,24 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import bloom as _bloom
+from repro_torch.kernels import frontier as _frontier
+from repro_torch.kernels import label_prop as _label_prop
+from repro_torch.kernels import segment_csr as _segment_csr
 from repro_torch.kernels import sorted_probe as _sorted_probe
+from repro_torch.kernels import spmv as _spmv
 
 sorted_probe = _sorted_probe.sorted_probe
 bloom_build = _bloom.bloom_build
 bloom_probe = _bloom.bloom_probe
+segment_counts = _segment_csr.segment_counts
+edge_spmv = _spmv.edge_spmv
+edge_min_label = _label_prop.edge_min_label
+frontier_expand = _frontier.frontier_expand
 
 WRAPPERS = {"sorted_probe": sorted_probe, "bloom_build": bloom_build,
-            "bloom_probe": bloom_probe}
+            "bloom_probe": bloom_probe, "segment_counts": segment_counts,
+            "edge_spmv": edge_spmv, "edge_min_label": edge_min_label,
+            "frontier_expand": frontier_expand}
 
 
 def resolve_use_kernel(use_kernel=None, device=None) -> bool:

@@ -2,14 +2,24 @@
 
 Each function is the semantic reference its CUDA kernel is held against,
 on the card by ``chip_smoke.py`` and the CUDA tests, and the path the
-wrappers take for tensors on the CPU.  They match
-``repro.kernels.ref`` of the JAX package bit for bit.
+wrappers take for tensors on the CPU.  They match ``repro.kernels.ref`` of
+the JAX package bit for bit, with two exceptions in the COO scatters: a
+``dst`` (or histogram value) outside ``[0, n)`` contributes nothing, which
+is the Pallas kernels' contract (the JAX reference wraps ``-1`` onto the
+last vertex), and ``edge_spmv`` sums float32 in the order of the scatter.
 """
 from __future__ import annotations
 
 import torch
 
 _U32 = 0xFFFFFFFF
+_INT32_MAX = 2**31 - 1
+
+
+def _gather_index(src: torch.Tensor, size: int) -> torch.Tensor:
+    """Source indices clipped into ``[0, size)``, as int64 for indexing
+    (the Pallas edge kernels clip the same way before their gathers)."""
+    return src.clamp(0, max(size - 1, 0)).to(torch.int64)
 
 
 def sorted_probe(sorted_keys: torch.Tensor, probe_keys: torch.Tensor):
@@ -18,6 +28,69 @@ def sorted_probe(sorted_keys: torch.Tensor, probe_keys: torch.Tensor):
     hi = torch.searchsorted(sorted_keys, probe_keys, right=True,
                             out_int32=True)
     return lo, hi
+
+
+def segment_counts(values: torch.Tensor, valid: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """Masked histogram: int32 counts of the valid ``values`` per bin.
+
+    A value outside ``[0, num_segments)`` is not counted.  The JAX
+    reference's ``mode="drop"`` scatter would wrap ``-1`` onto the last bin;
+    ``index_add_`` would raise on it, so out-of-range slots are masked
+    first, which is the Pallas kernel's contract.
+    """
+    keep = valid & (values >= 0) & (values < num_segments)
+    idx = torch.where(keep, values, torch.zeros_like(values)).to(torch.int64)
+    counts = torch.zeros((num_segments,), dtype=torch.int32,
+                         device=values.device)
+    return counts.index_add_(0, idx, keep.to(torch.int32))
+
+
+def _edge_keep(dst: torch.Tensor, valid: torch.Tensor, n: int):
+    """(keep mask, int64 scatter index): valid edges with ``dst`` in
+    ``[0, n)``; masked edges scatter a neutral value into slot 0."""
+    keep = valid & (dst >= 0) & (dst < n)
+    idx = torch.where(keep, dst, torch.zeros_like(dst)).to(torch.int64)
+    return keep, idx
+
+
+def edge_spmv(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
+              x: torch.Tensor, num_vertices: int) -> torch.Tensor:
+    """Push SpMV over COO edges, float32: ``y[v] = sum_{valid (u,v)} x[u]``."""
+    keep, idx = _edge_keep(dst, valid, num_vertices)
+    xf = x.to(torch.float32)
+    contrib = torch.where(keep, xf[_gather_index(src, xf.shape[0])],
+                          torch.zeros((), dtype=torch.float32,
+                                      device=x.device))
+    y = torch.zeros((num_vertices,), dtype=torch.float32, device=x.device)
+    return y.index_add_(0, idx, contrib)
+
+
+def edge_min_label(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
+                   labels: torch.Tensor, num_vertices: int) -> torch.Tensor:
+    """One min-label step: ``min(labels[v], min_{valid (u,v)} labels[u])``."""
+    keep, idx = _edge_keep(dst, valid, num_vertices)
+    lab = labels.to(torch.int32)
+    incoming = torch.where(keep, lab[_gather_index(src, lab.shape[0])],
+                           torch.full((), _INT32_MAX, dtype=torch.int32,
+                                      device=lab.device))
+    out = lab[:num_vertices].clone()
+    return out.scatter_reduce_(0, idx, incoming, reduce="amin",
+                               include_self=True)
+
+
+def frontier_expand(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
+                    frontier: torch.Tensor, visited: torch.Tensor,
+                    num_vertices: int) -> torch.Tensor:
+    """One BFS level: bool mask of vertices reached from the frontier over
+    a valid edge and not yet visited."""
+    keep, idx = _edge_keep(dst, valid, num_vertices)
+    front = frontier.to(torch.bool)
+    hit = keep & front[_gather_index(src, front.shape[0])]
+    reached = torch.zeros((num_vertices,), dtype=torch.int32,
+                          device=dst.device)
+    reached.scatter_reduce_(0, idx, hit.to(torch.int32), reduce="amax")
+    return (reached > 0) & ~visited.to(torch.bool)[:num_vertices]
 
 
 def _bloom_hashes(keys: torch.Tensor, num_bits: int, num_hashes: int):

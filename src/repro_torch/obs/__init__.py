@@ -19,6 +19,7 @@ Usage::
 """
 from repro_torch.obs.memory import (  # noqa: F401
     array_nbytes,
+    csr_nbytes,
     device_memory_stats,
     entry_nbytes,
     graph_nbytes,
@@ -50,7 +51,8 @@ __all__ = [
     "FAILURE_FAMILIES", "failure_counter", "get_registry", "CATEGORIES",
     "TRACER", "Tracer", "new_trace_id", "sanitize_trace_id", "set_enabled",
     "span", "span_tree_shape", "traced_call",
-    "array_nbytes", "table_nbytes", "graph_nbytes", "entry_nbytes",
+    "array_nbytes", "table_nbytes", "graph_nbytes", "csr_nbytes",
+    "entry_nbytes",
     "device_memory_stats",
 ]
 

@@ -3,9 +3,9 @@
 Two complementary views of "what does the engine hold on the device":
 
 * **Bottom-up** — :func:`entry_nbytes` sizes a cached object (Table,
-  ExtractedGraph, cached view/extraction wrappers) purely from tensor
-  metadata (``numel() * element_size()``), so accounting never forces a
-  device transfer.  The engine's ``_LRUCache``s use it to maintain
+  ExtractedGraph, CSRGraph, cached view/extraction wrappers) purely from
+  tensor metadata (``numel() * element_size()``), so accounting never
+  forces a device transfer.  The engine's ``_LRUCache``s use it to maintain
   per-cache resident-byte totals (``engine_cache_bytes`` gauges) and,
   optionally, byte-budget eviction.
 * **Top-down** — :func:`device_memory_stats` samples PyTorch's CUDA caching
@@ -13,8 +13,8 @@ Two complementary views of "what does the engine hold on the device":
   ``device_memory_bytes{device,kind}`` gauges; ``{}`` on the CPU.
 
 Sizing is duck-typed on structural attributes rather than importing the
-relational layer: ``obs`` sits at the bottom of the dependency stack and
-must not import upward.
+relational/graph layers: ``obs`` sits at the bottom of the dependency
+stack and must not import upward.
 """
 from __future__ import annotations
 
@@ -25,8 +25,8 @@ import torch
 
 from repro_torch.obs.metrics import REGISTRY
 
-__all__ = ["array_nbytes", "table_nbytes", "graph_nbytes", "entry_nbytes",
-           "device_memory_stats"]
+__all__ = ["array_nbytes", "table_nbytes", "graph_nbytes", "csr_nbytes",
+           "entry_nbytes", "device_memory_stats"]
 
 
 def array_nbytes(a) -> int:
@@ -42,6 +42,15 @@ def table_nbytes(t) -> int:
     """A relational ``Table``: every column plus the validity mask."""
     total = sum(array_nbytes(c) for c in t.columns.values())
     return total + array_nbytes(t.valid)
+
+
+def csr_nbytes(csr) -> int:
+    """A ``CSRGraph``: vertex ids plus per-label offset/target/source."""
+    total = array_nbytes(getattr(csr, "vertex_ids", None))
+    for field in ("offsets", "targets", "sources"):
+        arrays = getattr(csr, field, None) or {}
+        total += sum(array_nbytes(a) for a in arrays.values())
+    return total
 
 
 def graph_nbytes(g) -> int:
@@ -67,6 +76,8 @@ def entry_nbytes(value) -> int:
         return 0
     if hasattr(value, "columns") and hasattr(value, "valid"):
         return table_nbytes(value)                      # Table
+    if hasattr(value, "offsets") and hasattr(value, "vertex_ids"):
+        return csr_nbytes(value)                        # CSRGraph
     if hasattr(value, "vertices") and hasattr(value, "edges"):
         return graph_nbytes(value)                      # ExtractedGraph
     if hasattr(value, "pattern") and hasattr(value, "table"):

@@ -193,5 +193,7 @@ def test_engine_rejects_unported_modes(dbs):
     engine = tapi.ExtractionEngine(td)
     with pytest.raises(NotImplementedError, match="incremental"):
         engine.extract(tdata.fraud_model("store"), auto_refresh=True)
-    with pytest.raises(ValueError, match="baselines"):
-        engine.extract(tdata.fraud_model("store"), method="ringo")
+    with pytest.raises(NotImplementedError, match="incremental"):
+        engine.analyze(tdata.fraud_model("store"), auto_refresh=True)
+    with pytest.raises(ValueError, match="unknown method"):
+        engine.extract(tdata.fraud_model("store"), method="sqlgraph")

@@ -156,8 +156,10 @@ def test_cpu_tensors_never_launch():
     kops.sorted_probe(k, k)
     kops.bloom_probe(kops.bloom_build(k, torch.ones(64, dtype=torch.bool),
                                       256), k)
-    assert kops.launch_counts() == {"sorted_probe": 0, "bloom_build": 0,
-                                    "bloom_probe": 0}
+    assert kops.launch_counts() == {
+        "sorted_probe": 0, "bloom_build": 0, "bloom_probe": 0,
+        "segment_counts": 0, "edge_spmv": 0, "edge_min_label": 0,
+        "frontier_expand": 0}
 
 
 def test_port_imports_no_jax_and_no_reference():
