@@ -41,9 +41,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
 7. Analytics on the JS-MV graph (dblp scale=100, ~25M edges): PageRank and
    WCC through the kernels against the plain-torch path on the same CSR:
    WCC exactly, PageRank to the tolerance of phase 6.
+8. The LM serving path.  (a) ``flash_attention`` against its plain version
+   in bf16 at the main path's shapes (qwen2.5-3b prefill B 4 x S 2048,
+   16/2 heads, Dh 128, causal; gemma-2b Dh 256; h2o-danube-3-4b S 8192,
+   Dh 120, window 4096) and at the edge cases, to the reference test's
+   rtol = atol = 2e-2: the kernel rounds the probabilities to bf16 before
+   P V, the plain version does not, and both round the output to bf16 once,
+   so they may sit a bf16 ulp or two apart.  Timed like phase 3; its bound
+   counts the attended (i, j) pairs of this run (4 Dh flops each) over the
+   989 TFLOP/s of bf16 tensor cores, and its library yardstick is
+   ``scaled_dot_product_attention``.  (b) qwen2.5-3b at full width on one
+   card (36 layers, d 2048, vocab 151,936; random bf16 weights from a seeded
+   ``torch.Generator``): ``prefill`` of 4 prompts of 2,048 tokens, then 32
+   greedy ``decode_step``s, with the flash kernel launched once per layer
+   of the prefill.  Then the same prefill and first decode step on the
+   plain attention path: the last logits and the first step's logits must
+   agree to ``LM_REL_TOL`` x std(logits) (see there).
 
-Launch counters are set to 0 just before each of phases 4–7 and read just
-after; every kernel of a path must have launched inside it.  The last lines
+Launch counters are set to 0 just before each of phases 4–7 and 8b and read
+just after; every kernel of a path must have launched inside it.  The last lines
 are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
@@ -74,6 +90,19 @@ SPMV_BOUND_FACTOR = 2.0       # x the recursive-summation bound
 KHOP_SEEDS, KHOP_K = 8, 3
 PR_ITERS = 20
 
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
+FLASH_TOL = 2e-2              # rtol = atol of tests/test_kernels.py
+LM_ARCH = "qwen2.5-3b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 32
+# max |kernel - plain| / std(plain logits).  The two paths differ only in
+# where the attention probabilities are rounded to bf16, so each layer's
+# attention output may move by a bf16 ulp (2**-8 relative), and the moves
+# of 36 layers carry through the residual stream to the logits.  Measured
+# on the CPU at depth 36 (d 64-256, vocab 4096) with float32 probabilities
+# on one side: 0.08, the max over 16k logits; over 4 x 151,936 it sits a
+# little further out.  A mask or indexing fault moves logits by O(1) x std.
+LM_REL_TOL = 0.25
+
 
 def log(*parts) -> None:
     print(*parts, flush=True)
@@ -102,9 +131,11 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = INT_OPS_PER_S):
+    """The larger of bytes over HBM bandwidth and operations over their peak
+    rate (32-bit integer by default; bf16 tensor cores for attention)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -121,13 +152,14 @@ def max_abs_err(torch, got, want) -> int:
 def record_rows(torch, rows, name, source, replaces, cases, compare=None):
     """Check and time each case of one kernel; append its JSON row.
 
-    cases: [(label, run_kernel, run_plain, run_library, nbytes, ops)].
+    cases: [(label, run_kernel, run_plain, run_library, nbytes, ops)], with
+    an optional seventh item, the operations' peak rate (``bound_ms``).
     ``compare(got, want) -> max_abs_err`` raises when the two disagree
     beyond the kernel's tolerance; the default demands exact equality.
     """
     out_cases = []
     worst = 0
-    for label, run_k, run_p, run_l, nbytes, ops in cases:
+    for label, run_k, run_p, run_l, nbytes, ops, *rate in cases:
         got, want = run_k(), run_p()
         if compare is not None:
             err = compare(got, want)
@@ -144,7 +176,7 @@ def record_rows(torch, rows, name, source, replaces, cases, compare=None):
         k2 = cuda_ms(torch, run_k)
         p2 = cuda_ms(torch, run_p)
         lib = cuda_ms(torch, run_l) if run_l is not None else None
-        b, by = bound_ms(nbytes, ops)
+        b, by = bound_ms(nbytes, ops, *rate)
         out_cases.append({"shape": label, "ms": min(k1, k2),
                           "plain_ms": min(p1, p2), "library_ms": lib,
                           "bound_ms": b, "bound_by": by})
@@ -583,6 +615,201 @@ def analytics_mv(torch, kops, ref, ExtractionEngine, db, model):
     return counts, timing
 
 
+def attended_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(i, j) pairs the flash kernel's masks keep: j < sk, i >= j when
+    causal, i - j < window."""
+    import numpy as np
+
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i + 1, sk) if causal else np.full(sq, sk, np.int64)
+    lo = np.maximum(i - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_compare(torch):
+    """``compare`` for flash_attention: bf16 outputs within rtol = atol =
+    FLASH_TOL of the plain version; returns max |kernel - plain|."""
+    def compare(got, want):
+        assert got.dtype == want.dtype == torch.bfloat16
+        assert got.shape == want.shape
+        assert bool(torch.isfinite(got.float()).all()), "non-finite output"
+        diff = (got.float() - want.float()).abs()
+        bad = diff > FLASH_TOL + FLASH_TOL * want.float().abs()
+        assert not bool(bad.any()), \
+            f"flash_attention: {int(bad.sum())} outputs beyond {FLASH_TOL}"
+        return float(diff.max()) if diff.numel() else 0.0
+    return compare
+
+
+def check_flash_kernel(torch, kops, ref):
+    """Phase 8a: flash_attention against its plain version in bf16, at the
+    LM path's shapes (timed) and at the edge cases."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    compare = flash_compare(torch)
+
+    def qkv(b, sq, sk, hq, hkv, dh):
+        return [torch.randn((b, s, h, dh), generator=gen, device=dev)
+                .to(torch.bfloat16) for s, h in ((sq, hq), (sk, hkv),
+                                                 (sk, hkv))]
+
+    edge = [  # (B, Sq, Sk, Hq, Hkv, Dh, causal, window)
+        ("S 1", (1, 1, 1, 2, 1, 64), True, None),
+        ("S 200, Dh 32", (2, 200, 200, 4, 2, 32), True, None),
+        ("non-causal", (1, 256, 256, 4, 2, 128), False, None),
+        ("window 64, Dh 16", (1, 300, 300, 4, 4, 16), True, 64),
+        ("MQA, S 333", (1, 333, 333, 8, 1, 64), True, None),
+        ("Sk > Sq", (1, 64, 300, 2, 1, 64), False, None),
+        ("S 200, Dh 120, window 64", (1, 200, 200, 4, 2, 120), True, 64),
+    ]
+    for name, shape, causal, window in edge:
+        q, k, v = qkv(*shape)
+        compare(kops.flash_attention(q, k, v, causal=causal, window=window),
+                ref.flash_attention(q, k, v, causal=causal, window=window))
+    log(f"edge cases: flash_attention {len(edge)} within {FLASH_TOL}")
+
+    def case(label, b, s, hq, hkv, dh, window):
+        q, k, v = qkv(b, s, s, hq, hkv, dh)
+        # the library yardstick: (B, H, S, Dh) copies with K/V expanded to
+        # Hq heads, prepared outside the timing; a window needs a mask
+        qt, kt, vt = (x.transpose(1, 2).repeat_interleave(hq // x.shape[2],
+                                                          dim=1).contiguous()
+                      for x in (q, k, v))
+        mask = None
+        if window is not None:
+            i = torch.arange(s, device=dev)
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                                 < window)
+
+        def library():
+            if mask is None:
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        pairs = attended_pairs(s, s, True, window)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        return (label,
+                lambda: kops.flash_attention(q, k, v, window=window),
+                lambda: ref.flash_attention(q, k, v, window=window),
+                library, nbytes, 4 * b * hq * dh * pairs, BF16_FLOPS_PER_S)
+
+    rows = []
+    record_rows(torch, rows, "flash_attention",
+                "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:32",
+                [case(f"{LM_ARCH} prefill B 4 S 2048 16/2 Dh 128 causal",
+                      4, 2048, 16, 2, 128, None),
+                 case("gemma-2b B 1 S 2048 8/1 Dh 256 causal",
+                      1, 2048, 8, 1, 256, None),
+                 case("h2o-danube-3-4b B 1 S 8192 32/8 Dh 120 window 4096",
+                      1, 8192, 32, 8, 120, 4096)],
+                compare=compare)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_lm(torch, kops):
+    """Phase 8b: qwen2.5-3b at full width: prefill + greedy decode through
+    the flash kernel, then the plain attention path on the same inputs."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"LM: {cfg.name} layers {cfg.num_layers} d_model {cfg.d_model} "
+        f"vocab {cfg.vocab_size}: {n_params} parameters (bf16 weights) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(dev)
+    batch = {"tokens": tokens}
+    max_len = LM_PROMPT + LM_STEPS
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    (logits, cache), prefill_s = timed(
+        lambda: prefill(params, cfg, batch, max_len))
+    prefill_launches = kops.launch_counts()["flash_attention"]
+    first_logits = logits
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    step_logits = []
+
+    def decode():
+        nonlocal cache, tok
+        for _ in range(LM_STEPS):
+            out, cache = decode_step(params, cfg, cache, tok)
+            step_logits.append(out)
+            tok = torch.argmax(out, dim=-1).to(torch.int32)
+
+    _, decode_s = timed(decode)
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert prefill_launches == cfg.num_layers, \
+        f"flash_attention launched {prefill_launches} times in the prefill"
+    assert counts["flash_attention"] == cfg.num_layers, \
+        "decode steps launched the flash kernel"
+    for out in [first_logits] + step_logits:
+        assert out.shape == (LM_BATCH, cfg.vocab_size)
+        assert out.dtype == torch.float32
+        assert bool(torch.isfinite(out).all()), "non-finite logits"
+    assert int(cache["pos"]) == LM_PROMPT + LM_STEPS
+    first_tok = torch.argmax(first_logits, dim=-1).to(torch.int32)
+    first_step = step_logits[0]
+    del cache
+
+    # the same prefill and first decode step on the plain attention path
+    (plain_logits, plain_cache), plain_prefill_s = timed(
+        lambda: prefill(params, cfg, batch, max_len, use_kernel=False))
+    plain_step, _ = decode_step(params, cfg, plain_cache, first_tok)
+    del plain_cache
+    _, warm_prefill_s = timed(lambda: prefill(params, cfg, batch, max_len))
+    agree = {}
+    for what, got, want in (("prefill", first_logits, plain_logits),
+                            ("step 1", first_step, plain_step)):
+        rel = float((got - want).abs().max() / want.std())
+        same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        agree[what] = {"max_abs_over_std": rel, "argmax_agreement": same}
+        assert rel <= LM_REL_TOL, \
+            f"LM {what}: kernel vs plain {rel:.4f} x std > {LM_REL_TOL}"
+    timing = {
+        "arch": cfg.name, "batch": LM_BATCH, "prompt": LM_PROMPT,
+        "decode_steps": LM_STEPS, "prefill_s": prefill_s,
+        "prefill_s_warm": warm_prefill_s,
+        "plain_prefill_s": plain_prefill_s,
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+        "decode_ms_per_step": decode_s / LM_STEPS * 1e3,
+        "decode_tokens_per_s": LM_BATCH * LM_STEPS / decode_s,
+        "max_memory_allocated_gib": peak / 2**30,
+        "kernel_vs_plain": agree, "launches": counts}
+    log(f"LM serve: {json.dumps(timing)}")
+    return counts, timing
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def digests(edges):
     from repro_torch.relational.ops import table_digest
 
@@ -613,6 +840,9 @@ def main() -> int:
     from repro_torch.relational.ops import table_digest
 
     assert "jax" not in sys.modules and "repro" not in sys.modules
+    # float32 matmuls and convolutions in full float32 (the plain versions)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 1. the card
     smi = nvidia_smi()
@@ -711,10 +941,18 @@ def main() -> int:
     # 7. analytics on the JS-MV graph
     counts_mva, _ = analytics_mv(torch, kops, ref, ExtractionEngine, dblp,
                                  model)
+    del dblp
+    torch.cuda.empty_cache()
+
+    # 8. the LM serving path: the flash kernel, then qwen2.5-3b full width
+    log("flash_attention vs plain (bf16), CUDA-event times:")
+    flash_rows = check_flash_kernel(torch, kops, ref)
+    counts_lm, _ = serve_lm(torch, kops)
 
     by_path = {"js_oj": counts_oj, "js_mv": counts_mv,
-               "js_oj_analytics": counts_oja, "js_mv_analytics": counts_mva}
-    kernel_rows += graph_rows
+               "js_oj_analytics": counts_oja, "js_mv_analytics": counts_mva,
+               "lm_serve": counts_lm}
+    kernel_rows += graph_rows + flash_rows
     for row in kernel_rows:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}

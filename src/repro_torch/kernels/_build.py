@@ -49,6 +49,10 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "frontier": {
         "repro_frontier_expand": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
+    "flash_attention": {
+        "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _P),
+    },
 }
 
 _LOCK = threading.Lock()

@@ -2,7 +2,8 @@
 
 Each wrapper launches its CUDA kernel for CUDA tensors and takes the plain
 PyTorch version for CPU tensors; :func:`resolve_use_kernel` decides whether
-the join path and the graph algorithms call the wrappers at all.
+the join path, the graph algorithms and the LM's self-attention call the
+wrappers at all.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import bloom as _bloom
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import frontier as _frontier
 from repro_torch.kernels import label_prop as _label_prop
 from repro_torch.kernels import segment_csr as _segment_csr
@@ -24,16 +26,19 @@ segment_counts = _segment_csr.segment_counts
 edge_spmv = _spmv.edge_spmv
 edge_min_label = _label_prop.edge_min_label
 frontier_expand = _frontier.frontier_expand
+flash_attention = _flash.flash_attention
 
 WRAPPERS = {"sorted_probe": sorted_probe, "bloom_build": bloom_build,
             "bloom_probe": bloom_probe, "segment_counts": segment_counts,
             "edge_spmv": edge_spmv, "edge_min_label": edge_min_label,
-            "frontier_expand": frontier_expand}
+            "frontier_expand": frontier_expand,
+            "flash_attention": flash_attention}
 
 
 def resolve_use_kernel(use_kernel=None, device=None) -> bool:
     """The one kernel-vs-plain policy: ``None`` auto-picks — the kernels on
-    a CUDA device, the plain versions on the CPU.  ``device=None`` means
+    a CUDA device, the plain versions on the CPU (the join path, the graph
+    algorithms, and the LM's self-attention).  ``device=None`` means
     the CUDA card when there is one."""
     if use_kernel is not None:
         return bool(use_kernel)

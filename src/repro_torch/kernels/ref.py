@@ -10,6 +10,8 @@ last vertex), and ``edge_spmv`` sums float32 in the order of the scatter.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 _U32 = 0xFFFFFFFF
@@ -129,3 +131,33 @@ def bloom_probe(bits: torch.Tensor, keys: torch.Tensor,
     for i in range(num_hashes):
         hit = hit & (bits[pos[i]] > 0)
     return hit
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """Dense GQA attention oracle for the flash kernel, in float32.
+
+    ``q`` (B, Sq, Hq, Dh), ``k``/``v`` (B, Sk, Hkv, Dh); query head ``h``
+    reads kv head ``h // (Hq // Hkv)``.  No positions argument: the q/k
+    indices ARE the positions, as in the kernel's masks (``j < Sk``, plus
+    ``i >= j`` when causal, plus ``i - j < window``).  The output is in q's
+    dtype.  A query row with no key to attend (only when Sq > Sk under a
+    window) is 0, the kernel's contract; the JAX reference averages all
+    keys there.
+    """
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = (q.to(torch.float32) / math.sqrt(dh)).reshape(b, sq, hkv, g, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(torch.float32))
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    out = out.masked_fill(~mask.any(dim=-1)[None, :, None, None, None], 0.0)
+    return out.reshape(b, sq, hq, dh).to(q.dtype)

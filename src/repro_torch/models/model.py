@@ -1,0 +1,343 @@
+"""The composable LM for the ``attn`` / ``swa`` layer kinds (dense, vlm).
+
+The port of ``repro.models.model``.  ``num_layers`` is split into *cycles*
+of ``block_pattern`` (plus a tail if not divisible); per-cycle parameters
+are stacked along a leading axis, as in JAX, and a Python loop over that
+axis takes the place of ``lax.scan``.  The parameter tree has JAX's keys,
+dtypes and layouts, so :func:`params_from_jax` carries the JAX package's
+parameters across unchanged.
+
+Entry points:
+  forward(params, cfg, batch)              full-sequence logits
+  prefill(params, cfg, batch, max_len)     (in ``decode``) last logits, cache
+  decode_step(params, cfg, cache, token)   (in ``decode``) one token
+
+On a CUDA tensor, self-attention over a whole sequence goes through the
+hand-written flash kernel (``kernels.ops.flash_attention``); the CPU, and
+``use_kernel=False``, take the plain :func:`layers.attention`.  MoE
+(``moe.py``), the recurrent kinds (``recurrent.py``) and the encoder
+(``_encode``) are not ported yet and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import (
+    ACT_DTYPE,
+    _rounded,
+    attention,
+    chunked_attention,
+    dense_init,
+    gated_mlp,
+    rmsnorm,
+    rope,
+)
+from repro_torch.relational.table import resolve_device
+
+P = Dict[str, Any]
+
+_UNPORTED = ("{what} is not ported yet (ROADMAP.md §1, item 12: the LM "
+             "stack's moe.py, recurrent.py and the encoder); the port runs "
+             "the attn / swa layer kinds of the dense and vlm families")
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    if cfg.moe is not None:
+        raise NotImplementedError(_UNPORTED.format(what=f"{cfg.name}: MoE"))
+    if cfg.encoder is not None:
+        raise NotImplementedError(
+            _UNPORTED.format(what=f"{cfg.name}: the encoder"))
+    other = sorted({k for k in cfg.block_pattern if k not in ("attn", "swa")})
+    if other:
+        raise NotImplementedError(_UNPORTED.format(
+            what=f"{cfg.name}: layer kinds {other}"))
+
+
+@dataclasses.dataclass
+class ActSharding:
+    """Activation sharding constraints of the JAX package (None = none).
+
+    The port runs on one card, where every activation is whole; sharded
+    activations come with ``launch/`` (ROADMAP.md §1, item 12), and any
+    field set here raises ``NotImplementedError``.
+    """
+
+    hidden: Any = None
+    heads: Any = None
+    kv: Any = None
+    ffn: Any = None
+    expert: Any = None
+    logits: Any = None
+    moe_mesh: Any = None
+    moe_dp_axes: Any = ()
+
+
+def check_unsharded(sh: Optional[ActSharding]) -> None:
+    if sh is not None and any(dataclasses.astuple(sh)):
+        raise NotImplementedError(
+            "sharded activations are not ported yet (ROADMAP.md §1, item "
+            "12: launch/); the port runs on one card")
+
+
+# ---------------------------------------------------------------------------
+# parameter construction
+# ---------------------------------------------------------------------------
+
+def _init_attn(gen, cfg: ArchConfig, device) -> P:
+    p = {
+        "wq": dense_init(gen, (cfg.d_model, cfg.q_dim), device=device),
+        "wk": dense_init(gen, (cfg.d_model, cfg.kv_dim), device=device),
+        "wv": dense_init(gen, (cfg.d_model, cfg.kv_dim), device=device),
+        "wo": dense_init(gen, (cfg.q_dim, cfg.d_model), device=device),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                        ("bv", cfg.kv_dim)):
+            p[name] = torch.zeros((n,), dtype=ACT_DTYPE, device=device)
+    return p
+
+
+def _init_ffn(gen, cfg: ArchConfig, device) -> P:
+    if cfg.mlp == "none" or cfg.d_ff == 0:
+        return {}
+    return {
+        "w_gate": dense_init(gen, (cfg.d_model, cfg.d_ff), device=device),
+        "w_up": dense_init(gen, (cfg.d_model, cfg.d_ff), device=device),
+        "w_down": dense_init(gen, (cfg.d_ff, cfg.d_model), device=device),
+    }
+
+
+def _init_layer(gen, kind: str, cfg: ArchConfig, device) -> P:
+    def norm():
+        return torch.zeros((cfg.d_model,), dtype=torch.float32,
+                           device=device)
+
+    p: P = {"norm1": norm(), "attn": _init_attn(gen, cfg, device)}
+    ffn = _init_ffn(gen, cfg, device)
+    if ffn:
+        p["norm2"] = norm()
+        p["ffn"] = ffn
+    return p
+
+
+def _tree_map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _take(tree, i: int):
+    """Cycle ``i`` of a tree stacked on its leading axis (views)."""
+    return _tree_map(lambda x: x[i], tree)
+
+
+def _stack_into(out, i: int, one) -> None:
+    if isinstance(one, dict):
+        for k, v in one.items():
+            _stack_into(out[k], i, v)
+    else:
+        out[i].copy_(one)
+
+
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
+                device=None) -> P:
+    """Random parameters with the JAX package's tree (keys, shapes, dtypes).
+
+    ``device=None`` means the CUDA card (raises without one).  Weights are
+    drawn from ``generator`` (on its own device, then moved); the numbers
+    differ from ``jax.random``'s, so parity tests carry JAX's parameters
+    across with :func:`params_from_jax`.  ``device="meta"`` allocates
+    nothing and needs no generator (the counterpart of ``abstract_params``).
+    Cycles are written layer by layer into their stacked tensors, so the
+    peak is one layer above the parameters.
+    """
+    check_supported(cfg)
+    device = resolve_device(device)
+    if generator is None and device.type != "meta":
+        raise ValueError("init_params: a torch.Generator is required")
+    pat = cfg.block_pattern
+    n_cycles, tail = divmod(cfg.num_layers, len(pat))
+
+    def cycle():
+        return {f"s{j}_{kind}": _init_layer(generator, kind, cfg, device)
+                for j, kind in enumerate(pat)}
+
+    cycles: P = {}
+    if n_cycles:
+        first = cycle()
+        cycles = _tree_map(lambda x: x.new_empty((n_cycles,) + x.shape),
+                           first)
+        for i in range(n_cycles):
+            _stack_into(cycles, i, first if i == 0 else cycle())
+        del first
+
+    params: P = {
+        "embed": dense_init(generator, (cfg.vocab_size, cfg.d_model),
+                            scale=0.02, device=device),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                  device=device),
+        "cycles": cycles,
+    }
+    for t in range(tail):
+        params[f"tail_{t}"] = _init_layer(generator, pat[t], cfg, device)
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size),
+                                    scale=0.02, device=device)
+    if cfg.frontend == "patch":
+        params["patch_proj"] = dense_init(
+            generator, (cfg.d_model, cfg.d_model), device=device)
+    return params
+
+
+def abstract_params(cfg: ArchConfig) -> P:
+    """The parameter tree on the ``meta`` device: shapes, no allocation."""
+    return init_params(cfg, device="meta")
+
+
+def _tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a, order="C")            # a writable copy
+    if a.dtype.name == "bfloat16":         # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(tree, device=None) -> P:
+    """The JAX package's parameter tree, as numpy arrays (``np.asarray`` of
+    each leaf), as the port's tree: same keys, dtypes and layouts.  bf16
+    leaves keep their bits.  ``device=None`` means the CUDA card."""
+    device = resolve_device(device)
+    return _tree_map(lambda a: _tensor_from_numpy(a, device), tree)
+
+
+# ---------------------------------------------------------------------------
+# forward pieces
+# ---------------------------------------------------------------------------
+
+def _qkv(p: P, cfg: ArchConfig, x, positions):
+    """Projected, biased, roped q (B,S,Hq,Dh) and k, v (B,S,Hkv,Dh)."""
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q = q + p["bq"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def _attn_apply(p: P, cfg: ArchConfig, x, positions, kind: str,
+                use_kernel: bool = False):
+    """Full-sequence causal self-attention block (cross-attention is the
+    encoder's, not ported).  Returns (out, (k, v)): the roped keys and the
+    values are what ``prefill`` writes into the cache.
+
+    ``positions`` are ``arange(S)`` (``_embed``), which are exactly the
+    flash kernel's iota masks.
+    """
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, positions)
+    window = cfg.window if kind == "swa" else None
+    if use_kernel:
+        out = kops.flash_attention(q, k, v, causal=True, window=window)
+    elif cfg.force_chunked_attn and s > 1:
+        out = chunked_attention(q, k, v, positions, positions, causal=True,
+                                window=window)
+    else:
+        out = attention(q, k, v, positions, positions, causal=True,
+                        window=window)
+    return out.reshape(b, s, cfg.q_dim) @ p["wo"], (k, v)
+
+
+def _ffn_apply(p: P, cfg: ArchConfig, x):
+    if "ffn" not in p:
+        return None
+    return gated_mlp(rmsnorm(x, p["norm2"]), p["ffn"], cfg.mlp)
+
+
+def _layer_seq(p: P, kind: str, cfg: ArchConfig, x, positions,
+               use_kernel: bool = False):
+    """One block, full sequence.  Returns (x, (k, v) of its attention)."""
+    h = rmsnorm(x, p["norm1"])
+    mixed, kv = _attn_apply(p["attn"], cfg, h, positions, kind, use_kernel)
+    x = x + mixed
+    ffn = _ffn_apply(p, cfg, x)
+    if ffn is not None:
+        x = x + ffn
+    return x, kv
+
+
+def _embed(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
+    """Token (+ patch frontend) embedding -> (x, positions)."""
+    tokens = batch["tokens"]
+    x = params["embed"][tokens.to(torch.int64)].to(ACT_DTYPE)
+    if cfg.family in ("dense", "moe", "vlm", "hybrid", "ssm") and \
+            cfg.frontend == "patch" and "embeds" in batch:
+        pe = batch["embeds"].to(ACT_DTYPE) @ params["patch_proj"]
+        x = torch.cat([pe, x], dim=1)
+    if cfg.family in ("dense", "hybrid") and cfg.name.startswith(
+            ("gemma", "recurrentgemma")):
+        x = x * embed_scale(cfg)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    return x, positions
+
+
+def embed_scale(cfg: ArchConfig) -> float:
+    """gemma's ``sqrt(d_model)``, taken in float32 and rounded to bf16."""
+    return _rounded(_rounded(math.sqrt(cfg.d_model), torch.float32),
+                    ACT_DTYPE)
+
+
+def logits_of(params: P, x) -> torch.Tensor:
+    """float32 logits of the final hidden states (tied or own head)."""
+    head = params.get("head")
+    logits = x @ params["embed"].T if head is None else x @ head
+    return logits.to(torch.float32)
+
+
+def layers_of(params: P, cfg: ArchConfig):
+    """(parameters, kind, cycle index or tail name) of every layer, in
+    order; cycle parameters are views into the stacked tensors."""
+    pat = cfg.block_pattern
+    n_cycles = cfg.num_layers // len(pat)
+    for i in range(n_cycles if params["cycles"] else 0):
+        cp = _take(params["cycles"], i)
+        for j, kind in enumerate(pat):
+            yield cp[f"s{j}_{kind}"], kind, (i, f"s{j}_{kind}")
+    t = 0
+    while f"tail_{t}" in params:
+        yield params[f"tail_{t}"], pat[t], f"tail_{t}"
+        t += 1
+
+
+def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            sh: Optional[ActSharding] = None,
+            use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Full-sequence float32 logits (B, S, V).
+
+    ``use_kernel=None`` takes the flash kernel on a CUDA device and the
+    plain attention on the CPU (``kernels.ops.resolve_use_kernel``).  JAX's
+    ``remat`` is a training option and comes with training.
+    """
+    check_supported(cfg)
+    check_unsharded(sh)
+    x, positions = _embed(params, cfg, batch)
+    use_kernel = kops.resolve_use_kernel(use_kernel, x.device)
+    for p, kind, _ in layers_of(params, cfg):
+        x, _ = _layer_seq(p, kind, cfg, x, positions, use_kernel)
+    return logits_of(params, rmsnorm(x, params["final_norm"]))

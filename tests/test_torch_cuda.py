@@ -1,0 +1,315 @@
+"""The hand-written CUDA kernels against their plain versions, on a card.
+
+This file imports neither ``jax`` nor ``repro``, so it runs on a machine
+with a card and PyTorch alone:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Every test is marked ``cuda`` and skips without a card (decided in the
+``cuda`` fixture, never at import).  Integer and bool kernels must equal
+their plain versions exactly.  ``edge_spmv`` sums float32 with atomics in
+an order that changes from run to run, so it and its plain version are
+each held, per vertex, to twice the recursive-summation bound of a float64
+sum of the same inputs.  ``flash_attention`` runs in bf16 and is held to
+the reference test's rtol = atol = 2e-2: the kernel rounds the softmax
+probabilities to bf16 before P V and the plain version keeps them in
+float32, and each output is rounded to bf16 once, so the two may sit a
+bf16 ulp or two apart (2**-7 relative at most per ulp).
+"""
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as tref
+
+NULL32 = np.int32(2**31 - 1)
+FLASH_TOL = 2e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(a, device="cpu"):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _coo_case(name):
+    """Small COO edge cases on a fixed seed (as in test_torch_graph.py)."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if name == "single_vertex":
+        # one vertex, a self-loop, plus an invalid padding slot
+        return (np.array([0, 0], np.int32), np.array([0, 0], np.int32),
+                np.array([True, False]), 1)
+    if name == "all_invalid":
+        n_e = 16
+        return (rng.integers(0, 8, n_e).astype(np.int32),
+                rng.integers(0, 8, n_e).astype(np.int32),
+                np.zeros(n_e, bool), 8)
+    if name == "neg_dst":
+        # -1 destinations on valid slots: the kernels' contract drops them
+        n_e, n_v = 300, 50
+        dst = rng.integers(0, n_v, n_e).astype(np.int32)
+        dst[rng.random(n_e) < 0.3] = -1
+        return (rng.integers(0, n_v, n_e).astype(np.int32), dst,
+                rng.random(n_e) < 0.9, n_v)
+    raise KeyError(name)
+
+
+def _spmv_bound(src, dst, valid, x, n):
+    """float64 sums and twice the recursive-summation bound per vertex."""
+    keep = valid & (dst >= 0) & (dst < n)
+    s, d = src[keep], dst[keep]
+    y64 = np.bincount(d, weights=x[s].astype(np.float64), minlength=n)
+    deg = np.bincount(d, minlength=n)
+    absum = np.bincount(d, weights=np.abs(x[s]).astype(np.float64),
+                        minlength=n)
+    return y64, 2.0 * deg * 2.0**-24 * absum + 1e-30
+
+
+# ---------------------------------------------------------------------------
+# the join kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sorted,n_probe", [(1, 1), (7, 63), (5000, 3000),
+                                              (100_000, 2_880_000)])
+def test_cuda_sorted_probe_matches_plain(cuda, n_sorted, n_probe):
+    rng = np.random.default_rng(n_sorted + n_probe)
+    sk = _t(np.sort(rng.integers(-50, n_sorted, n_sorted)).astype(np.int32),
+            cuda)
+    pk = _t(rng.integers(-100, n_sorted + 100, n_probe).astype(np.int32),
+            cuda)
+    before = kops.launch_counts()["sorted_probe"]
+    lo, hi = kops.sorted_probe(sk, pk)
+    rlo, rhi = tref.sorted_probe(sk, pk)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["sorted_probe"] == before + 1
+    assert torch.equal(lo, rlo) and torch.equal(hi, rhi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bits,num_hashes", [(1, 256, 2), (5000, 1024, 3),
+                                               (2_880_000, 16384, 2)])
+def test_cuda_bloom_matches_plain(cuda, n, bits, num_hashes):
+    rng = np.random.default_rng(n)
+    keys = _t(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32), cuda)
+    valid = _t(rng.random(n) < 0.8, cuda)
+    got = kops.bloom_build(keys, valid, bits, num_hashes)
+    want = tref.bloom_build(keys, valid, bits, num_hashes)
+    assert torch.equal(got, want)
+    assert torch.equal(kops.bloom_probe(got, keys, num_hashes),
+                       tref.bloom_probe(want, keys, num_hashes))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_edge_cases_match_plain(cuda):
+    null = torch.full((16,), int(NULL32), dtype=torch.int32, device=cuda)
+    empty = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    for sk, pk in ((null, null[:7]), (empty, null), (null, empty)):
+        got, want = kops.sorted_probe(sk, pk), tref.sorted_probe(sk, pk)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    bits = kops.bloom_build(empty, empty.bool(), 256)
+    assert int(bits.sum()) == 0
+    assert kops.bloom_probe(bits, empty).shape == (0,)
+
+
+# ---------------------------------------------------------------------------
+# the graph kernels
+# ---------------------------------------------------------------------------
+
+def _zipf_edges(n_edges, n_v, device, seed=0):
+    """COO edges with Zipf sources (hubs) and a few -1 / invalid slots."""
+    rng = np.random.default_rng(seed)
+    src = np.minimum(rng.zipf(1.3, n_edges) - 1, n_v - 1).astype(np.int32)
+    dst = np.minimum(rng.zipf(1.2, n_edges) - 1, n_v - 1).astype(np.int32)
+    dst[rng.random(n_edges) < 0.01] = -1
+    valid = rng.random(n_edges) < 0.95
+    return _t(src, device), _t(dst, device), _t(valid, device)
+
+
+EDGE_SIZES = [(1, 1), (5_000, 700), (5_760_000, 600_502)]
+
+
+def _launched(name, fn):
+    before = kops.launch_counts()[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert kops.launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_edges,n_v", EDGE_SIZES)
+def test_cuda_segment_counts_matches_plain(cuda, n_edges, n_v):
+    src, _, valid = _zipf_edges(n_edges, n_v, cuda)
+    got = _launched("segment_counts",
+                    lambda: kops.segment_counts(src, valid, n_v))
+    assert torch.equal(got, tref.segment_counts(src, valid, n_v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_edges,n_v", EDGE_SIZES)
+def test_cuda_edge_spmv_matches_plain(cuda, n_edges, n_v):
+    src, dst, valid = _zipf_edges(n_edges, n_v, cuda)
+    x = _t(np.random.default_rng(1).normal(size=n_v).astype(np.float32), cuda)
+    got = _launched("edge_spmv",
+                    lambda: kops.edge_spmv(src, dst, valid, x, n_v))
+    want = tref.edge_spmv(src, dst, valid, x, n_v)
+    y64, bound = _spmv_bound(_np(src), _np(dst), _np(valid), _np(x), n_v)
+    # atomics sum in another order: both within the bound of the exact sum
+    assert (np.abs(_np(got) - y64) <= bound).all()
+    assert (np.abs(_np(want) - y64) <= bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_edges,n_v", EDGE_SIZES)
+def test_cuda_edge_min_label_matches_plain(cuda, n_edges, n_v):
+    src, dst, valid = _zipf_edges(n_edges, n_v, cuda)
+    labels = _t(np.random.default_rng(2).permutation(n_v).astype(np.int32),
+                cuda)
+    got = _launched("edge_min_label",
+                    lambda: kops.edge_min_label(src, dst, valid, labels, n_v))
+    assert torch.equal(got, tref.edge_min_label(src, dst, valid, labels, n_v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_edges,n_v", EDGE_SIZES)
+def test_cuda_frontier_expand_matches_plain(cuda, n_edges, n_v):
+    src, dst, valid = _zipf_edges(n_edges, n_v, cuda)
+    rng = np.random.default_rng(3)
+    frontier = _t(rng.random(n_v) < 0.1, cuda)
+    visited = _t(rng.random(n_v) < 0.2, cuda) | frontier
+    got = _launched("frontier_expand", lambda: kops.frontier_expand(
+        src, dst, valid, frontier, visited, n_v))
+    assert torch.equal(got, tref.frontier_expand(src, dst, valid, frontier,
+                                                 visited, n_v))
+
+
+@pytest.mark.cuda
+def test_cuda_graph_edge_cases_match_plain(cuda):
+    empty = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    none = empty.bool()
+    before = kops.launch_counts()
+    assert torch.equal(kops.segment_counts(empty, none, 5),
+                       torch.zeros(5, dtype=torch.int32, device=cuda))
+    assert torch.equal(kops.edge_spmv(empty, empty, none,
+                                      torch.ones(3, device=cuda), 3),
+                       torch.zeros(3, device=cuda))
+    assert kops.launch_counts() == before          # empty: no launch
+    for case in ("single_vertex", "all_invalid", "neg_dst"):
+        src, dst, valid, n = _coo_case(case)
+        s, d, v = _t(src, cuda), _t(dst, cuda), _t(valid, cuda)
+        lab = torch.arange(n, dtype=torch.int32, device=cuda).flip(0)
+        front = torch.ones(n, dtype=torch.bool, device=cuda)
+        seen = torch.zeros(n, dtype=torch.bool, device=cuda)
+        assert torch.equal(kops.segment_counts(d, v, n),
+                           tref.segment_counts(d, v, n))
+        assert torch.equal(kops.edge_min_label(s, d, v, lab, n),
+                           tref.edge_min_label(s, d, v, lab, n))
+        assert torch.equal(kops.frontier_expand(s, d, v, front, seen, n),
+                           tref.frontier_expand(s, d, v, front, seen, n))
+        x = torch.ones(n, device=cuda)
+        assert torch.equal(kops.edge_spmv(s, d, v, x, n),
+                           tref.edge_spmv(s, d, v, x, n))   # small integers
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the LM slice
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [
+    # (B, Sq, Sk, Hq, Hkv, Dh, causal, window)
+    pytest.param(4, 2048, 2048, 16, 2, 128, True, None, id="qwen2.5-3b"),
+    pytest.param(1, 2048, 2048, 8, 1, 256, True, None, id="gemma-2b"),
+    pytest.param(1, 8192, 8192, 32, 8, 120, True, 4096, id="h2o-danube"),
+    pytest.param(1, 1, 1, 2, 1, 64, True, None, id="s1"),
+    pytest.param(2, 200, 200, 4, 2, 32, True, None, id="s200-d32"),
+    pytest.param(1, 256, 256, 4, 2, 128, False, None, id="non-causal"),
+    pytest.param(1, 300, 300, 4, 4, 16, True, 64, id="window64-d16"),
+    pytest.param(1, 333, 333, 8, 1, 64, True, None, id="mqa"),
+    pytest.param(1, 64, 300, 2, 1, 64, False, None, id="sk>sq"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,dh,causal,window", FLASH_SHAPES)
+def test_cuda_flash_attention_matches_plain(cuda, b, sq, sk, hq, hkv, dh,
+                                            causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(sq + dh)
+    q, k, v = (torch.randn((b, s, h, dh), generator=gen, device=cuda)
+               .to(torch.bfloat16) for s, h in ((sq, hq), (sk, hkv),
+                                                (sk, hkv)))
+    got = _launched("flash_attention", lambda: kops.flash_attention(
+        q, k, v, causal=causal, window=window))
+    want = tref.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=FLASH_TOL,
+                               atol=FLASH_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        kops.flash_attention(q, q, q)
+    odd = torch.zeros((1, 8, 2, 100), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kops.flash_attention(odd, odd, odd)
+    qb = q.to(torch.bfloat16).requires_grad_()
+    with pytest.raises(ValueError, match="requires grad"):
+        kops.flash_attention(qb, qb.detach(), qb.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "h2o-danube-3-4b",
+                                  "gemma-2b"])
+def test_cuda_lm_kernel_path_matches_plain_path(cuda, arch):
+    """The smoke model on the card: forward and prefill through the flash
+    kernel against the plain attention path, then decode steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, forward, init_params, prefill
+
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    tokens = _t(rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int32),
+                cuda)
+    batch = {"tokens": tokens}
+    before = kops.launch_counts()["flash_attention"]
+    fast = forward(params, cfg, batch)
+    assert kops.launch_counts()["flash_attention"] == before + \
+        cfg.num_layers
+    plain = forward(params, cfg, batch, use_kernel=False)
+    # logits std ~0.16: the two attentions round their probabilities to
+    # bf16 at other places, so hidden states sit a bf16 ulp or so apart
+    torch.testing.assert_close(fast, plain, rtol=2.5e-2, atol=2.5e-2)
+    logits, cache = prefill(params, cfg, batch, 48)
+    plain_logits, plain_cache = prefill(params, cfg, batch, 48,
+                                        use_kernel=False)
+    torch.testing.assert_close(logits, plain_logits, rtol=2.5e-2,
+                               atol=2.5e-2)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    for _ in range(4):
+        logits, cache = decode_step(params, cfg, cache, tok)
+        plain_logits, plain_cache = decode_step(params, cfg, plain_cache,
+                                                tok)
+        torch.testing.assert_close(logits, plain_logits, rtol=2.5e-2,
+                                   atol=2.5e-2)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    assert int(cache["pos"]) == 44

@@ -20,8 +20,8 @@ equal exactly.  Float outputs carry a stated tolerance:
   (rank ~0.1) sum hundreds of terms, where the order alone moves a float32
   sum by up to ``deg * 2**-24 * sum`` (~2e-6 absolute, 2e-5 relative).
 
-Tests marked ``cuda`` hold the CUDA kernels against the plain versions on a
-card and skip without one.
+The CUDA kernels are held against the plain versions on a card by the
+jax-free ``tests/test_torch_cuda.py``.
 """
 import collections
 import dataclasses
@@ -215,7 +215,7 @@ def test_graph_wrappers_reject_bad_inputs():
 
 
 def test_cpu_graph_wrappers_never_launch():
-    """(f) CPU tensors take the plain versions: all seven counters stay 0."""
+    """(f) CPU tensors take the plain versions: all eight counters stay 0."""
     kops.reset_launch_counts()
     src, dst, valid, n = _coo_case("ragged")
     s, d, v = _t(src), _t(dst), _t(valid)
@@ -228,10 +228,12 @@ def test_cpu_graph_wrappers_never_launch():
     kops.sorted_probe(k, k)
     kops.bloom_probe(kops.bloom_build(k, torch.ones(64, dtype=torch.bool),
                                       256), k)
+    kv = torch.zeros(1, 4, 1, 8)
+    kops.flash_attention(torch.zeros(1, 4, 2, 8), kv, kv)
     counts = kops.launch_counts()
     assert set(counts) == {"sorted_probe", "bloom_build", "bloom_probe",
                            "segment_counts", "edge_spmv", "edge_min_label",
-                           "frontier_expand"}
+                           "frontier_expand", "flash_attention"}
     assert all(v == 0 for v in counts.values()), counts
 
 
@@ -537,111 +539,3 @@ def test_extract_graph_is_deprecated_and_runs_baselines(baseline_dbs):
                                        method="graphgen")
     assert graph.fingerprint() == jgraph.fingerprint()
     assert timings.plan_s == 0.0
-
-
-# ---------------------------------------------------------------------------
-# on the card: the CUDA kernels against the plain versions
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
-
-def _zipf_edges(n_edges, n_v, device, seed=0):
-    """COO edges with Zipf sources (hubs) and a few -1 / invalid slots."""
-    rng = np.random.default_rng(seed)
-    src = np.minimum(rng.zipf(1.3, n_edges) - 1, n_v - 1).astype(np.int32)
-    dst = np.minimum(rng.zipf(1.2, n_edges) - 1, n_v - 1).astype(np.int32)
-    dst[rng.random(n_edges) < 0.01] = -1
-    valid = rng.random(n_edges) < 0.95
-    return _t(src, device), _t(dst, device), _t(valid, device)
-
-
-EDGE_SIZES = [(1, 1), (5_000, 700), (5_760_000, 600_502)]
-
-
-def _launched(name, fn):
-    before = kops.launch_counts()[name]
-    out = fn()
-    torch.cuda.synchronize()
-    assert kops.launch_counts()[name] == before + 1
-    return out
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_edges,n_v", EDGE_SIZES)
-def test_cuda_segment_counts_matches_plain(cuda, n_edges, n_v):
-    src, _, valid = _zipf_edges(n_edges, n_v, cuda)
-    got = _launched("segment_counts",
-                    lambda: kops.segment_counts(src, valid, n_v))
-    assert torch.equal(got, tref.segment_counts(src, valid, n_v))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_edges,n_v", EDGE_SIZES)
-def test_cuda_edge_spmv_matches_plain(cuda, n_edges, n_v):
-    src, dst, valid = _zipf_edges(n_edges, n_v, cuda)
-    x = _t(np.random.default_rng(1).normal(size=n_v).astype(np.float32), cuda)
-    got = _launched("edge_spmv",
-                    lambda: kops.edge_spmv(src, dst, valid, x, n_v))
-    want = tref.edge_spmv(src, dst, valid, x, n_v)
-    y64, bound = _spmv_bound(_np(src), _np(dst), _np(valid), _np(x), n_v)
-    # atomics sum in another order: both within the bound of the exact sum
-    assert (np.abs(_np(got) - y64) <= bound).all()
-    assert (np.abs(_np(want) - y64) <= bound).all()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_edges,n_v", EDGE_SIZES)
-def test_cuda_edge_min_label_matches_plain(cuda, n_edges, n_v):
-    src, dst, valid = _zipf_edges(n_edges, n_v, cuda)
-    labels = _t(np.random.default_rng(2).permutation(n_v).astype(np.int32),
-                cuda)
-    got = _launched("edge_min_label",
-                    lambda: kops.edge_min_label(src, dst, valid, labels, n_v))
-    assert torch.equal(got, tref.edge_min_label(src, dst, valid, labels, n_v))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_edges,n_v", EDGE_SIZES)
-def test_cuda_frontier_expand_matches_plain(cuda, n_edges, n_v):
-    src, dst, valid = _zipf_edges(n_edges, n_v, cuda)
-    rng = np.random.default_rng(3)
-    frontier = _t(rng.random(n_v) < 0.1, cuda)
-    visited = _t(rng.random(n_v) < 0.2, cuda) | frontier
-    got = _launched("frontier_expand", lambda: kops.frontier_expand(
-        src, dst, valid, frontier, visited, n_v))
-    assert torch.equal(got, tref.frontier_expand(src, dst, valid, frontier,
-                                                 visited, n_v))
-
-
-@pytest.mark.cuda
-def test_cuda_graph_edge_cases_match_plain(cuda):
-    empty = torch.zeros((0,), dtype=torch.int32, device=cuda)
-    none = empty.bool()
-    before = kops.launch_counts()
-    assert torch.equal(kops.segment_counts(empty, none, 5),
-                       torch.zeros(5, dtype=torch.int32, device=cuda))
-    assert torch.equal(kops.edge_spmv(empty, empty, none,
-                                      torch.ones(3, device=cuda), 3),
-                       torch.zeros(3, device=cuda))
-    assert kops.launch_counts() == before          # empty: no launch
-    for case in ("single_vertex", "all_invalid", "neg_dst"):
-        src, dst, valid, n = _coo_case(case)
-        s, d, v = _t(src, cuda), _t(dst, cuda), _t(valid, cuda)
-        lab = torch.arange(n, dtype=torch.int32, device=cuda).flip(0)
-        front = torch.ones(n, dtype=torch.bool, device=cuda)
-        seen = torch.zeros(n, dtype=torch.bool, device=cuda)
-        assert torch.equal(kops.segment_counts(d, v, n),
-                           tref.segment_counts(d, v, n))
-        assert torch.equal(kops.edge_min_label(s, d, v, lab, n),
-                           tref.edge_min_label(s, d, v, lab, n))
-        assert torch.equal(kops.frontier_expand(s, d, v, front, seen, n),
-                           tref.frontier_expand(s, d, v, front, seen, n))
-        x = torch.ones(n, device=cuda)
-        assert torch.equal(kops.edge_spmv(s, d, v, x, n),
-                           tref.edge_spmv(s, d, v, x, n))   # small integers
-    torch.cuda.synchronize()

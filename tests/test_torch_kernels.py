@@ -3,9 +3,9 @@
 Inputs are made with numpy from a seed and fed to ``repro`` (Pallas kernels
 in interpret mode, and ``repro.kernels.ref``) and to ``repro_torch`` on the
 CPU, where the wrappers take their plain PyTorch versions.  Outputs are
-integers or bools, so every comparison is exact (tolerance 0).  Tests
-marked ``cuda`` hold the CUDA kernels against the plain versions on a card
-and skip without one.
+integers or bools, so every comparison is exact (tolerance 0).  The CUDA
+kernels are held against the plain versions on a card by the jax-free
+``tests/test_torch_cuda.py``.
 """
 import os
 import subprocess
@@ -159,11 +159,12 @@ def test_cpu_tensors_never_launch():
     assert kops.launch_counts() == {
         "sorted_probe": 0, "bloom_build": 0, "bloom_probe": 0,
         "segment_counts": 0, "edge_spmv": 0, "edge_min_label": 0,
-        "frontier_expand": 0}
+        "frontier_expand": 0, "flash_attention": 0}
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Every repro_torch module imports without jax and without repro."""
+    """Every repro_torch module (the LM's models, configs and flash kernel
+    included) imports without jax and without repro."""
     code = (
         "import pkgutil, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
@@ -171,12 +172,16 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'repro' or n.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "need = ['repro_torch.models.decode', 'repro_torch.models.layers',"
+        " 'repro_torch.configs.registry', 'repro_torch.configs.qwen2_5_3b',"
+        " 'repro_torch.kernels.flash_attention']\n"
+        "assert all(n in sys.modules for n in need), need\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 45
 
 
 def test_entry_points_raise_without_a_card():
@@ -191,56 +196,3 @@ def test_entry_points_raise_without_a_card():
         make_dblp(scale=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         Table.from_arrays(a=np.arange(4, dtype=np.int32))
-
-
-# -- on the card: CUDA kernels against the plain versions -----------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_sorted,n_probe", [(1, 1), (7, 63), (5000, 3000),
-                                              (100_000, 2_880_000)])
-def test_cuda_sorted_probe_matches_plain(cuda, n_sorted, n_probe):
-    rng = np.random.default_rng(n_sorted + n_probe)
-    sk = _t(np.sort(rng.integers(-50, n_sorted, n_sorted)).astype(np.int32),
-            cuda)
-    pk = _t(rng.integers(-100, n_sorted + 100, n_probe).astype(np.int32),
-            cuda)
-    before = kops.launch_counts()["sorted_probe"]
-    lo, hi = kops.sorted_probe(sk, pk)
-    rlo, rhi = tref.sorted_probe(sk, pk)
-    torch.cuda.synchronize()
-    assert kops.launch_counts()["sorted_probe"] == before + 1
-    assert torch.equal(lo, rlo) and torch.equal(hi, rhi)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,bits,num_hashes", [(1, 256, 2), (5000, 1024, 3),
-                                               (2_880_000, 16384, 2)])
-def test_cuda_bloom_matches_plain(cuda, n, bits, num_hashes):
-    rng = np.random.default_rng(n)
-    keys = _t(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32), cuda)
-    valid = _t(rng.random(n) < 0.8, cuda)
-    got = kops.bloom_build(keys, valid, bits, num_hashes)
-    want = tref.bloom_build(keys, valid, bits, num_hashes)
-    assert torch.equal(got, want)
-    assert torch.equal(kops.bloom_probe(got, keys, num_hashes),
-                       tref.bloom_probe(want, keys, num_hashes))
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-def test_cuda_edge_cases_match_plain(cuda):
-    null = torch.full((16,), int(NULL32), dtype=torch.int32, device=cuda)
-    empty = torch.zeros((0,), dtype=torch.int32, device=cuda)
-    for sk, pk in ((null, null[:7]), (empty, null), (null, empty)):
-        got, want = kops.sorted_probe(sk, pk), tref.sorted_probe(sk, pk)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
-    bits = kops.bloom_build(empty, empty.bool(), 256)
-    assert int(bits.sum()) == 0
-    assert kops.bloom_probe(bits, empty).shape == (0,)

@@ -1,0 +1,482 @@
+"""The port's LM slice against the JAX package, on the CPU.
+
+The same numpy inputs (made from a seed) go through ``repro`` and
+``repro_torch``; parameters are drawn by JAX's ``init_params`` and carried
+across with ``params_from_jax``.  Tolerances, each with its reason:
+
+* Flash attention, plain version against the Pallas kernel in interpret
+  mode, float32: rtol = atol = 1e-5.  Both take the same float32 inputs and
+  compute in float32; they differ only in the order of the sums and in the
+  online softmax's rescaling, a few ulps of values below ~5 (measured
+  < 1e-6), where the reference test allows 2e-2 for its bf16-capable path.
+* Layers in float32: rtol = atol = 1e-5 (sum order only), except RoPE at
+  positions up to 32k: 2e-4, because XLA's float32 sin/cos reduce their
+  argument with an error that grows with it (measured 1.1e-4 at 32768
+  radians, 2.4e-7 below 64).  In bf16:
+  rtol = atol = 2**-6, two bf16 ulps: both round the same float32 values to
+  bf16, and a float32 result a few ulps apart may round one bf16 ulp apart.
+* The whole model in bf16 (the JAX package's fixed ``ACT_DTYPE``): logits
+  within atol = rtol = 2.5e-2, about three bf16 ulps at |logit| ~ 1 (the
+  logits' std is ~0.16).  Every matmul rounds its bf16 output once, with
+  the float32 sums in another order in each framework, so hidden states
+  drift by an ulp here and there (measured max 0.0078); ``test_arch_smoke``
+  allows 0.15 for prefill against decode inside one framework.  The k/v
+  caches (values up to ~4) are held to rtol = atol = 2**-5, two ulps.
+  Decode steps are teacher-forced with JAX's argmax, so a near-tie cannot
+  make the two sequences diverge.
+"""
+import dataclasses
+import functools
+import json
+import runpy
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+import repro.models as jmodels
+import repro.models.config as jconfig
+import repro.models.layers as jlayers
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+import repro_torch.configs as tconfigs
+import repro_torch.models as tmodels
+import repro_torch.models.config as tconfig
+import repro_torch.models.layers as tlayers
+from repro_torch.kernels import _build
+from repro_torch.kernels import ops as kops
+
+ROOT = Path(__file__).resolve().parents[1]
+FLASH_TOL = 1e-5
+F32_TOL = 1e-5
+ROPE_FAR_TOL = 2e-4
+BF16_TOL = 2.0**-6
+LOGIT_TOL = 2.5e-2
+CACHE_TOL = 2.0**-5
+DENSE_ARCHS = ["gemma-2b", "qwen2.5-3b", "llama3.2-3b", "h2o-danube-3-4b",
+               "internvl2-1b"]
+OTHER_ARCHS = [a for a in jconfigs.ARCH_IDS if a not in DENSE_ARCHS]
+B, S, DECODE_STEPS = 2, 20, 8        # S > h2o-danube's SMOKE window of 8
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).numpy() \
+            if x.dtype == torch.bfloat16 else x.detach().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32)
+                      if x.dtype == jnp.bfloat16 else x)
+
+
+def _both(a, dtype="float32"):
+    """One numpy array as a JAX array and a torch tensor of ``dtype``."""
+    return (jnp.asarray(a, getattr(jnp, dtype)),
+            torch.from_numpy(np.asarray(a, np.float32)).to(
+                getattr(torch, dtype)))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the plain version against the Pallas kernel
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    pytest.param(sq, hq, hkv, dh, causal, window,
+                 id=f"s{sq}-h{hq}x{hkv}-d{dh}-{tag}")
+    for sq, hq, hkv, dh in [(128, 2, 1, 64), (256, 4, 2, 128),
+                            (200, 2, 2, 32)]
+    for causal, window, tag in [(True, None, "causal"), (True, 64, "win64"),
+                                (False, None, "full")]
+] + [pytest.param(200, 4, 2, 120, True, 64, id="s200-h4x2-d120-win64")]
+
+
+@pytest.mark.parametrize("sq,hq,hkv,dh,causal,window", FLASH_CASES)
+def test_flash_attention_plain_matches_pallas(sq, hq, hkv, dh, causal,
+                                              window):
+    rng = np.random.default_rng(sq + hq + dh)
+    q, k, v = (rng.normal(size=(1, sq, h, dh)).astype(np.float32)
+               for h in (hq, hkv, hkv))
+    got = kops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal=causal, window=window)
+    assert got.dtype == torch.float32 and tuple(got.shape) == q.shape
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = pallas_flash(jq, jk, jv, causal=causal, window=window,
+                        interpret=True)
+    _close(got, want, FLASH_TOL)
+    _close(got, jref.flash_attention(jq, jk, jv, causal=causal,
+                                     window=window), FLASH_TOL)
+
+
+def test_flash_attention_keeps_q_dtype_and_rows_without_keys():
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, s, 2, 16)).astype(
+        np.float32)).to(torch.bfloat16) for s in (12, 4, 4))
+    out = kops.flash_attention(q, k, v, causal=True, window=2)
+    assert out.dtype == torch.bfloat16
+    # rows 5.. see no key (i - j >= 2 for every j < 4): written as 0
+    assert torch.equal(out[:, 5:], torch.zeros_like(out[:, 5:]))
+    want = jref.flash_attention(*(jnp.asarray(_np(t), jnp.bfloat16)
+                                  for t in (q, k, v)), causal=True, window=2)
+    _close(out[:, :5], np.asarray(want, np.float32)[:, :5], BF16_TOL)
+
+
+def test_flash_attention_rejects_bad_inputs():
+    q = torch.zeros(1, 8, 4, 16)
+    k = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="requires grad"):
+        kops.flash_attention(q.clone().requires_grad_(), k, k)
+    with pytest.raises(ValueError, match="multiple"):
+        kops.flash_attention(q, torch.zeros(1, 8, 3, 16),
+                             torch.zeros(1, 8, 3, 16))
+    with pytest.raises(ValueError, match="disagree"):
+        kops.flash_attention(q, k, torch.zeros(1, 9, 2, 16))
+    with pytest.raises(ValueError, match="want"):
+        kops.flash_attention(q[0], k, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.flash_attention(q.transpose(1, 2), k, k)
+    with pytest.raises(TypeError):
+        kops.flash_attention(q, k.to(torch.bfloat16), k)
+    with pytest.raises(ValueError, match="window"):
+        kops.flash_attention(q, k, k, window=0)
+
+
+def test_flash_attention_has_no_fallback_off_the_cpu():
+    """Only a CPU tensor takes the plain version: any other device launches
+    the kernel or raises, and the kernel cannot be built without nvcc."""
+    meta = torch.empty(1, 8, 2, 16, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        kops.flash_attention(meta, meta, meta)
+    try:
+        _build.nvcc_path()
+    except RuntimeError:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.library("flash_attention")
+    assert "flash_attention" in _build.SIGNATURES
+    assert kops.WRAPPERS["flash_attention"] is kops.flash_attention
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL),
+                                       ("bfloat16", BF16_TOL)])
+def test_rmsnorm_and_rope_match_jax(dtype, tol):
+    rng = np.random.default_rng(3)
+    jx, tx = _both(rng.normal(size=(2, 7, 4, 32)), dtype)
+    js, ts = _both(rng.normal(size=(32,)) * 0.1, "float32")
+    _close(tlayers.rmsnorm(tx, ts), jlayers.rmsnorm(jx, js), tol)
+    for high, rope_tol in ((512, tol), (32768, max(tol, ROPE_FAR_TOL))):
+        pos = rng.integers(0, high, (2, 7)).astype(np.int32)
+        for theta in (10_000.0, 1_000_000.0):
+            got = tlayers.rope(tx, torch.from_numpy(pos), theta)
+            assert got.dtype == tx.dtype
+            _close(got, jlayers.rope(jx, jnp.asarray(pos), theta), rope_tol)
+
+
+def _attn_inputs(rng, b, sq, sk, hq, hkv, dh, dtype):
+    return [_both(rng.normal(size=(b, s, h, dh)), dtype)
+            for s, h in ((sq, hq), (sk, hkv), (sk, hkv))]
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL),
+                                       ("bfloat16", BF16_TOL)])
+@pytest.mark.parametrize("case", ["causal", "window", "kv_valid", "decode",
+                                  "cross"])
+def test_attention_matches_jax(case, dtype, tol):
+    rng = np.random.default_rng(len(case))
+    b, sq, sk = 2, 12, 12
+    if case == "decode":
+        sq, sk = 1, 16
+    elif case == "cross":
+        sk = 9
+    (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(rng, b, sq, sk, 4, 2, 16,
+                                                dtype)
+    q_pos = np.broadcast_to(np.arange(sq, dtype=np.int32), (b, sq))
+    k_pos = np.broadcast_to(np.arange(sk, dtype=np.int32), (b, sk))
+    kw = {"causal": case != "cross"}
+    if case == "window":
+        kw["window"] = 4
+    if case in ("kv_valid", "decode"):
+        valid = rng.random((b, sk)) < 0.7
+        valid[:, 0] = True
+        if case == "decode":
+            q_pos = np.full((b, 1), sk - 1, np.int32)
+            kw["window"] = 6
+        kw_j = dict(kw, kv_valid=jnp.asarray(valid))
+        kw_t = dict(kw, kv_valid=torch.from_numpy(valid))
+    else:
+        kw_j = kw_t = kw
+    got = tlayers.attention(tq, tk, tv, torch.from_numpy(q_pos.copy()),
+                            torch.from_numpy(k_pos.copy()), **kw_t)
+    want = jlayers.attention(jq, jk, jv, jnp.asarray(q_pos),
+                             jnp.asarray(k_pos), **kw_j)
+    assert got.dtype == tq.dtype
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("case", ["causal", "window", "kv_valid"])
+def test_chunked_attention_matches_dense_and_jax(case, monkeypatch):
+    """Small chunks (8) over S = 20, so the padding path runs; and
+    ``attention`` routes to the chunked path above ``CHUNK_THRESHOLD``."""
+    rng = np.random.default_rng(7)
+    b, s = 2, 20
+    (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(rng, b, s, s, 4, 1, 16,
+                                                "float32")
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    kw = {"causal": True, "window": 5 if case == "window" else None}
+    valid = None
+    if case == "kv_valid":
+        valid = rng.random((b, s)) < 0.8
+        valid[:, 0] = True
+    tkw = dict(kw, kv_valid=None if valid is None else torch.from_numpy(
+        valid))
+    jkw = dict(kw, kv_valid=None if valid is None else jnp.asarray(valid))
+    tpos = torch.from_numpy(pos)
+    dense = tlayers.attention(tq, tk, tv, tpos, tpos, **tkw)
+    chunked = tlayers.chunked_attention(tq, tk, tv, tpos, tpos, q_chunk=8,
+                                        k_chunk=8, **tkw)
+    _close(chunked, dense, F32_TOL)
+    want = jlayers.chunked_attention(jq, jk, jv, jnp.asarray(pos),
+                                     jnp.asarray(pos), q_chunk=8, k_chunk=8,
+                                     **jkw)
+    _close(chunked, want, F32_TOL)
+    monkeypatch.setattr(tlayers, "CHUNK_THRESHOLD", s - 1)
+    routed = tlayers.attention(tq, tk, tv, tpos, tpos, **tkw)
+    _close(routed, dense, F32_TOL)
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "geglu"])
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL),
+                                       ("bfloat16", BF16_TOL)])
+def test_gated_mlp_matches_jax(kind, dtype, tol):
+    rng = np.random.default_rng(11)
+    jx, tx = _both(rng.normal(size=(2, 5, 32)), dtype)
+    jp, tp = {}, {}
+    for name, shape in (("w_gate", (32, 48)), ("w_up", (32, 48)),
+                        ("w_down", (48, 32))):
+        jp[name], tp[name] = _both(rng.normal(size=shape) / np.sqrt(
+            shape[0]), dtype)
+    got = tlayers.gated_mlp(tx, tp, kind)
+    assert got.dtype == tx.dtype
+    _close(got, jlayers.gated_mlp(jx, jp, kind), 2 * tol)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_configs_match_jax(arch):
+    for get in ("get_config", "get_smoke_config"):
+        jc = getattr(jconfigs, get)(arch)
+        tc = getattr(tconfigs, get)(arch)
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+        assert tc.n_params() == jc.n_params()
+        assert tc.n_active_params() == jc.n_active_params()
+        assert tc.layer_kinds() == jc.layer_kinds()
+        assert (tc.q_dim, tc.kv_dim) == (jc.q_dim, jc.kv_dim)
+
+
+def test_registry_and_shapes_match_jax():
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert {a: dataclasses.asdict(c)
+            for a, c in tconfigs.all_configs().items()} == \
+        {a: dataclasses.asdict(c) for a, c in jconfigs.all_configs().items()}
+    assert {k: dataclasses.asdict(v) for k, v in tconfig.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jconfig.SHAPES.items()}
+    assert tconfig.SHAPES["train_4k"].tokens == 4096 * 256
+    with pytest.raises(KeyError):
+        tconfigs.get_config("gpt-2")
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_meta_params_match_abstract_params(arch):
+    """Full size, no allocation: the port's tree has JAX's keys, shapes and
+    dtypes."""
+    cfg = tconfigs.get_config(arch)
+    got = _leaves(tmodels.init_params(cfg, device="meta"))
+    want = _leaves(jmodels.abstract_params(jconfigs.get_config(arch)))
+    assert got.keys() == want.keys()
+    for key, t in got.items():
+        assert t.device.type == "meta", key
+        assert tuple(t.shape) == tuple(want[key].shape), key
+        assert str(t.dtype).replace("torch.", "") == str(want[key].dtype), key
+    n = sum(t.numel() for t in got.values())
+    # ArchConfig.n_params counts the attention biases and patch_proj out
+    assert abs(n - cfg.n_params()) <= cfg.num_layers * 3 * cfg.q_dim \
+        + cfg.d_model ** 2
+
+
+@pytest.mark.parametrize("arch", OTHER_ARCHS)
+def test_unported_kinds_raise(arch):
+    cfg = tconfigs.get_smoke_config(arch)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodels.init_params(cfg, gen, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodels.init_cache(cfg, 1, 8, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the slice: forward, prefill, decode against the JAX package
+# ---------------------------------------------------------------------------
+
+def _max_len(jc):
+    extra = jc.frontend_len if jc.frontend == "patch" else 0
+    return S + extra + DECODE_STEPS + 2
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(arch):
+    """JAX parameters, the port's copy of them, one seeded batch, and the
+    JAX package's forward logits and prefill (one jit for both)."""
+    jc = jconfigs.get_smoke_config(arch)
+    tc = tconfigs.get_smoke_config(arch)
+    jp = jmodels.init_params(jc, jax.random.PRNGKey(0))
+    tp = tmodels.params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                 device="cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, jc.vocab_size, (B, S)).astype(np.int32)
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    if jc.frontend == "patch":
+        e = rng.normal(size=(B, jc.frontend_len, jc.d_model)).astype(
+            np.float32)
+        jb["embeds"], tb["embeds"] = jnp.asarray(e), torch.from_numpy(e)
+    jout = jax.jit(lambda p, b: (
+        jmodels.forward(p, jc, b),
+        jmodels.prefill(p, jc, b, max_len=_max_len(jc))))(jp, jb)
+    return jc, tc, jp, tp, jb, tb, jout
+
+
+def test_params_from_jax_keeps_the_tree():
+    jc, tc, jp, tp, _, _, _ = _setup("qwen2.5-3b")
+    jl, tl = _leaves(jp), _leaves(tp)
+    assert jl.keys() == tl.keys()
+    for key, t in tl.items():
+        want = np.asarray(jl[key])
+        assert tuple(t.shape) == want.shape, key
+        assert str(t.dtype).replace("torch.", "") == str(want.dtype), key
+        # bf16 bits carried across unchanged
+        np.testing.assert_array_equal(_np(t), want.astype(np.float32))
+    assert tl["/cycles/s0_attn/attn/wq"].shape[0] == jc.num_layers
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_forward_matches_jax(arch):
+    jc, tc, jp, tp, jb, tb, (want, _) = _setup(arch)
+    got = tmodels.forward(tp, tc, tb)
+    extra = jc.frontend_len if jc.frontend == "patch" else 0
+    assert got.dtype == torch.float32
+    assert tuple(got.shape) == (B, S + extra, jc.vocab_size)
+    _close(got, want, LOGIT_TOL)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_prefill_and_decode_match_jax(arch):
+    jc, tc, jp, tp, jb, tb, (_, (jlog, jcache)) = _setup(arch)
+    extra = jc.frontend_len if jc.frontend == "patch" else 0
+    tlog, tcache = tmodels.prefill(tp, tc, tb, _max_len(jc))
+    _close(tlog, jlog, LOGIT_TOL)
+    assert int(tcache["pos"]) == int(jcache["pos"]) == S + extra
+    assert tcache["pos"].dtype == torch.int32
+    assert tcache["cycles"].keys() == jcache["cycles"].keys()
+    for slot, lc in jcache["cycles"].items():
+        for key in ("k", "v"):
+            assert tuple(tcache["cycles"][slot][key].shape) == \
+                lc[key].shape
+            _close(tcache["cycles"][slot][key], lc[key], CACHE_TOL)
+    step = jax.jit(lambda p, c, t: jmodels.decode_step(p, jc, c, t))
+    for i in range(DECODE_STEPS):
+        tok = np.asarray(jnp.argmax(jlog, axis=-1)).astype(np.int32)
+        jlog, jcache = step(jp, jcache, jnp.asarray(tok))
+        tlog, tcache = tmodels.decode_step(tp, tc, tcache,
+                                           torch.from_numpy(tok))
+        assert tuple(tlog.shape) == (B, jc.vocab_size), i
+        _close(tlog, jlog, LOGIT_TOL)
+    assert int(tcache["pos"]) == S + extra + DECODE_STEPS
+    for slot, lc in jcache["cycles"].items():   # the ring buffer wrapped
+        _close(tcache["cycles"][slot]["k"], lc["k"], CACHE_TOL)
+
+
+def test_kernel_path_on_the_cpu_takes_the_plain_flash_version():
+    """``use_kernel=True`` on CPU tensors goes through the wrapper, which
+    takes its float32 plain version: no launch, and the logits agree with
+    the plain attention (bf16 probabilities) to the model tolerance."""
+    _, tc, _, tp, _, tb, _ = _setup("h2o-danube-3-4b")
+    kops.reset_launch_counts()
+    plain = tmodels.forward(tp, tc, tb)
+    via_wrapper = tmodels.forward(tp, tc, tb, use_kernel=True)
+    logits, _ = tmodels.prefill(tp, tc, tb, S + 4, use_kernel=True)
+    assert kops.launch_counts()["flash_attention"] == 0
+    _close(via_wrapper, plain, LOGIT_TOL)
+    _close(logits, plain[:, -1], LOGIT_TOL)
+
+
+def test_sharded_activations_raise():
+    _, tc, _, tp, _, tb, _ = _setup("qwen2.5-3b")
+    with pytest.raises(NotImplementedError, match="sharded"):
+        tmodels.forward(tp, tc, tb, sh=tmodels.ActSharding(hidden="x"))
+    assert tmodels.forward(tp, tc, tb, sh=tmodels.ActSharding()).shape[1] \
+        == S
+
+
+def test_init_params_draws_seeded_weights():
+    cfg = tconfigs.get_smoke_config("gemma-2b")
+    a = tmodels.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    b = tmodels.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    la, lb = _leaves(a), _leaves(b)
+    assert all(torch.equal(la[k], lb[k]) for k in la)
+    wq = la["/cycles/s0_attn/attn/wq"]
+    assert not torch.equal(wq[0], wq[1])             # cycles drawn apart
+    assert abs(float(wq.float().std()) * np.sqrt(cfg.d_model) - 1) < 0.1
+    with pytest.raises(ValueError, match="Generator"):
+        tmodels.init_params(cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the example and the import contract
+# ---------------------------------------------------------------------------
+
+def _run_example(monkeypatch, capsys, *args):
+    """``examples/serve_lm_torch.py`` in this process (argv patched)."""
+    monkeypatch.chdir(ROOT)
+    monkeypatch.setattr(sys, "argv", ["serve_lm_torch.py", *args])
+    runpy.run_path(str(ROOT / "examples" / "serve_lm_torch.py"),
+                   run_name="__main__")
+    return capsys.readouterr().out
+
+
+def test_serve_lm_torch_runs_on_the_cpu(monkeypatch, capsys):
+    out = _run_example(monkeypatch, capsys, "--device", "cpu", "--tokens",
+                       "6", "--batch", "2")
+    lines = out.strip().splitlines()
+    assert "sample generations" in out
+    assert lines[-3].startswith("prefill:") and lines[-3].endswith("cpu")
+    assert lines[-2].startswith("decode :")
+    result = json.loads(lines[-1])
+    assert result["arch"] == "qwen2.5-3b-smoke" and result["device"] == "cpu"
+    assert result["decode_ms_per_step"] > 0
+
+
+def test_serve_lm_torch_defaults_to_the_card(monkeypatch, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _run_example(monkeypatch, capsys, "--tokens", "2")
