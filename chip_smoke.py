@@ -5,7 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. The card: ``nvidia-smi`` name and power limit, ``torch`` device name.
 2. The build: every CUDA kernel, built cold with ``nvcc`` (one process per
-   source, in parallel); build seconds and ptxas usage.
+   source, in parallel); build seconds and ptxas usage, and the flash
+   kernel's registers and spills for each head-dim template.
 3. Every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at the edge cases.  Integer and bool outputs must be
    exactly equal (tolerance 0).  ``edge_spmv`` sums float32 with atomics in
@@ -16,9 +17,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernel is timed with CUDA events beside its plain version, the one
    PyTorch call that computes the same function where there is one, and
    its bound (the least time the card could take: bytes over 3.35 TB/s or
-   integer operations over 67 T/s, whichever is larger).  The join kernels
-   (TPC-DS SF1 key columns) run first; the graph kernels run at the start
-   of phase 6, on the JS-OJ graph's CSR, where their shapes first exist.
+   integer operations over 67 T/s, whichever is larger); a line gives the
+   kernel / library ratio, which compares across machines.  The join kernels
+   (TPC-DS SF1 key columns) run first, with a probe edge case whose runs
+   of one key are far longer than the probe's fence stride; the graph
+   kernels run at the start of phase 6, on the JS-OJ graph's CSR, where
+   their shapes first exist.
 4. The JS-OJ path: ``ExtractionEngine.extract(fraud_model("store"))`` on
    ``make_tpcds(sf=1000)``, cold then warm.  ``Buy`` and ``Sell`` must
    equal the numpy bags (c_sk, i_sk) and (o_sk, i_sk) of store_sales, and
@@ -44,7 +48,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 8. The LM serving path.  (a) ``flash_attention`` against its plain version
    in bf16 at the main path's shapes (qwen2.5-3b prefill B 4 x S 2048,
    16/2 heads, Dh 128, causal; gemma-2b Dh 256; h2o-danube-3-4b S 8192,
-   Dh 120, window 4096) and at the edge cases, to the reference test's
+   Dh 120, window 4096) and at the edge cases (S 4096 wraps the K/V ring
+   of shared memory many times), to the reference test's
    rtol = atol = 2e-2: the kernel rounds the probabilities to bf16 before
    P V, the plain version does not, and both round the output to bf16 once,
    so they may sit a bf16 ulp or two apart.  Timed like phase 3; its bound
@@ -149,6 +154,26 @@ def max_abs_err(torch, got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def flash_ptxas(log_text: str):
+    """[(head-dim template, "N registers, ... spill ...")] from the flash
+    kernel's ptxas -v log, one entry per template instantiation."""
+    import re
+
+    out, template = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '.*kernelILi(\d+)E", line)
+        if m:
+            template, spill = m.group(1), ""
+        elif template and "spill" in line:
+            spill = line.strip()
+        elif template and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((template, f"{regs} registers, {spill}"))
+            template = None
+    assert out, "no flash_attention template in the ptxas log"
+    return out
+
+
 def record_rows(torch, rows, name, source, replaces, cases, compare=None):
     """Check and time each case of one kernel; append its JSON row.
 
@@ -177,13 +202,17 @@ def record_rows(torch, rows, name, source, replaces, cases, compare=None):
         p2 = cuda_ms(torch, run_p)
         lib = cuda_ms(torch, run_l) if run_l is not None else None
         b, by = bound_ms(nbytes, ops, *rate)
-        out_cases.append({"shape": label, "ms": min(k1, k2),
+        ms = min(k1, k2)
+        ratio = None if lib is None else ms / lib
+        out_cases.append({"shape": label, "ms": ms,
                           "plain_ms": min(p1, p2), "library_ms": lib,
+                          "library_ratio": ratio,
                           "bound_ms": b, "bound_by": by})
-        log(f"  {name} [{label}] kernel {min(k1, k2):.4f} ms, plain "
+        log(f"  {name} [{label}] kernel {ms:.4f} ms, plain "
             f"{min(p1, p2):.4f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-            f"{b:.4f} ms ({by})")
+            f"{b:.4f} ms ({by})"
+            + ("" if ratio is None else f"; kernel / library {ratio:.3f}"))
     head = out_cases[0]
     rows.append({"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": 0,
@@ -197,6 +226,8 @@ def check_kernels(torch, kops, ref, tpcds_np):
     """Phase 3: each kernel against its plain version, exact, and timed."""
     import numpy as np
 
+    from repro_torch.kernels.sorted_probe import fence_stride
+
     dev = torch.device("cuda")
     null = np.int32(2**31 - 1)
     fact_i = torch.from_numpy(tpcds_np["i_sk"]).to(dev)       # 2.88M
@@ -207,8 +238,12 @@ def check_kernels(torch, kops, ref, tpcds_np):
     def t(a):
         return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(dev)
 
+    zipf = np.sort(np.minimum(rng.zipf(1.3, 1_000_000), 50_000))
     edge_probe = [
         ("empty probe", t(np.arange(100)), t([])),
+        # runs of one key (up to ~250k) far longer than the fence stride
+        ("duplicate runs > fence stride", t(zipf),
+         t(np.concatenate([rng.permutation(zipf)[:100_000], [0, 50_001]]))),
         ("empty build", t([]), t([-3, 0, 7])),
         ("all NULL", t(np.full(16, null)), t(np.full(7, null))),
         ("NULL tail", t([1, 5, 5, null, null]), t([null, null, 5, 0])),
@@ -220,6 +255,11 @@ def check_kernels(torch, kops, ref, tpcds_np):
         rlo, rhi = ref.sorted_probe(sk, pk)
         err = max(max_abs_err(torch, lo, rlo), max_abs_err(torch, hi, rhi))
         assert err == 0, f"sorted_probe {name}: max_abs_err {err}"
+        if name.startswith("duplicate runs"):
+            run, stride = int((rhi - rlo).max()), fence_stride(sk.shape[0])
+            assert run > stride, f"longest run {run} <= stride {stride}"
+            log(f"  sorted_probe [{name}]: longest run {run}, fence stride "
+                f"{stride}: exact")
     keys_all_null = t(np.full(1000, null))
     edge_bloom = [
         ("empty", t([]), torch.zeros(0, dtype=torch.bool, device=dev), 256),
@@ -663,6 +703,8 @@ def check_flash_kernel(torch, kops, ref):
         ("MQA, S 333", (1, 333, 333, 8, 1, 64), True, None),
         ("Sk > Sq", (1, 64, 300, 2, 1, 64), False, None),
         ("S 200, Dh 120, window 64", (1, 200, 200, 4, 2, 120), True, 64),
+        # 32 key tiles of 128: the K/V ring of shared memory wraps many times
+        ("ring wrap, S 4096, Dh 128", (1, 4096, 4096, 2, 1, 128), True, None),
     ]
     for name, shape, causal, window in edge:
         q, k, v = qkv(*shape)
@@ -859,6 +901,10 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{src}]: {line.strip()}")
+    for template, usage in flash_ptxas(
+            (_build.BUILD_DIR / "flash_attention.log").read_text()):
+        log(f"  flash_attention<{template}> (head dims up to {template}): "
+            f"{usage}")
 
     # 4's data first: phase 3 takes its shapes from it
     t0 = time.perf_counter()

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "sorted_probe": {
-        "repro_sorted_probe": (_P, _P, _P, _P, _I, _I, _P),
+        "repro_sorted_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "bloom": {
         "repro_bloom_build": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -50,8 +50,7 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "repro_frontier_expand": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "flash_attention": {
-        "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _P),
+        "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _P),
     },
 }
 

@@ -19,6 +19,22 @@ from repro_torch.kernels import _build, ref
 MAX_HEAD_DIM = 256
 
 
+def tensor_map_geometry(t: torch.Tensor):
+    """The TMA view of a (B, S, H, Dh) tensor: its dims innermost first,
+    (Dh, H, S, B), and the byte strides of H, S and B.  Dh must be
+    contiguous and every stride a multiple of 16 bytes (what a tensor map
+    takes)."""
+    b, s, h, dh = t.shape
+    es = t.element_size()
+    if t.stride(3) != 1:
+        raise ValueError("flash_attention: head_dim is not contiguous")
+    strides = (t.stride(2) * es, t.stride(1) * es, t.stride(0) * es)
+    if any(x % 16 for x in strides):
+        raise ValueError(f"flash_attention: byte strides {strides} are not "
+                         "multiples of 16")
+    return (dh, h, s, b), strides
+
+
 def _check(q, k, v, window) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.ndim != 4:
@@ -82,12 +98,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sk == 0:                       # no key to attend: the rows are 0
         return torch.zeros_like(q)
     out = torch.empty_like(q)
+    qdims, qstrides = tensor_map_geometry(q)
+    kdims, kstrides = tensor_map_geometry(k)
+    geom = (ctypes.c_int64 * 14)(*qdims, *qstrides, *kdims, *kstrides)
     lib = _build.library("flash_attention")
     err = lib.repro_flash_attention(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_int64(b), ctypes.c_int64(sq), ctypes.c_int64(sk),
-        ctypes.c_int64(hq), ctypes.c_int64(hkv), ctypes.c_int64(dh),
+        ctypes.cast(geom, ctypes.c_void_p),
         ctypes.c_int64(1 if causal else 0),
         ctypes.c_int64(0 if window is None else int(window)),
         ctypes.c_void_p(_build.stream_ptr(dev)))

@@ -13,6 +13,19 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
+# Keys of the shared-memory fence each block of the kernel searches first
+# (kMaxFence in csrc/sorted_probe.cu): 32 KB of int32.
+MAX_FENCE = 8192
+
+
+def fence_stride(n_sorted: int) -> int:
+    """Build keys between two fence keys: the least stride whose fence
+    ``sorted[::stride]`` has at most :data:`MAX_FENCE` keys (1, the whole
+    build side, when ``n_sorted <= MAX_FENCE``)."""
+    if n_sorted <= 0:
+        raise ValueError(f"sorted_probe: no fence for {n_sorted} build keys")
+    return -(-n_sorted // MAX_FENCE)
+
 
 def sorted_probe(sorted_keys: torch.Tensor, probe_keys: torch.Tensor):
     """(lo, hi) int32 match ranges of each probe key in ``sorted_keys``.
@@ -40,11 +53,16 @@ def sorted_probe(sorted_keys: torch.Tensor, probe_keys: torch.Tensor):
     lib = _build.library("sorted_probe")
     lo = torch.empty((n_probe,), dtype=torch.int32, device=dev)
     hi = torch.empty((n_probe,), dtype=torch.int32, device=dev)
+    stride = fence_stride(n_sorted)
+    fence = torch.empty((-(-n_sorted // stride),), dtype=torch.int32,
+                        device=dev)
     err = lib.repro_sorted_probe(
         ctypes.c_void_p(sorted_keys.data_ptr()),
         ctypes.c_void_p(probe_keys.data_ptr()),
         ctypes.c_void_p(lo.data_ptr()), ctypes.c_void_p(hi.data_ptr()),
+        ctypes.c_void_p(fence.data_ptr()),
         ctypes.c_int64(n_sorted), ctypes.c_int64(n_probe),
+        ctypes.c_int64(stride),
         ctypes.c_void_p(_build.stream_ptr(dev)))
     _build.check(err, "sorted_probe")
     sorted_probe.launches += 1

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import sorted_probe as kprobe
 
 NULL32 = np.int32(2**31 - 1)
 FLASH_TOL = 2e-2
@@ -83,21 +84,50 @@ def _spmv_bound(src, dst, valid, x, n):
 # the join kernels
 # ---------------------------------------------------------------------------
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_sorted,n_probe", [(1, 1), (7, 63), (5000, 3000),
-                                              (100_000, 2_880_000)])
-def test_cuda_sorted_probe_matches_plain(cuda, n_sorted, n_probe):
-    rng = np.random.default_rng(n_sorted + n_probe)
-    sk = _t(np.sort(rng.integers(-50, n_sorted, n_sorted)).astype(np.int32),
-            cuda)
-    pk = _t(rng.integers(-100, n_sorted + 100, n_probe).astype(np.int32),
-            cuda)
+FENCE = kprobe.MAX_FENCE
+
+
+def _probe_matches_plain(sk, pk):
     before = kops.launch_counts()["sorted_probe"]
     lo, hi = kops.sorted_probe(sk, pk)
     rlo, rhi = tref.sorted_probe(sk, pk)
     torch.cuda.synchronize()
     assert kops.launch_counts()["sorted_probe"] == before + 1
     assert torch.equal(lo, rlo) and torch.equal(hi, rhi)
+    return rlo, rhi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sorted,n_probe", [
+    (1, 1), (7, 63), (5000, 3000), (100_000, 2_880_000),
+    # the fence: the whole build side (S <= F), one stride past it, two
+    (FENCE - 1, 4000), (FENCE, 4000), (FENCE + 1, 4000), (2 * FENCE + 1, 5000),
+    (2**22 + 5, 100_000)])
+def test_cuda_sorted_probe_matches_plain(cuda, n_sorted, n_probe):
+    rng = np.random.default_rng(n_sorted + n_probe)
+    sk = np.sort(rng.integers(-50, n_sorted, n_sorted)).astype(np.int32)
+    pk = rng.integers(-100, n_sorted + 100, n_probe).astype(np.int32)
+    # probes at the ends: the first and last build keys, and past both
+    ends = [sk[0], sk[-1], sk[0] - 1, sk[-1] + 1, -2**31, 2**31 - 1]
+    pk[:min(n_probe, len(ends))] = ends[:n_probe]
+    _probe_matches_plain(_t(sk, cuda), _t(pk, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zipf", "all-equal"])
+def test_cuda_sorted_probe_duplicate_runs(cuda, case):
+    """Runs of one key longer than the fence stride (Zipf hubs, as the item
+    keys of store_sales) still give exact bounds."""
+    rng = np.random.default_rng(3)
+    if case == "zipf":
+        sk = np.sort(np.minimum(rng.zipf(1.3, 1_000_000), 50_000))
+    else:
+        sk = np.full(3 * FENCE + 5, 7)
+    sk = sk.astype(np.int32)
+    pk = np.concatenate([rng.permutation(sk)[:200_000],
+                         [sk[0] - 1, sk[-1] + 1, 0]]).astype(np.int32)
+    rlo, rhi = _probe_matches_plain(_t(sk, cuda), _t(pk, cuda))
+    assert int((rhi - rlo).max()) > kprobe.fence_stride(sk.size)
 
 
 @pytest.mark.cuda
@@ -243,6 +273,16 @@ FLASH_SHAPES = [
     pytest.param(1, 300, 300, 4, 4, 16, True, 64, id="window64-d16"),
     pytest.param(1, 333, 333, 8, 1, 64, True, None, id="mqa"),
     pytest.param(1, 64, 300, 2, 1, 64, False, None, id="sk>sq"),
+    # Sq not a multiple of the 128-row query tile
+    pytest.param(1, 1000, 1000, 4, 2, 128, True, None, id="s1000"),
+    pytest.param(1, 129, 129, 2, 1, 128, True, None, id="s129"),
+    # Dh 120 (zero-filled columns of the TMA box) and Dh 256, windowed
+    pytest.param(1, 1000, 1000, 4, 2, 120, True, 256, id="d120-window256"),
+    pytest.param(1, 300, 300, 2, 1, 256, True, 100, id="d256-window100"),
+    pytest.param(2, 512, 512, 8, 2, 128, True, None, id="b2-gqa8/2"),
+    pytest.param(1, 100, 400, 2, 1, 128, True, None, id="sk>sq-causal"),
+    # 32 key tiles: the K/V ring wraps many times
+    pytest.param(1, 4096, 4096, 2, 1, 128, True, None, id="s4096-ring"),
 ]
 
 

@@ -22,6 +22,7 @@ from repro.kernels import ref as jref
 from repro.kernels import sorted_probe as jprobe
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import sorted_probe as tprobe
 
 NULL32 = np.int32(2**31 - 1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -66,6 +67,29 @@ def test_sorted_probe_shapes(n_sorted, n_probe):
 ])
 def test_sorted_probe_edge_cases(sk, pk):
     _probe_parity(sk, pk)
+
+
+FENCE = tprobe.MAX_FENCE
+
+
+@pytest.mark.parametrize("n_sorted", [1, 7, FENCE - 1, FENCE, FENCE + 1,
+                                      2 * FENCE + 1, 100_000, 2_880_000,
+                                      2**22 + 5, 2**31 - 1])
+def test_fence_stride_is_the_least_that_fits(n_sorted):
+    """The CUDA probe's fence, ``sorted[::stride]``, has at most MAX_FENCE
+    keys and covers the build side; a smaller stride would not fit, and a
+    build side of at most MAX_FENCE keys is the fence itself."""
+    stride = tprobe.fence_stride(n_sorted)
+    n_fence = -(-n_sorted // stride)
+    assert n_fence <= FENCE and (n_fence - 1) * stride < n_sorted
+    assert stride == 1 or -(-n_sorted // (stride - 1)) > FENCE
+    assert (stride == 1) == (n_sorted <= FENCE)
+    assert len(range(0, n_sorted, stride)) == n_fence
+
+
+def test_fence_stride_rejects_an_empty_build_side():
+    with pytest.raises(ValueError, match="fence"):
+        tprobe.fence_stride(0)
 
 
 def _bloom_parity(keys, valid, bits, num_hashes=2, probe=None):

@@ -49,6 +49,7 @@ import repro_torch.models as tmodels
 import repro_torch.models.config as tconfig
 import repro_torch.models.layers as tlayers
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops as kops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -145,6 +146,27 @@ def test_flash_attention_rejects_bad_inputs():
         kops.flash_attention(q, k.to(torch.bfloat16), k)
     with pytest.raises(ValueError, match="window"):
         kops.flash_attention(q, k, k, window=0)
+
+
+@pytest.mark.parametrize("shape,dims,strides", [
+    ((2, 5, 3, 24), (24, 3, 5, 2), (48, 144, 720)),
+    ((4, 2048, 16, 128), (128, 16, 2048, 4), (256, 4096, 8388608)),
+    ((1, 8192, 8, 120), (120, 8, 8192, 1), (240, 1920, 15728640)),
+])
+def test_tensor_map_geometry_of_the_flash_kernel(shape, dims, strides):
+    """The CUDA kernel's TMA view of a (B, S, H, Dh) bf16 tensor: dims
+    innermost first and the byte strides of H, S and B."""
+    t = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    assert tflash.tensor_map_geometry(t) == (dims, strides)
+
+
+def test_tensor_map_geometry_rejects_what_a_tensor_map_cannot_take():
+    with pytest.raises(ValueError, match="not contiguous"):
+        tflash.tensor_map_geometry(
+            torch.zeros(1, 8, 16, 2, dtype=torch.bfloat16).transpose(2, 3))
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tflash.tensor_map_geometry(torch.zeros(1, 8, 2, 4,
+                                               dtype=torch.bfloat16))
 
 
 def test_flash_attention_has_no_fallback_off_the_cpu():
