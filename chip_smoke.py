@@ -22,7 +22,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (TPC-DS SF1 key columns) run first, with a probe edge case whose runs
    of one key are far longer than the probe's fence stride; the graph
    kernels run at the start of phase 6, on the JS-OJ graph's CSR, where
-   their shapes first exist.
+   their shapes first exist, with edge cases aimed at the shared-memory
+   table of ``edge_spmv`` and ``edge_min_label`` at that size (every edge
+   into one vertex, more distinct destinations in a block's range than
+   table slots, destinations past the probe bound, runs longer than a
+   block's range).  ``edge_min_label`` is timed on WCC's first labels and
+   on the labels after one step, which its later launches see.
 4. The JS-OJ path: ``ExtractionEngine.extract(fraud_model("store"))`` on
    ``make_tpcds(sf=1000)``, cold then warm.  ``Buy`` and ``Sell`` must
    equal the numpy bags (c_sk, i_sk) and (o_sk, i_sk) of store_sales, and
@@ -44,7 +49,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    build array for array.
 7. Analytics on the JS-MV graph (dblp scale=100, ~25M edges): PageRank and
    WCC through the kernels against the plain-torch path on the same CSR:
-   WCC exactly, PageRank to the tolerance of phase 6.
+   WCC exactly, PageRank to the tolerance of phase 6.  Then ``edge_spmv``
+   on PageRank's edges and ``edge_min_label`` on WCC's (first step and
+   second), checked and timed as in phase 3.
 8. The LM serving path.  (a) ``flash_attention`` against its plain version
    in bf16 at the main path's shapes (qwen2.5-3b prefill B 4 x S 2048,
    16/2 heads, Dh 128, causal; gemma-2b Dh 256; h2o-danube-3-4b S 8192,
@@ -92,6 +99,9 @@ JOIN_KERNELS = ("sorted_probe", "bloom_build", "bloom_probe")
 GRAPH_KERNELS = ("segment_counts", "edge_spmv", "edge_min_label",
                  "frontier_expand")
 SPMV_BOUND_FACTOR = 2.0       # x the recursive-summation bound
+# the shared-memory table of csrc/spmv.cu and csrc/label_prop.cu: its
+# multiplicative hash, 2**12 slots, probes of at most 16 slots
+TABLE_HASH, TABLE_SLOT_BITS, TABLE_MAX_PROBE = 2654435769, 12, 16
 KHOP_SEEDS, KHOP_K = 8, 3
 PR_ITERS = 20
 
@@ -175,7 +185,8 @@ def flash_ptxas(log_text: str):
 
 
 def record_rows(torch, rows, name, source, replaces, cases, compare=None):
-    """Check and time each case of one kernel; append its JSON row.
+    """Check and time each case of one kernel; append its JSON row (or add
+    the cases to the kernel's row, when it has one already) and return it.
 
     cases: [(label, run_kernel, run_plain, run_library, nbytes, ops)], with
     an optional seventh item, the operations' peak rate (``bound_ms``).
@@ -213,13 +224,20 @@ def record_rows(torch, rows, name, source, replaces, cases, compare=None):
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
             f"{b:.4f} ms ({by})"
             + ("" if ratio is None else f"; kernel / library {ratio:.3f}"))
+    row = next((r for r in rows if r["name"] == name), None)
+    if row is not None:                   # more cases of a kernel's row
+        row["cases"] += out_cases
+        row["max_abs_err"] = max(row["max_abs_err"], worst)
+        return row
     head = out_cases[0]
-    rows.append({"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": 0,
-                 "max_abs_err": worst, "ms": head["ms"],
-                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                 "bound_by": head["bound_by"],
-                 "library_ms": head["library_ms"], "cases": out_cases})
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": 0,
+           "max_abs_err": worst, "ms": head["ms"],
+           "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+           "bound_by": head["bound_by"],
+           "library_ms": head["library_ms"], "cases": out_cases}
+    rows.append(row)
+    return row
 
 
 def check_kernels(torch, kops, ref, tpcds_np):
@@ -348,6 +366,97 @@ def spmv_compare(torch, src, dst, valid, x, n, stats):
     return compare
 
 
+def record_spmv(torch, kops, ref, rows, label, src, dst, valid, x, n):
+    """Check edge_spmv to its bound on one edge list and time it beside
+    gather + ``index_add_``, into the kernel's row."""
+    keep = valid & (dst >= 0) & (dst < n)
+    s64, d64 = src[keep].to(torch.int64), dst[keep].to(torch.int64)
+    e = src.shape[0]
+    stats = {}
+    row = record_rows(
+        torch, rows, "edge_spmv", "src/repro_torch/kernels/csrc/spmv.cu",
+        "src/repro/kernels/spmv.py:31",
+        [(label, lambda: kops.edge_spmv(src, dst, valid, x, n),
+          lambda: ref.edge_spmv(src, dst, valid, x, n),
+          lambda: torch.zeros(n, device=x.device).index_add_(0, d64, x[s64]),
+          9 * e + 8 * n, e)],
+        compare=spmv_compare(torch, src, dst, valid, x, n, stats))
+    seen = row.setdefault("error_over_bound", {})
+    for who, ratio in stats.items():
+        seen[who] = max(seen.get(who, 0.0), ratio)
+    log(f"  edge_spmv [{label}] error / bound: {stats}")
+
+
+def record_min_label(torch, kops, ref, rows, label, src, dst, valid, labels,
+                     n):
+    """Check edge_min_label exactly on one edge list and labels, and time
+    it beside clone + gather + ``scatter_reduce_``, into the kernel's row."""
+    keep = valid & (dst >= 0) & (dst < n)
+    s64, d64 = src[keep].to(torch.int64), dst[keep].to(torch.int64)
+    e = src.shape[0]
+    record_rows(
+        torch, rows, "edge_min_label",
+        "src/repro_torch/kernels/csrc/label_prop.cu",
+        "src/repro/kernels/label_prop.py:33",
+        [(label, lambda: kops.edge_min_label(src, dst, valid, labels, n),
+          lambda: ref.edge_min_label(src, dst, valid, labels, n),
+          lambda: labels[:n].clone().scatter_reduce_(0, d64, labels[s64],
+                                                     "amin"),
+          9 * e + 8 * n, e)])
+
+
+def check_scatter_table(torch, kops, ref, n, n_edges):
+    """Edge cases aimed at the shared-memory table of edge_spmv and
+    edge_min_label, at n vertices and n_edges edges: kernel and plain
+    within the spmv bound, min-label exactly equal at the first and second
+    step."""
+    import numpy as np
+
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    _, per_block = _build.scatter_grid(
+        n_edges, torch.cuda.get_device_properties(dev).multi_processor_count)
+    keys = np.arange(n, dtype=np.int64)
+    home = (keys * TABLE_HASH & 0xFFFFFFFF) >> (32 - TABLE_SLOT_BITS)
+    colliding = keys[home == home[-1]]
+    stride = np.arange(n_edges, dtype=np.int64) * 7919 % n
+    cases = [
+        ("every edge into one vertex", np.full(n_edges, n - 1)),
+        ("more distinct dst in a block's range than table slots", stride),
+        (f"{colliding.size} dst of one home slot, past the probe bound",
+         rng.choice(colliding, n_edges)),
+        ("dst runs longer than a block's range",
+         np.arange(n_edges) // (4 * per_block)),
+    ]
+    assert np.unique(stride[:per_block]).size > 2**TABLE_SLOT_BITS
+    assert colliding.size > TABLE_MAX_PROBE
+
+    def t(a, dtype):
+        return torch.from_numpy(np.asarray(a, dtype=dtype)).to(dev)
+
+    src = t(rng.integers(0, n, n_edges), np.int32)
+    valid = t(rng.random(n_edges) < 0.95, bool)
+    x = t(rng.random(n) / n, np.float32)
+    for name, dst_np in cases:
+        dst = t(dst_np, np.int32)
+        stats = {}
+        spmv_compare(torch, src, dst, valid, x, n, stats)(
+            kops.edge_spmv(src, dst, valid, x, n),
+            ref.edge_spmv(src, dst, valid, x, n))
+        labels = t(rng.permutation(n), np.int32)
+        for step in (1, 2):
+            got = kops.edge_min_label(src, dst, valid, labels, n)
+            labels = ref.edge_min_label(src, dst, valid, labels, n)
+            assert torch.equal(got, labels), \
+                f"edge_min_label [{name}] step {step} != plain"
+        log(f"  [{name}]: edge_spmv error / bound {stats}; edge_min_label "
+            f"steps 1-2 exact")
+    log(f"edge cases: scatter table {len(cases)} at E={n_edges} V={n}, "
+        f"{per_block} edges a block")
+
+
 def check_graph_kernels(torch, kops, ref, csr):
     """Phase 3, graph kernels: each against its plain version at the JS-OJ
     graph's shapes and at the edge cases; exact, spmv to its bound."""
@@ -389,6 +498,8 @@ def check_graph_kernels(torch, kops, ref, csr):
         for got, want in pairs:
             assert got.dtype == want.dtype and torch.equal(got, want), name
     log("edge cases: graph kernels", len(edge_cases), "all exact")
+    check_scatter_table(torch, kops, ref, csr.num_vertices,
+                        csr.coo("Buy")[0].shape[0])
 
     rows = []
     record = functools.partial(record_rows, torch, rows)
@@ -398,12 +509,6 @@ def check_graph_kernels(torch, kops, ref, csr):
     ss, ds, vs = csr.coo(symmetric=True)          # WCC
     e_b, e_a, e_s = sb.shape[0], sa.shape[0], ss.shape[0]
 
-    def masked(src, dst, valid):
-        keep = valid & (dst >= 0) & (dst < n)
-        return src[keep].to(torch.int64), dst[keep].to(torch.int64)
-
-    sb64, db64 = masked(sb, db, vb)
-    ss64, ds64 = masked(ss, ds, vs)
     counts_in = sb[vb & (sb >= 0) & (sb < n)].to(torch.int64)
     record("segment_counts", "src/repro_torch/kernels/csrc/segment_csr.cu",
            "src/repro/kernels/segment_csr.py:24",
@@ -414,26 +519,14 @@ def check_graph_kernels(torch, kops, ref, csr):
              5 * e_b + 4 * n, e_b)])
 
     x = t(rng.random(n).astype(np.float32) / n)
-    spmv_stats = {}
-    record("edge_spmv", "src/repro_torch/kernels/csrc/spmv.cu",
-           "src/repro/kernels/spmv.py:31",
-           [(f"E={e_b} V={n}",
-             lambda: kops.edge_spmv(sb, db, vb, x, n),
-             lambda: ref.edge_spmv(sb, db, vb, x, n),
-             lambda: torch.zeros(n, device=dev).index_add_(0, db64, x[sb64]),
-             9 * e_b + 8 * n, e_b)],
-           compare=spmv_compare(torch, sb, db, vb, x, n, spmv_stats))
-    rows[-1]["error_over_bound"] = spmv_stats
-    log(f"  edge_spmv error / bound: {spmv_stats}")
-
+    record_spmv(torch, kops, ref, rows, f"E={e_b} V={n}", sb, db, vb, x, n)
     lab = torch.arange(n, dtype=torch.int32, device=dev)
-    record("edge_min_label", "src/repro_torch/kernels/csrc/label_prop.cu",
-           "src/repro/kernels/label_prop.py:33",
-           [(f"E={e_s} (symmetric) V={n}",
-             lambda: kops.edge_min_label(ss, ds, vs, lab, n),
-             lambda: ref.edge_min_label(ss, ds, vs, lab, n),
-             lambda: lab.clone().scatter_reduce_(0, ds64, lab[ss64], "amin"),
-             9 * e_s + 8 * n, e_s)])
+    record_min_label(torch, kops, ref, rows, f"E={e_s} (symmetric) V={n}",
+                     ss, ds, vs, lab, n)
+    # the labels WCC's second to last launches see
+    record_min_label(torch, kops, ref, rows,
+                     f"E={e_s} (symmetric) V={n}, labels after one step",
+                     ss, ds, vs, ref.edge_min_label(ss, ds, vs, lab, n), n)
 
     front = torch.zeros(n, dtype=torch.bool, device=dev)
     front[:KHOP_SEEDS] = True
@@ -607,8 +700,12 @@ def analytics_oj(torch, kops, ref, ExtractionEngine, db, model, graph):
     return rows, counts, timing
 
 
-def analytics_mv(torch, kops, ref, ExtractionEngine, db, model):
-    """Phase 7: PageRank and WCC on the JS-MV graph, kernels vs plain."""
+def analytics_mv(torch, kops, ref, ExtractionEngine, db, model, rows):
+    """Phase 7: PageRank and WCC on the JS-MV graph, kernels vs plain; then
+    edge_spmv and edge_min_label checked and timed on its edge lists (cases
+    added to their ``rows``)."""
+    import numpy as np
+
     from repro_torch.graph import algorithms as talg
 
     engine = ExtractionEngine(db)
@@ -652,6 +749,21 @@ def analytics_mv(torch, kops, ref, ExtractionEngine, db, model):
     log(f"JS-MV analytics: {json.dumps(timing)}")
     log(f"  WCC == plain path; PageRank L1 {pr_err['l1']:.3e}, max_rel "
         f"{pr_err['max_rel']:.3e} <= {pr_err['tolerance']:.3e}")
+
+    log("JS-MV graph kernels vs plain, CUDA-event times:")
+    n = csr.num_vertices
+    src, dst, valid = csr.coo()                   # PageRank's edges
+    x = torch.from_numpy(np.random.default_rng(7).random(n).astype(
+        np.float32) / n).to(csr.device)
+    record_spmv(torch, kops, ref, rows, f"JS-MV E={src.shape[0]} V={n}",
+                src, dst, valid, x, n)
+    src, dst, valid = csr.coo(symmetric=True)     # WCC's edges
+    lab = torch.arange(n, dtype=torch.int32, device=csr.device)
+    label = f"JS-MV E={src.shape[0]} (symmetric) V={n}"
+    record_min_label(torch, kops, ref, rows, label, src, dst, valid, lab, n)
+    record_min_label(torch, kops, ref, rows, f"{label}, labels after one step",
+                     src, dst, valid,
+                     ref.edge_min_label(src, dst, valid, lab, n), n)
     return counts, timing
 
 
@@ -986,7 +1098,7 @@ def main() -> int:
 
     # 7. analytics on the JS-MV graph
     counts_mva, _ = analytics_mv(torch, kops, ref, ExtractionEngine, dblp,
-                                 model)
+                                 model, graph_rows)
     del dblp
     torch.cuda.empty_cache()
 

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -41,10 +41,11 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "repro_segment_counts": (_P, _P, _P, _I, _I, _P),
     },
     "spmv": {
-        "repro_edge_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "repro_edge_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "label_prop": {
-        "repro_edge_min_label": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "repro_edge_min_label": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _P),
     },
     "frontier": {
         "repro_frontier_expand": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -174,6 +175,25 @@ def check_coo(src, dst, valid, what: str) -> None:
     check_input(valid, torch.bool, f"{what} valid", device=src.device)
     if not src.shape == dst.shape == valid.shape:
         raise ValueError(f"{what}: src, dst and valid differ in length")
+
+
+# Launch geometry of the COO scatter kernels (csrc/spmv.cu,
+# csrc/label_prop.cu): a tile is kTileEdges = 512 threads x 4 edges, and a
+# few persistent blocks run on each SM.
+SCATTER_TILE_EDGES = 2048
+SCATTER_BLOCKS_PER_SM = 4
+
+
+def scatter_grid(n_edges: int, num_sms: int) -> Tuple[int, int]:
+    """(blocks, edges per block) of a COO scatter kernel's launch: at most
+    ``SCATTER_BLOCKS_PER_SM`` blocks an SM, each over a contiguous range of
+    whole tiles, as even as whole tiles allow and none of them empty."""
+    if n_edges <= 0 or num_sms <= 0:
+        raise ValueError(f"scatter_grid: no grid for {n_edges} edges on "
+                         f"{num_sms} SMs")
+    tiles = -(-n_edges // SCATTER_TILE_EDGES)
+    per_block = -(-tiles // min(tiles, num_sms * SCATTER_BLOCKS_PER_SM))
+    return -(-tiles // per_block), per_block * SCATTER_TILE_EDGES
 
 
 def stream_ptr(device) -> int:

@@ -16,7 +16,14 @@ from repro_torch.kernels import _build, ref
 
 def edge_min_label(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
                    labels: torch.Tensor, num_vertices: int) -> torch.Tensor:
-    """int32 ``min(labels[v], min of labels[u] over valid (u -> v))``."""
+    """int32 ``min(labels[v], min of labels[u] over valid (u -> v))``.
+
+    On the card the output starts as a copy of ``labels[:num_vertices]``;
+    persistent blocks (:func:`_build.scatter_grid`) skip every edge whose
+    label is not below the current output, take the minimum per
+    destination of each tile of edges in a shared-memory table, and flush
+    it with atomics.  The result is exact (see ``csrc/label_prop.cu``).
+    """
     _build.check_coo(src, dst, valid, "edge_min_label")
     _build.check_input(labels, torch.int32, "edge_min_label labels",
                        device=src.device)
@@ -31,12 +38,15 @@ def edge_min_label(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
     n_edges = src.shape[0]
     if n_edges == 0 or num_vertices == 0:
         return out
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, per_block = _build.scatter_grid(n_edges, sms)
     lib = _build.library("label_prop")
     err = lib.repro_edge_min_label(
         ctypes.c_void_p(src.data_ptr()), ctypes.c_void_p(dst.data_ptr()),
         ctypes.c_void_p(valid.data_ptr()), ctypes.c_void_p(labels.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), ctypes.c_int64(n_edges),
         ctypes.c_int64(labels.shape[0]), ctypes.c_int64(num_vertices),
+        ctypes.c_int64(blocks), ctypes.c_int64(per_block),
         ctypes.c_void_p(_build.stream_ptr(dev)))
     _build.check(err, "edge_min_label")
     edge_min_label.launches += 1

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sorted_probe as kprobe
@@ -227,6 +228,81 @@ def test_cuda_frontier_expand_matches_plain(cuda, n_edges, n_v):
         src, dst, valid, frontier, visited, n_v))
     assert torch.equal(got, tref.frontier_expand(src, dst, valid, frontier,
                                                  visited, n_v))
+
+
+SCATTER_CASES = ["one_hub", "distinct_over_slots", "colliding", "long_runs",
+                 "misaligned"]
+SCATTER_SIZES = {"small": (50_000, 20_000), "full": (5_760_000, 600_502)}
+# the shared-memory table of csrc/spmv.cu and csrc/label_prop.cu: its
+# multiplicative hash, 2**12 slots, probes of at most 16 slots
+TABLE_HASH, TABLE_SLOT_BITS, TABLE_MAX_PROBE = 2654435769, 12, 16
+
+
+def _home_slot(keys):
+    return ((keys.astype(np.int64) * TABLE_HASH) & 0xFFFFFFFF) >> \
+        (32 - TABLE_SLOT_BITS)
+
+
+def _scatter_case(name, n_edges, n_v, per_block):
+    """COO edges aimed at the scatter kernels' table; ``per_block`` is the
+    edges of one block's range (``_build.scatter_grid``)."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    src = rng.integers(0, n_v, n_edges).astype(np.int32)
+    valid = rng.random(n_edges) < 0.95
+    if name == "one_hub":                 # every edge into one vertex
+        dst = np.full(n_edges, n_v - 1)
+    elif name == "distinct_over_slots":
+        # a stride through the vertices: at full size a block's range holds
+        # more distinct destinations than the table has slots
+        dst = np.arange(n_edges, dtype=np.int64) * 7919 % n_v
+    elif name == "colliding":
+        # destinations that share one home slot: past the probe bound they
+        # go to the global atomic directly
+        keys = np.arange(n_v)
+        dst = rng.choice(keys[_home_slot(keys) == _home_slot(keys[-1:])],
+                         n_edges)
+    elif name == "long_runs":             # sorted runs longer than a range
+        dst = np.arange(n_edges) // (4 * per_block)
+    elif name == "misaligned":
+        # the test passes views one element in: no 16-byte loads
+        dst = rng.integers(0, n_v, n_edges)
+    else:
+        raise KeyError(name)
+    return src, dst.astype(np.int32), valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", list(SCATTER_SIZES))
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_cuda_scatter_kernels_adversarial(cuda, case, size):
+    """edge_spmv within twice the recursive-summation bound and
+    edge_min_label exactly equal to its plain version (first step and
+    second step), on edge lists aimed at the shared-memory table."""
+    n_edges, n_v = SCATTER_SIZES[size]
+    _, per_block = _build.scatter_grid(
+        n_edges, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    src, dst, valid = _scatter_case(case, n_edges, n_v, per_block)
+    if case == "colliding" and size == "full":
+        assert np.unique(dst).size > TABLE_MAX_PROBE
+    if case == "distinct_over_slots" and size == "full":
+        assert np.unique(dst[:per_block]).size > 2**TABLE_SLOT_BITS
+    s, d, v = _t(src, cuda), _t(dst, cuda), _t(valid, cuda)
+    if case == "misaligned":
+        src, dst, valid, s, d, v = (a[1:] for a in (src, dst, valid, s, d, v))
+        assert s.data_ptr() % 16 and d.data_ptr() % 16
+    x = np.random.default_rng(1).normal(size=n_v).astype(np.float32)
+    got = _launched("edge_spmv",
+                    lambda: kops.edge_spmv(s, d, v, _t(x, cuda), n_v))
+    y64, bound = _spmv_bound(src, dst, valid, x, n_v)
+    assert (np.abs(_np(got) - y64) <= bound).all()
+    labels = _t(np.random.default_rng(2).permutation(n_v).astype(np.int32),
+                cuda)
+    for _ in range(2):                    # WCC's first and second steps
+        got = _launched("edge_min_label",
+                        lambda: kops.edge_min_label(s, d, v, labels, n_v))
+        want = tref.edge_min_label(s, d, v, labels, n_v)
+        assert torch.equal(got, want)
+        labels = want
 
 
 @pytest.mark.cuda

@@ -50,6 +50,7 @@ import repro_torch.relational.ops as tops
 from repro_torch.graph import algorithms as talg
 from repro_torch.graph import csr as tcsr
 from repro_torch.graph import reference as gref
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as tref
 
@@ -212,6 +213,37 @@ def test_graph_wrappers_reject_bad_inputs():
         kops.frontier_expand(i32, i32, ok, i32, ok, 8)
     with pytest.raises(ValueError):
         kops.frontier_expand(i32, i32, ok, ok, ok[:4], 8)
+
+
+SCATTER_TILE = _build.SCATTER_TILE_EDGES
+SCATTER_MAX_BLOCKS = 132 * _build.SCATTER_BLOCKS_PER_SM     # on an H100
+
+
+@pytest.mark.parametrize("n_sms", [1, 132])
+@pytest.mark.parametrize("n_edges", [
+    1, SCATTER_TILE - 1, SCATTER_TILE, SCATTER_TILE + 1,
+    SCATTER_MAX_BLOCKS * SCATTER_TILE, SCATTER_MAX_BLOCKS * SCATTER_TILE + 1,
+    2_880_000, 11_520_000, 25_187_109, 50_374_218, 2**40 + 3])
+def test_scatter_grid_covers_the_edges_in_whole_tiles(n_edges, n_sms):
+    """The launch of the CUDA edge_spmv / edge_min_label kernels: at most
+    SCATTER_BLOCKS_PER_SM blocks an SM, each a contiguous range of whole
+    tiles, none empty, and no fewer tiles a block than the cap on blocks
+    allows (the C entries refuse any other grid)."""
+    blocks, per_block = _build.scatter_grid(n_edges, n_sms)
+    cap = n_sms * _build.SCATTER_BLOCKS_PER_SM
+    assert per_block > 0 and per_block % SCATTER_TILE == 0
+    assert 1 <= blocks <= cap
+    assert (blocks - 1) * per_block < n_edges <= blocks * per_block
+    tiles = -(-n_edges // SCATTER_TILE)
+    fewer = per_block // SCATTER_TILE - 1
+    assert fewer == 0 or -(-tiles // fewer) > cap
+
+
+@pytest.mark.parametrize("n_edges,n_sms", [(0, 132), (-5, 132), (100, 0),
+                                           (100, -1)])
+def test_scatter_grid_rejects_an_empty_launch(n_edges, n_sms):
+    with pytest.raises(ValueError, match="scatter_grid"):
+        _build.scatter_grid(n_edges, n_sms)
 
 
 def test_cpu_graph_wrappers_never_launch():
