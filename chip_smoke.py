@@ -18,7 +18,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    PyTorch call that computes the same function where there is one, and
    its bound (the least time the card could take: bytes over 3.35 TB/s or
    integer operations over 67 T/s, whichever is larger); a line gives the
-   kernel / library ratio, which compares across machines.  The join kernels
+   kernel / library ratio, which compares across machines.  Beside the
+   per-call time (``ms``, which holds the host's dispatch when that is
+   longer than the kernel) each case gets ``device_ms``: the kernels,
+   fills and copies ``torch.profiler`` records on the card over 20 more
+   launches, per call, and how many of them a call puts on the stream (a
+   CUDA-graph replay gives the time when the profiler records none).  The
+   join kernels
    (TPC-DS SF1 key columns) run first, with a probe edge case whose runs
    of one key are far longer than the probe's fence stride; the graph
    kernels run at the start of phase 6, on the JS-OJ graph's CSR, where
@@ -31,7 +37,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 4. The JS-OJ path: ``ExtractionEngine.extract(fraud_model("store"))`` on
    ``make_tpcds(sf=1000)``, cold then warm.  ``Buy`` and ``Sell`` must
    equal the numpy bags (c_sk, i_sk) and (o_sk, i_sk) of store_sales, and
-   the plain-torch path's digests.
+   the plain-torch path's digests.  Every ``bloom_build`` and
+   ``bloom_probe`` launch of phases 4-5 is recorded: the run logs their
+   (N, num_bits) and, after phase 5, checks and times ``bloom_build`` at
+   the largest and the most frequent.
 5. The JS-MV path: ``ExtractionEngine.extract(dblp_model())`` on
    ``make_dblp(scale=100)``, cold (view built) then warm (plan cache hit,
    view reused); edge counts against numpy, digests against the plain path.
@@ -46,12 +55,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    hub may be off by this much relative (the recursive-summation bound),
    and every vertex's rank shares the error through the dangling mass.
    The CSR built through the ``segment_counts`` kernel must equal the plain
-   build array for array.
+   build array for array.  Every ``segment_counts`` launch of the phase is
+   recorded, and the kernel is checked and timed on each distinct operand
+   (the CSR build's sources in extraction order, PageRank's out-degree,
+   the degree statistics' sources and targets), labelled by call site.
 7. Analytics on the JS-MV graph (dblp scale=100, ~25M edges): PageRank and
    WCC through the kernels against the plain-torch path on the same CSR:
    WCC exactly, PageRank to the tolerance of phase 6.  Then ``edge_spmv``
    on PageRank's edges and ``edge_min_label`` on WCC's (first step and
-   second), checked and timed as in phase 3.
+   second), checked and timed as in phase 3, and ``segment_counts`` on the
+   operands of its launches, as in phase 6.
 8. The LM serving path.  (a) ``flash_attention`` against its plain version
    in bf16 at the main path's shapes (qwen2.5-3b prefill B 4 x S 2048,
    16/2 heads, Dh 128, causal; gemma-2b Dh 256; h2o-danube-3-4b S 8192,
@@ -76,9 +89,18 @@ are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
+
+``--ab PARENT`` (a checkout of an earlier commit, for example unpacked with
+``git archive`` under ``build/``) adds an A/B wherever ``segment_counts``
+and ``bloom_build`` are timed: each is checked and timed beside its
+variants (this checkout's source built with one switch flipped, or
+launched on another grid; see ``AB``) and beside PARENT's kernels, in
+turns, and the results are printed as one more JSON line.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
 import json
 import subprocess
@@ -96,9 +118,14 @@ INT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (fp32 table)
 HASH_OPS = 6                  # multiply, add, shift, xor, modulo, or/test
 
 JOIN_KERNELS = ("sorted_probe", "bloom_build", "bloom_probe")
+BLOOM_SOURCE = "src/repro_torch/kernels/csrc/bloom.cu"
+BLOOM_REPLACES = "src/repro/kernels/bloom.py:29"
+SEGMENT_SOURCE = "src/repro_torch/kernels/csrc/segment_csr.cu"
+SEGMENT_REPLACES = "src/repro/kernels/segment_csr.py:24"
 GRAPH_KERNELS = ("segment_counts", "edge_spmv", "edge_min_label",
                  "frontier_expand")
 SPMV_BOUND_FACTOR = 2.0       # x the recursive-summation bound
+PROFILE_TRIES = 4
 # the shared-memory table of csrc/spmv.cu and csrc/label_prop.cu: its
 # multiplicative hash, 2**12 slots, probes of at most 16 slots
 TABLE_HASH, TABLE_SLOT_BITS, TABLE_MAX_PROBE = 2654435769, 12, 16
@@ -144,6 +171,106 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time(torch, fn, iters: int = 20, warmup: int = 3):
+    """(ms, operations) on the card per call of ``fn``: the kernels, fills
+    and copies that ``torch.profiler`` records over ``iters`` calls, without
+    the host's dispatch: the larger of two captures.  A capture that
+    records none of them is taken again (up to ``PROFILE_TRIES``); with
+    none at all the time falls back to a CUDA-graph replay of the calls
+    (operations None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        # each operation's mean time x its launches a call: a few events
+        # the profiler drops do not lower the sum
+        us, ops = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    2 * e.count >= iters:
+                per_call = round(e.count / iters) or 1
+                us += e.self_device_time_total / e.count * per_call
+                ops += per_call
+        if us > 0:
+            seen.append((us / 1e3, ops))
+        if len(seen) == 2:
+            # now and then a capture drops most events of a kernel, and
+            # its sum reads low: of two captures, the larger
+            return max(seen)
+    if seen:
+        return seen[0]
+    log("  (the profiler recorded no device time: CUDA-graph replay)")
+    return graph_ms(torch, fn, iters), None
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Milliseconds per call of ``fn`` replayed from a CUDA graph of
+    ``iters`` calls: device time without the host's dispatch.  Warmed up
+    on the capture stream first, so per-stream state (the Bloom build's
+    scratch) exists before the capture."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def recording(kops, name: str):
+    """Swap ``kops.<name>`` for a recorder while the block runs: each call
+    appends (call site, args) to the yielded list and goes on to the
+    wrapper, whose launch count counts it as before."""
+    wrapper, calls = getattr(kops, name), []
+
+    def record(*args, **kwargs):
+        caller = sys._getframe(1)
+        calls.append((f"{caller.f_code.co_name} < "
+                      f"{caller.f_back.f_code.co_name}", args))
+        return wrapper(*args, **kwargs)
+
+    setattr(kops, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(kops, name, wrapper)
+
+
+def distinct_calls(torch, calls):
+    """[(label, args)] of the recorded calls with distinct operands (the
+    first tensor argument), in order; the label names the call site and
+    numbers the site's distinct operands (#0, #1, ...)."""
+    out, seen = [], {}
+    for site, args in calls:
+        prior = seen.setdefault(site, [])
+        if any(p.shape == args[0].shape and torch.equal(p, args[0])
+               for p in prior):
+            continue
+        out.append((f"{site} #{len(prior)}", args))
+        prior.append(args[0])
+    return out
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = INT_OPS_PER_S):
@@ -212,14 +339,17 @@ def record_rows(torch, rows, name, source, replaces, cases, compare=None):
         k2 = cuda_ms(torch, run_k)
         p2 = cuda_ms(torch, run_p)
         lib = cuda_ms(torch, run_l) if run_l is not None else None
+        dev_ms, dev_ops = device_time(torch, run_k)
         b, by = bound_ms(nbytes, ops, *rate)
         ms = min(k1, k2)
         ratio = None if lib is None else ms / lib
-        out_cases.append({"shape": label, "ms": ms,
+        out_cases.append({"shape": label, "ms": ms, "device_ms": dev_ms,
+                          "device_ops_per_call": dev_ops,
                           "plain_ms": min(p1, p2), "library_ms": lib,
                           "library_ratio": ratio,
                           "bound_ms": b, "bound_by": by})
-        log(f"  {name} [{label}] kernel {ms:.4f} ms, plain "
+        log(f"  {name} [{label}] kernel {ms:.4f} ms (device {dev_ms:.4f} ms"
+            f" in {dev_ops} operations a call), plain "
             f"{min(p1, p2):.4f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
             f"{b:.4f} ms ({by})"
@@ -233,6 +363,7 @@ def record_rows(torch, rows, name, source, replaces, cases, compare=None):
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0,
            "max_abs_err": worst, "ms": head["ms"],
+           "device_ms": head["device_ms"],
            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
            "bound_by": head["bound_by"],
            "library_ms": head["library_ms"], "cases": out_cases}
@@ -240,7 +371,261 @@ def record_rows(torch, rows, name, source, replaces, cases, compare=None):
     return row
 
 
-def check_kernels(torch, kops, ref, tpcds_np):
+def segment_case(torch, kops, ref, label, values, valid, n):
+    """A ``record_rows`` case of segment_counts on one operand, with
+    ``bincount`` of its valid in-range values as the library call."""
+    counted = values[valid & (values >= 0) & (values < n)].to(torch.int64)
+    e, live = values.shape[0], int(valid.sum())
+    # a flag per slot, a value per valid slot, a count per bin
+    return (label, lambda: kops.segment_counts(values, valid, n),
+            lambda: ref.segment_counts(values, valid, n),
+            lambda: torch.bincount(counted, minlength=n),
+            e + 4 * live + 4 * n, live)
+
+
+def bloom_case(kops, ref, label, keys, valid, nbits):
+    """A ``record_rows`` case of bloom_build (no library call computes it)."""
+    n, live = keys.shape[0], int(valid.sum())
+    # a flag per slot, a key per valid slot, an int32 per bit
+    return (label, lambda: kops.bloom_build(keys, valid, nbits),
+            lambda: ref.bloom_build(keys, valid, nbits), None,
+            n + 4 * live + 4 * nbits, 2 * HASH_OPS * live)
+
+
+def record_segment_calls(torch, kops, ref, rows, path, calls, ab):
+    """Check and time segment_counts on the distinct operands of the
+    launches recorded on one path (cases of the kernel's row)."""
+    cases = []
+    for label, (values, valid, n) in distinct_calls(torch, calls):
+        label = f"{path} {label}: E={values.shape[0]} into V={n}"
+        cases.append(segment_case(torch, kops, ref, label, values, valid, n))
+        if ab is not None:
+            ab.segment(ref, label, values, valid, n)
+    record_rows(torch, rows, "segment_counts", SEGMENT_SOURCE,
+                SEGMENT_REPLACES, cases)
+
+
+def record_bloom_calls(torch, kops, ref, rows, calls, ab):
+    """Log the (N, num_bits) of every bloom_build launch of phases 4-5, and
+    check and time the kernel at the largest and the most frequent."""
+    shapes = collections.Counter((args[0].shape[0], args[2])
+                                 for _, args in calls)
+    log(f"bloom_build launches of phases 4-5 by (N, num_bits): "
+        f"{sorted(shapes.items())}")
+    picks = {max(shapes): "largest", shapes.most_common(1)[0][0]:
+             "most frequent"}
+    if len(picks) == 1:
+        picks = {max(shapes): "largest and most frequent"}
+    if ab is not None:                 # the host's share, where it is all
+        keys, valid, nbits = next(args for _, args in calls
+                                  if (args[0].shape[0], args[2]) == min(shapes))
+        ab.bloom(ref, f"smallest of phases 4-5: N={min(shapes)[0]} "
+                 f"bits={nbits}", keys, valid, nbits, host=True)
+    cases = []
+    for shape, which in picks.items():
+        keys, valid, nbits = next(args for _, args in calls
+                                  if (args[0].shape[0], args[2]) == shape)
+        label = (f"{which} of phases 4-5 ({shapes[shape]} of "
+                 f"{len(calls)} launches): N={shape[0]} bits={nbits}")
+        cases.append(bloom_case(kops, ref, label, keys, valid, nbits))
+        if ab is not None:
+            ab.bloom(ref, label, keys, valid, nbits)
+    record_rows(torch, rows, "bloom_build", BLOOM_SOURCE, BLOOM_REPLACES,
+                cases)
+
+
+class AB:
+    """``--ab PARENT``: segment_counts and bloom_build against their
+    variants (this checkout's sources built with one switch flipped, or
+    launched on another grid) and against the kernels of the checkout at
+    PARENT, on every operand the run times them on.  Each is checked equal
+    to the plain version, then timed in turns (CUDA events a call, and
+    device time from the profiler); ``results`` is printed as one JSON
+    line."""
+
+    SEGMENT = {"warp step": ("-DSEGMENT_COUNTS_WARP=1",),
+               "no table": ("-DSEGMENT_COUNTS_TABLE=0",)}
+    BLOCKS_PER_SM = (1, 2)          # the wrappers' grids have 4
+
+    def __init__(self, torch, parent: Path):
+        import ctypes
+
+        from repro_torch.kernels import _build
+
+        self.torch, self.results = torch, []
+        out = _build.BUILD_DIR.parent / "ab"
+        out.mkdir(parents=True, exist_ok=True)
+        csrc = _build.CSRC
+        old = parent / "src" / "repro_torch" / "kernels" / "csrc"
+        jobs = {("segment_csr", k): (csrc / "segment_csr.cu", d)
+                for k, d in self.SEGMENT.items()}
+        jobs[("segment_csr", "parent")] = (old / "segment_csr.cu", ())
+        jobs[("bloom", "parent")] = (old / "bloom.cu", ())
+        procs = {}
+        for i, (key, (src, defines)) in enumerate(jobs.items()):
+            lib = out / f"ab{i}.so"
+            procs[key] = (lib, subprocess.Popen(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, *defines, "-o",
+                 str(lib), str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        P, I = ctypes.c_void_p, ctypes.c_int64
+        parent_sig = {"segment_csr": (P, P, P, I, I, P),
+                      "bloom": (P, P, P, P, I, I, I, P)}
+        self.libs = {}
+        for (name, variant), (lib, proc) in procs.items():
+            text, _ = proc.communicate()
+            assert proc.returncode == 0, f"A/B build {name} {variant}:\n{text}"
+            entry = "repro_segment_counts" if name == "segment_csr" \
+                else "repro_bloom_build"
+            fn = getattr(ctypes.CDLL(str(lib)), entry)
+            fn.argtypes = list(parent_sig[name] if variant == "parent"
+                               else _build.SIGNATURES[name][entry])
+            fn.restype = ctypes.c_int
+            self.libs[(name, variant)] = fn
+        log(f"A/B: built {sorted(self.libs)} against {parent}")
+
+    @staticmethod
+    def grid(e, dev, blocks_per_sm):
+        """The wrappers' grid with ``blocks_per_sm`` blocks an SM in place
+        of SCATTER_BLOCKS_PER_SM (asked of scatter_grid for fewer SMs)."""
+        from repro_torch.kernels import _build
+
+        return _build.scatter_grid(e, _build.num_sms(dev) * blocks_per_sm
+                                   // _build.SCATTER_BLOCKS_PER_SM)
+
+    def segment(self, ref, label, values, valid, n):
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import ops as kops
+
+        torch = self.torch
+        dev = values.device
+        e = values.shape[0]
+
+        def variant(fn, blocks_per_sm=_build.SCATTER_BLOCKS_PER_SM):
+            blocks, per_block = self.grid(e, dev, blocks_per_sm)
+
+            def run():
+                counts = torch.zeros(n, dtype=torch.int32, device=dev)
+                _build.check(fn(values.data_ptr(), valid.data_ptr(),
+                                counts.data_ptr(), e, n, blocks, per_block,
+                                _build.stream_ptr(dev)), "A/B")
+                return counts
+            return run
+
+        def parent():
+            counts = torch.zeros(n, dtype=torch.int32, device=dev)
+            _build.check(self.libs[("segment_csr", "parent")](
+                values.data_ptr(), valid.data_ptr(), counts.data_ptr(), e, n,
+                _build.stream_ptr(dev)), "A/B parent")
+            return counts
+
+        runs = {"this": lambda: kops.segment_counts(values, valid, n)}
+        runs.update({k: variant(self.libs[("segment_csr", k)])
+                     for k in self.SEGMENT})
+        this = _build.library("segment_csr").repro_segment_counts
+        runs.update({f"{k} blocks/SM": variant(this, k)
+                     for k in self.BLOCKS_PER_SM})
+        runs["parent"] = parent
+        self._time("segment_counts", label, runs,
+                   ref.segment_counts(values, valid, n))
+
+    def bloom(self, ref, label, keys, valid, nbits, host=False):
+        """A/B of bloom_build on one operand; ``host`` adds the host time
+        of each piece of the wrapper."""
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import bloom as kbloom
+        from repro_torch.kernels import ops as kops
+
+        torch = self.torch
+        dev = keys.device
+        e = keys.shape[0]
+        this = _build.library("bloom").repro_bloom_build
+
+        def on_grid(blocks_per_sm):
+            blocks, per_block = self.grid(e, dev, blocks_per_sm)
+
+            def run():
+                bits = torch.empty(nbits, dtype=torch.int32, device=dev)
+                stream = _build.stream_ptr(dev)
+                base = kbloom.build_scratch(dev, stream).data_ptr()
+                _build.check(this(
+                    keys.data_ptr(), valid.data_ptr(), base,
+                    base + 4 * (kbloom.SCRATCH_WORDS - 1), bits.data_ptr(),
+                    e, nbits, 2, blocks, per_block, stream), "A/B")
+                return bits
+            return run
+
+        def parent():
+            # the parent's wrapper: checks, a zeroed output, packed scratch
+            _build.check_input(keys, torch.int32, "keys")
+            _build.check_input(valid, torch.bool, "valid", device=dev)
+            bits = torch.zeros(nbits, dtype=torch.int32, device=dev)
+            packed = torch.empty((nbits + 31) // 32, dtype=torch.int32,
+                                 device=dev)
+            _build.check(self.libs[("bloom", "parent")](
+                keys.data_ptr(), valid.data_ptr(), packed.data_ptr(),
+                bits.data_ptr(), e, nbits, 2, _build.stream_ptr(dev)),
+                "A/B parent")
+            return bits
+
+        runs = {"this": lambda: kops.bloom_build(keys, valid, nbits)}
+        runs.update({f"{k} blocks/SM": on_grid(k)
+                     for k in self.BLOCKS_PER_SM})
+        runs["parent"] = parent
+        self._time("bloom_build", label, runs,
+                   ref.bloom_build(keys, valid, nbits))
+        if host:
+            stream = _build.stream_ptr(dev)
+            self._host_us(label, {
+                "check_input x2": lambda: (
+                    _build.check_input(keys, torch.int32, "keys"),
+                    _build.check_input(valid, torch.bool, "valid",
+                                       device=dev)),
+                "torch.empty": lambda: torch.empty(
+                    nbits, dtype=torch.int32, device=dev),
+                "stream_ptr": lambda: _build.stream_ptr(dev),
+                "build_scratch": lambda: kbloom.build_scratch(dev, stream),
+                "scatter_grid": lambda: _build.scatter_grid(
+                    e, _build.num_sms(dev)),
+                "wrapper": runs["this"], "parent's wrapper": parent})
+
+    def _host_us(self, label, pieces, reps: int = 2000):
+        """Host microseconds a call of each piece of a wrapper, on the host
+        clock over ``reps`` calls (at a build side small enough that the
+        card keeps up with the launches)."""
+        torch = self.torch
+        out = {}
+        for what, fn in pieces.items():
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            out[what] = (time.perf_counter() - t0) / reps * 1e6
+        self.results.append({"kernel": "bloom_build", "shape": label,
+                             "host_us": out})
+        log(f"  host us a call [{label}]: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out.items()))
+
+    def _time(self, name, label, runs, want):
+        torch = self.torch
+        for variant, run in runs.items():
+            assert torch.equal(run(), want), f"A/B {name} {variant} [{label}]"
+        ms = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            ms[k].append(cuda_ms(torch, runs[k]))
+        out = {k: {"ms": min(ms[k]),
+                   "device_ms": device_time(torch, runs[k])[0]}
+               for k in runs}
+        self.results.append({"kernel": name, "shape": label, "runs": out})
+        log(f"  A/B {name} [{label}]: " + ", ".join(
+            f"{k} {v['ms']:.4f} ms (device {v['device_ms']:.4f})"
+            for k, v in out.items()))
+
+
+def check_kernels(torch, kops, ref, tpcds_np, ab):
     """Phase 3: each kernel against its plain version, exact, and timed."""
     import numpy as np
 
@@ -324,16 +709,15 @@ def check_kernels(torch, kops, ref, tpcds_np):
     nbits = kops.bloom_bits_for(fact_i.shape[0])
     valid = torch.ones(fact_i.shape, dtype=torch.bool, device=dev)
     n = fact_i.shape[0]
-    record("bloom_build", "src/repro_torch/kernels/csrc/bloom.cu",
-           "src/repro/kernels/bloom.py:29",
-           [(f"N={n} bits={nbits}",
-             lambda: kops.bloom_build(fact_i, valid, nbits),
-             lambda: ref.bloom_build(fact_i, valid, nbits),
-             None, 5 * n + 4 * nbits, 2 * HASH_OPS * n)])
+    label = f"N={n} bits={nbits}"
+    record("bloom_build", BLOOM_SOURCE, BLOOM_REPLACES,
+           [bloom_case(kops, ref, label, fact_i, valid, nbits)])
+    if ab is not None:
+        ab.bloom(ref, label, fact_i, valid, nbits)
     bits = ref.bloom_build(item_sorted, torch.ones_like(item_sorted,
                                                         dtype=torch.bool),
                            nbits)
-    record("bloom_probe", "src/repro_torch/kernels/csrc/bloom.cu",
+    record("bloom_probe", BLOOM_SOURCE,
            "src/repro/kernels/bloom.py:48",
            [(f"N={n} bits={nbits}",
              lambda: kops.bloom_probe(bits, fact_i),
@@ -509,14 +893,10 @@ def check_graph_kernels(torch, kops, ref, csr):
     ss, ds, vs = csr.coo(symmetric=True)          # WCC
     e_b, e_a, e_s = sb.shape[0], sa.shape[0], ss.shape[0]
 
-    counts_in = sb[vb & (sb >= 0) & (sb < n)].to(torch.int64)
-    record("segment_counts", "src/repro_torch/kernels/csrc/segment_csr.cu",
-           "src/repro/kernels/segment_csr.py:24",
-           [(f"E={e_b} into V={n}",
-             lambda: kops.segment_counts(sb, vb, n),
-             lambda: ref.segment_counts(sb, vb, n),
-             lambda: torch.bincount(counts_in, minlength=n),
-             5 * e_b + 4 * n, e_b)])
+    record("segment_counts", SEGMENT_SOURCE, SEGMENT_REPLACES,
+           [segment_case(torch, kops, ref,
+                         f"Buy sources, CSR order: E={e_b} into V={n}",
+                         sb, vb, n)])
 
     x = t(rng.random(n).astype(np.float32) / n)
     record_spmv(torch, kops, ref, rows, f"E={e_b} V={n}", sb, db, vb, x, n)
@@ -598,7 +978,7 @@ def drive(torch, kops, engine, model, label):
     return cold, warm, counts, rows
 
 
-def analytics_oj(torch, kops, ref, ExtractionEngine, db, model, graph):
+def analytics_oj(torch, kops, ref, ExtractionEngine, db, model, graph, ab):
     """Phase 6: the graph kernels, then engine.analyze on the JS-OJ graph."""
     import numpy as np
 
@@ -617,16 +997,17 @@ def analytics_oj(torch, kops, ref, ExtractionEngine, db, model, graph):
     engine = ExtractionEngine(db)
     torch.cuda.reset_peak_memory_stats()
     kops.reset_launch_counts()
-    cold = engine.analyze(model, algorithm="pagerank", label="Buy",
-                          iters=PR_ITERS)
-    warm = engine.analyze(model, algorithm="pagerank", label="Buy",
-                          iters=PR_ITERS)
-    before = kops.launch_counts()["edge_min_label"]
-    wcc = engine.analyze(model, algorithm="wcc")
-    wcc_iters = kops.launch_counts()["edge_min_label"] - before
-    khop = engine.analyze(model, algorithm="khop",
-                          seeds=np.arange(KHOP_SEEDS), k=KHOP_K)
-    deg = engine.analyze(model, algorithm="degree_stats")
+    with recording(kops, "segment_counts") as seg_calls:
+        cold = engine.analyze(model, algorithm="pagerank", label="Buy",
+                              iters=PR_ITERS)
+        warm = engine.analyze(model, algorithm="pagerank", label="Buy",
+                              iters=PR_ITERS)
+        before = kops.launch_counts()["edge_min_label"]
+        wcc = engine.analyze(model, algorithm="wcc")
+        wcc_iters = kops.launch_counts()["edge_min_label"] - before
+        khop = engine.analyze(model, algorithm="khop",
+                              seeds=np.arange(KHOP_SEEDS), k=KHOP_K)
+        deg = engine.analyze(model, algorithm="degree_stats")
     counts = kops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k in GRAPH_KERNELS if counts[k] == 0]
@@ -697,10 +1078,12 @@ def analytics_oj(torch, kops, ref, ExtractionEngine, db, model, graph):
         f"PageRank L1 {pr_err['l1']:.3e} (plain {plain_err['l1']:.3e}), "
         f"max_rel {pr_err['max_rel']:.3e} (plain {plain_err['max_rel']:.3e})"
         f" <= {pr_tol:.3e}")
+    log("segment_counts on the operands of the JS-OJ launches:")
+    record_segment_calls(torch, kops, ref, rows, "JS-OJ", seg_calls, ab)
     return rows, counts, timing
 
 
-def analytics_mv(torch, kops, ref, ExtractionEngine, db, model, rows):
+def analytics_mv(torch, kops, ref, ExtractionEngine, db, model, rows, ab):
     """Phase 7: PageRank and WCC on the JS-MV graph, kernels vs plain; then
     edge_spmv and edge_min_label checked and timed on its edge lists (cases
     added to their ``rows``)."""
@@ -711,8 +1094,9 @@ def analytics_mv(torch, kops, ref, ExtractionEngine, db, model, rows):
     engine = ExtractionEngine(db)
     torch.cuda.reset_peak_memory_stats()
     kops.reset_launch_counts()
-    pr = engine.analyze(model, algorithm="pagerank", iters=PR_ITERS)
-    wcc = engine.analyze(model, algorithm="wcc")
+    with recording(kops, "segment_counts") as seg_calls:
+        pr = engine.analyze(model, algorithm="pagerank", iters=PR_ITERS)
+        wcc = engine.analyze(model, algorithm="wcc")
     counts = kops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k in ("segment_counts", "edge_spmv", "edge_min_label")
@@ -764,6 +1148,8 @@ def analytics_mv(torch, kops, ref, ExtractionEngine, db, model, rows):
     record_min_label(torch, kops, ref, rows, f"{label}, labels after one step",
                      src, dst, valid,
                      ref.edge_min_label(src, dst, valid, lab, n), n)
+    log("segment_counts on the operands of the JS-MV launches:")
+    record_segment_calls(torch, kops, ref, rows, "JS-MV", seg_calls, ab)
     return counts, timing
 
 
@@ -970,8 +1356,17 @@ def digests(edges):
     return {lab: table_digest(t) for lab, t in edges.items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--ab", metavar="PARENT", type=Path,
+        help="also time segment_counts and bloom_build against their "
+             "variants and the kernels of the checkout at PARENT")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1018,6 +1413,8 @@ def main() -> int:
         log(f"  flash_attention<{template}> (head dims up to {template}): "
             f"{usage}")
 
+    ab = None if args.ab is None else AB(torch, args.ab)
+
     # 4's data first: phase 3 takes its shapes from it
     t0 = time.perf_counter()
     tpcds = make_tpcds(sf=TPCDS_SF)
@@ -1031,13 +1428,15 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     log("kernels vs plain (exact), CUDA-event times:")
-    kernel_rows = check_kernels(torch, kops, ref, fact_np)
+    kernel_rows = check_kernels(torch, kops, ref, fact_np, ab)
 
     # 4. the JS-OJ path
     model = fraud_model("store")
-    cold, warm, counts_oj, rows_oj = drive(
-        torch, kops, ExtractionEngine(tpcds), model,
-        f"JS-OJ fraud_model(store) sf={TPCDS_SF}")
+    with recording(kops, "bloom_build") as bloom_calls, \
+            recording(kops, "bloom_probe") as probe_calls:
+        cold, warm, counts_oj, rows_oj = drive(
+            torch, kops, ExtractionEngine(tpcds), model,
+            f"JS-OJ fraud_model(store) sf={TPCDS_SF}")
     plan_units = [("merged" if not u.is_single else "single")
                   for u in cold.plan.units]
     log(f"  plan units {plan_units}, views {[v.name for v in cold.plan.views]}")
@@ -1066,9 +1465,13 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s, wrote "
         f"{dblp.stats['wrote'].rows} rows")
     model = dblp_model()
-    cold, warm, counts_mv, rows_mv = drive(
-        torch, kops, ExtractionEngine(dblp), model,
-        f"JS-MV dblp_model scale={DBLP_SCALE}")
+    with recording(kops, "bloom_build") as calls, \
+            recording(kops, "bloom_probe") as probes:
+        cold, warm, counts_mv, rows_mv = drive(
+            torch, kops, ExtractionEngine(dblp), model,
+            f"JS-MV dblp_model scale={DBLP_SCALE}")
+    bloom_calls += calls
+    probe_calls += probes
     log(f"  cold {cold.provenance}\n  warm {warm.provenance}")
     assert cold.provenance.views_built, "cold request built no view"
     assert warm.provenance.plan_cache_hit, "warm request missed the plan"
@@ -1089,16 +1492,22 @@ def main() -> int:
     log("  edge counts == numpy; digests == plain-torch path")
     del plain, cold, warm
     torch.cuda.empty_cache()
+    record_bloom_calls(torch, kops, ref, kernel_rows, bloom_calls, ab)
+    probe_shapes = collections.Counter((args[1].shape[0], args[0].shape[0])
+                                       for _, args in probe_calls)
+    log(f"bloom_probe launches of phases 4-5 by (N, num_bits): "
+        f"{sorted(probe_shapes.items())}")
+    del bloom_calls, probe_calls, probes
 
     # 6. analytics on the JS-OJ graph (and phase 3's graph kernels)
     graph_rows, counts_oja, _ = analytics_oj(
-        torch, kops, ref, ExtractionEngine, tpcds, oj_model, oj_graph)
+        torch, kops, ref, ExtractionEngine, tpcds, oj_model, oj_graph, ab)
     del tpcds, oj_graph
     torch.cuda.empty_cache()
 
     # 7. analytics on the JS-MV graph
     counts_mva, _ = analytics_mv(torch, kops, ref, ExtractionEngine, dblp,
-                                 model, graph_rows)
+                                 model, graph_rows, ab)
     del dblp
     torch.cuda.empty_cache()
 
@@ -1115,6 +1524,8 @@ def main() -> int:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+    if ab is not None:
+        print(json.dumps({"ab": ab.results}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

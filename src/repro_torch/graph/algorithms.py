@@ -164,8 +164,14 @@ def khop(csr: CSRGraph, seeds: Union[torch.Tensor, np.ndarray, Sequence[int]],
     if seeds.dtype == torch.bool:
         seed_mask = seeds.contiguous()
     else:
-        seed_mask = torch.zeros((n,), dtype=torch.bool, device=src.device)
-        seed_mask[seeds.to(torch.int64)] = True
+        # as the reference's .at[int32 seeds].set: an index in [-n, 0)
+        # wraps, one outside [-n, n) is dropped (into a spare last slot)
+        idx = seeds.to(torch.int32).to(torch.int64)
+        idx = torch.where(idx < 0, idx + n, idx)
+        idx = torch.where((idx >= 0) & (idx < n), idx, n)
+        seed_mask = torch.zeros((n + 1,), dtype=torch.bool, device=src.device)
+        seed_mask[idx] = True
+        seed_mask = seed_mask[:n]
     uk = kops.resolve_use_kernel(use_kernel, src.device)
     _launched("khop", uk)
     return _khop_loop(src, dst, valid, seed_mask, n, int(k), uk)

@@ -13,6 +13,7 @@ raises, and a kernel wrapper called on a CUDA tensor raises with it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,11 +35,11 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "repro_sorted_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "bloom": {
-        "repro_bloom_build": (_P, _P, _P, _P, _I, _I, _I, _P),
+        "repro_bloom_build": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "repro_bloom_probe": (_P, _P, _P, _I, _I, _I, _P),
     },
     "segment_csr": {
-        "repro_segment_counts": (_P, _P, _P, _I, _I, _P),
+        "repro_segment_counts": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
     "spmv": {
         "repro_edge_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -177,17 +178,19 @@ def check_coo(src, dst, valid, what: str) -> None:
         raise ValueError(f"{what}: src, dst and valid differ in length")
 
 
-# Launch geometry of the COO scatter kernels (csrc/spmv.cu,
-# csrc/label_prop.cu): a tile is kTileEdges = 512 threads x 4 edges, and a
-# few persistent blocks run on each SM.
+# Launch geometry of the scatter kernels (csrc/spmv.cu, csrc/label_prop.cu,
+# csrc/segment_csr.cu) and of the Bloom build (csrc/bloom.cu): a tile is
+# 512 threads x 4 edges (values, keys), and a few persistent blocks run on
+# each SM.
 SCATTER_TILE_EDGES = 2048
 SCATTER_BLOCKS_PER_SM = 4
 
 
 def scatter_grid(n_edges: int, num_sms: int) -> Tuple[int, int]:
-    """(blocks, edges per block) of a COO scatter kernel's launch: at most
-    ``SCATTER_BLOCKS_PER_SM`` blocks an SM, each over a contiguous range of
-    whole tiles, as even as whole tiles allow and none of them empty."""
+    """(blocks, edges per block) of a persistent launch over ``n_edges``
+    edges (values, keys): at most ``SCATTER_BLOCKS_PER_SM`` blocks an SM,
+    each over a contiguous range of whole tiles, as even as whole tiles
+    allow and none of them empty."""
     if n_edges <= 0 or num_sms <= 0:
         raise ValueError(f"scatter_grid: no grid for {n_edges} edges on "
                          f"{num_sms} SMs")
@@ -196,8 +199,19 @@ def scatter_grid(n_edges: int, num_sms: int) -> Tuple[int, int]:
     return -(-tiles // per_block), per_block * SCATTER_TILE_EDGES
 
 
-def stream_ptr(device) -> int:
-    """Handle of PyTorch's current stream on ``device``, for a launch."""
+@functools.lru_cache(maxsize=None)
+def num_sms(device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (asked once)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def stream_ptr(device) -> int:
+    """Handle of PyTorch's current stream on ``device``, for a launch
+    (the raw handle, without building a ``torch.cuda.Stream`` each call)."""
+    import torch
+
+    index = torch.device(device).index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)

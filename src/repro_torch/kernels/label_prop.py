@@ -38,8 +38,7 @@ def edge_min_label(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
     n_edges = src.shape[0]
     if n_edges == 0 or num_vertices == 0:
         return out
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks, per_block = _build.scatter_grid(n_edges, sms)
+    blocks, per_block = _build.scatter_grid(n_edges, _build.num_sms(dev))
     lib = _build.library("label_prop")
     err = lib.repro_edge_min_label(
         ctypes.c_void_p(src.data_ptr()), ctypes.c_void_p(dst.data_ptr()),

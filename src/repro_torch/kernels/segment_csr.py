@@ -7,8 +7,6 @@ plain version in :mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -17,7 +15,13 @@ from repro_torch.kernels import _build, ref
 def segment_counts(values: torch.Tensor, valid: torch.Tensor,
                    num_segments: int) -> torch.Tensor:
     """int32 counts of the valid ``values`` in each bin of
-    ``[0, num_segments)``; values outside that range are not counted."""
+    ``[0, num_segments)``; values outside that range are not counted.
+
+    On the card, persistent blocks (:func:`_build.scatter_grid`) count
+    their tiles of values per bin in a shared-memory table and flush the
+    counts into the output with global atomics (see
+    ``csrc/segment_csr.cu``).
+    """
     _build.check_input(values, torch.int32, "segment_counts values")
     _build.check_input(valid, torch.bool, "segment_counts valid",
                        device=values.device)
@@ -34,12 +38,10 @@ def segment_counts(values: torch.Tensor, valid: torch.Tensor,
     counts = torch.zeros((num_segments,), dtype=torch.int32, device=dev)
     if n == 0 or num_segments == 0:
         return counts
-    lib = _build.library("segment_csr")
-    err = lib.repro_segment_counts(
-        ctypes.c_void_p(values.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
-        ctypes.c_void_p(counts.data_ptr()), ctypes.c_int64(n),
-        ctypes.c_int64(num_segments),
-        ctypes.c_void_p(_build.stream_ptr(dev)))
+    blocks, per_block = _build.scatter_grid(n, _build.num_sms(dev))
+    err = _build.library("segment_csr").repro_segment_counts(
+        values.data_ptr(), valid.data_ptr(), counts.data_ptr(), n,
+        num_segments, blocks, per_block, _build.stream_ptr(dev))
     _build.check(err, "segment_counts")
     segment_counts.launches += 1
     return counts

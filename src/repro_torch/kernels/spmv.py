@@ -35,8 +35,7 @@ def edge_spmv(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
     n_edges, nx = src.shape[0], x.shape[0]
     if n_edges == 0 or num_vertices == 0 or nx == 0:
         return y
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks, per_block = _build.scatter_grid(n_edges, sms)
+    blocks, per_block = _build.scatter_grid(n_edges, _build.num_sms(dev))
     lib = _build.library("spmv")
     err = lib.repro_edge_spmv(
         ctypes.c_void_p(src.data_ptr()), ctypes.c_void_p(dst.data_ptr()),

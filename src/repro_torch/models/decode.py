@@ -104,7 +104,10 @@ def _attn_step(p: P, cfg: ArchConfig, x, cache_kv, pos, kind: str):
     q, k, v = _qkv(p, cfg, x, posb)
     ck, cv = cache_kv["k"], cache_kv["v"]
     s_cache = ck.shape[1]
-    slot = torch.remainder(pos, s_cache) if kind == "swa" else pos
+    # an attn cache past its end overwrites its last slot, as the
+    # reference's dynamic_update_slice clamps it (on the device, no sync)
+    slot = (torch.remainder(pos, s_cache) if kind == "swa"
+            else pos.clamp_max(s_cache - 1))
     idx = slot.reshape(1).to(torch.int64)
     ck.index_copy_(1, idx, k)          # in place (JAX: dynamic_update_slice)
     cv.index_copy_(1, idx, v)
@@ -130,7 +133,9 @@ def decode_step(params: P, cfg: ArchConfig, cache: Dict[str, Any],
     """One serving step: token (B,) -> (logits (B,V) float32, cache).
 
     The cache's tensors are updated in place; the returned cache holds them
-    with ``pos`` advanced by one.
+    with ``pos`` advanced by one.  Past the end of an ``attn`` cache
+    (``pos >= max_len``) each step overwrites its last slot, as in the
+    reference.
     """
     check_supported(cfg)
     check_unsharded(sh)

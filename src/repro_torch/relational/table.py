@@ -54,12 +54,23 @@ def host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+# The 64-bit types ``jnp.asarray`` narrows with x64 off (the JAX package's
+# setting); bool and the 32-bit types pass unchanged.
+_NARROW = {np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32,
+           np.dtype(np.float64): np.float32}
+
+
 def _as_tensor(v, device: torch.device) -> torch.Tensor:
+    """A column from a tensor (dtype kept) or from numpy / Python values,
+    canonicalised as ``jnp.asarray`` does: int64 -> int32, uint64 ->
+    uint32, float64 -> float32."""
     if isinstance(v, torch.Tensor):
         return v.to(device)
     # np.array copies: read-only views (e.g. of another framework's
     # buffers) cannot back a tensor
-    return torch.from_numpy(np.array(v)).to(device)
+    a = np.array(v)
+    a = a.astype(_NARROW.get(a.dtype, a.dtype), copy=False)
+    return torch.from_numpy(a).to(device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -334,6 +334,145 @@ def test_cuda_graph_edge_cases_match_plain(cuda):
     torch.cuda.synchronize()
 
 
+SEGMENT_CASES = ["one_hub", "sorted_runs_over_a_tile", "distinct_over_slots",
+                 "colliding", "out_of_range", "all_invalid", "misaligned"]
+SEGMENT_SIZES = {"small": (50_000, 20_000), "full": (5_760_000, 600_502)}
+TILE = _build.SCATTER_TILE_EDGES
+
+
+def _segment_case(name, n, n_v, per_block):
+    """Values aimed at segment_counts' shared-memory table; ``per_block``
+    is the values of one block's tiles."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    valid = rng.random(n) < 0.95
+    if name == "one_hub":                 # every value one bin
+        values = np.full(n, n_v // 2)
+    elif name == "sorted_runs_over_a_tile":
+        values = np.arange(n) // (3 * TILE) % n_v
+    elif name == "distinct_over_slots":
+        # a stride through the bins: at full size a block's tiles hold
+        # more distinct values than the table has slots
+        values = np.arange(n, dtype=np.int64) * 7919 % n_v
+    elif name == "colliding":
+        # values that share one home slot: past the probe bound they go to
+        # the global atomic directly
+        keys = np.arange(n_v)
+        values = rng.choice(keys[_home_slot(keys) == _home_slot(keys[-1:])],
+                            n)
+    elif name == "out_of_range":          # negative and >= n_v: not counted
+        values = rng.integers(-n_v, 2 * n_v, n)
+    elif name == "all_invalid":
+        values = rng.integers(0, n_v, n)
+        valid[:] = False
+    elif name == "misaligned":
+        # the test passes views one element in: no 16-byte loads
+        values = np.minimum(rng.zipf(1.2, n) - 1, n_v - 1)
+    else:
+        raise KeyError(name)
+    return values.astype(np.int32), valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", list(SEGMENT_SIZES))
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_cuda_segment_counts_adversarial(cuda, case, size):
+    """segment_counts exactly equal to its plain version, in one launch, on
+    values aimed at its shared-memory table."""
+    n, n_v = SEGMENT_SIZES[size]
+    _, per_block = _build.scatter_grid(
+        n, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    values, valid = _segment_case(case, n, n_v, per_block)
+    if size == "full":
+        if case == "colliding":
+            assert np.unique(values).size > TABLE_MAX_PROBE
+        if case == "distinct_over_slots":
+            assert np.unique(values[:per_block]).size > 2**TABLE_SLOT_BITS
+    v, ok = _t(values, cuda), _t(valid, cuda)
+    if case == "misaligned":
+        v, ok = v[1:], ok[1:]
+        assert v.data_ptr() % 16 and ok.data_ptr() % 4
+    got = _launched("segment_counts", lambda: kops.segment_counts(v, ok, n_v))
+    assert torch.equal(got, tref.segment_counts(v, ok, n_v))
+
+
+BLOOM_KEYS = [1, 31, 2_049, 2_880_000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [256, 16384])
+@pytest.mark.parametrize("n", BLOOM_KEYS)
+def test_cuda_bloom_build_one_launch_matches_plain(cuda, n, bits):
+    rng = np.random.default_rng(n * 7 + bits)
+    keys = _t(rng.integers(0, 4 * n, n).astype(np.int32), cuda)
+    valid = _t(rng.random(n) < 0.9, cuda)
+    got = _launched("bloom_build",
+                    lambda: kops.bloom_build(keys, valid, bits))
+    assert torch.equal(got, tref.bloom_build(keys, valid, bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_invalid", "all_null", "negative",
+                                  "misaligned"])
+def test_cuda_bloom_build_edge_cases(cuda, case):
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    n = 100_000
+    keys = rng.integers(-2**31, 0, n).astype(np.int32)
+    valid = rng.random(n) < 0.8
+    if case == "all_invalid":
+        valid[:] = False
+    elif case == "all_null":
+        keys[:] = NULL32
+        valid[:] = True
+    k, v = _t(keys, cuda), _t(valid, cuda)
+    if case == "misaligned":
+        k, v = k[1:], v[1:]
+    for bits in (256, 16384):
+        got = _launched("bloom_build", lambda: kops.bloom_build(k, v, bits))
+        assert torch.equal(got, tref.bloom_build(k, v, bits))
+    if case == "all_invalid":
+        assert not bool(got.any())
+
+
+def _bloom_sides(cuda, seed):
+    """A dense build side (2.88M keys) and a sparse one (31 keys)."""
+    rng = np.random.default_rng(seed)
+    dense = _t(rng.integers(0, 10**6, 2_880_000).astype(np.int32), cuda)
+    sparse = _t(rng.integers(0, 10**6, 31).astype(np.int32), cuda)
+    return ((dense, torch.ones_like(dense, dtype=torch.bool)),
+            (sparse, torch.ones_like(sparse, dtype=torch.bool)))
+
+
+@pytest.mark.cuda
+def test_cuda_bloom_build_back_to_back_leaves_the_scratch_zero(cuda):
+    """A sparse build right after a dense one on the same stream is exact:
+    the dense one left the shared scratch and its ticket zero."""
+    for keys, valid in _bloom_sides(cuda, 5) * 2:
+        got = _launched("bloom_build",
+                        lambda: kops.bloom_build(keys, valid, 16384))
+        assert torch.equal(got, tref.bloom_build(keys, valid, 16384))
+
+
+@pytest.mark.cuda
+def test_cuda_bloom_build_on_two_streams(cuda):
+    """Two builds in flight on two streams each use their stream's scratch,
+    and each stream's next build is exact."""
+    sides = _bloom_sides(cuda, 6)
+    streams = [torch.cuda.Stream(cuda) for _ in sides]
+    before = kops.launch_counts()["bloom_build"]
+    for _ in range(2):
+        outs = []
+        for stream, (keys, valid) in zip(streams, sides):
+            stream.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(stream):
+                assert _build.stream_ptr(cuda) == stream.cuda_stream
+                outs.append(kops.bloom_build(keys, valid, 16384))
+        torch.cuda.synchronize()
+        for out, (keys, valid) in zip(outs, sides):
+            assert torch.equal(out, tref.bloom_build(keys, valid, 16384))
+        sides = sides[::-1]               # swap: each stream's next build
+    assert kops.launch_counts()["bloom_build"] == before + 4
+
+
 # ---------------------------------------------------------------------------
 # flash attention and the LM slice
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ jax-free ``tests/test_torch_cuda.py``.
 """
 import collections
 import dataclasses
+import re
 import zlib
 
 import jax.numpy as jnp
@@ -246,6 +247,52 @@ def test_scatter_grid_rejects_an_empty_launch(n_edges, n_sms):
         _build.scatter_grid(n_edges, n_sms)
 
 
+def _grid_accepted(blocks, per_block, n):
+    """The C entries' check of a persistent grid (csrc/spmv.cu,
+    label_prop.cu, segment_csr.cu, bloom.cu)."""
+    return (blocks > 0 and per_block > 0 and per_block % SCATTER_TILE == 0
+            and blocks * per_block >= n and (blocks - 1) * per_block < n)
+
+
+@pytest.mark.parametrize("source", ["spmv", "label_prop", "segment_csr",
+                                    "bloom"])
+def test_grid_kernels_tile_as_scatter_grid(source):
+    """Every kernel launched over scatter_grid tiles kThreads x kVec values,
+    the tile that scatter_grid cuts the input into."""
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    threads, vec = (int(re.search(rf"constexpr int {name} = (\d+);",
+                                  text).group(1))
+                    for name in ("kThreads", "kVec"))
+    assert threads * vec == SCATTER_TILE
+
+
+@pytest.mark.parametrize("n_sms", [114, 132])
+@pytest.mark.parametrize("n_values", [
+    1, SCATTER_TILE - 1, SCATTER_TILE + 1,
+    # segment_counts on the paths: Buy, Buy + Sell, Co-auth, Auth-Edit;
+    # bloom_build's build side of 2.88M keys
+    2_880_000, 5_760_000, 7_196_654, 17_990_455])
+@pytest.mark.parametrize("source", ["segment_csr", "bloom"])
+def test_segment_counts_and_bloom_grids_cover_the_input(source, n_values,
+                                                        n_sms):
+    """The grid segment_counts and bloom_build launch covers the input in
+    whole tiles, which their C entries check (they refuse any other)."""
+    blocks, per_block = _build.scatter_grid(n_values, n_sms)
+    assert _grid_accepted(blocks, per_block, n_values)
+    assert not _grid_accepted(blocks - 1, per_block, n_values)
+    assert blocks <= n_sms * _build.SCATTER_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("n_values", [0, -1])
+def test_segment_counts_grid_rejects_an_empty_launch(n_values):
+    with pytest.raises(ValueError, match="scatter_grid"):
+        _build.scatter_grid(n_values, 132)
+    # the wrapper answers an empty operand without a grid
+    empty = torch.zeros((0,), dtype=torch.int32)
+    counts = kops.segment_counts(empty, empty.bool(), 5)
+    assert counts.dtype == torch.int32 and not bool(counts.any())
+
+
 def test_cpu_graph_wrappers_never_launch():
     """(f) CPU tensors take the plain versions: all eight counters stay 0."""
     kops.reset_launch_counts()
@@ -429,6 +476,28 @@ def test_khop_matches_jax(zipf_graph, use_kernel, k):
                                k=k))
 
 
+# seed index arrays over n vertices: past the end, a negative index that
+# wraps, none, and one index just outside each end of [-n, n)
+KHOP_SEEDS = {"past_end": lambda n: [1, n + 2], "negative": lambda n: [-1, 2],
+              "empty": lambda n: [], "outside_both": lambda n: [-n - 1, n]}
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("seeds", list(KHOP_SEEDS))
+def test_khop_seed_indices_out_of_range_match_jax(seeds, use_kernel):
+    """As the reference's ``.at[int32 seeds].set``: indices in [-n, 0) wrap,
+    indices outside [-n, n) are dropped (n = 5: [1, 7], [-1, 2], [],
+    [-6, 5])."""
+    src = np.array([0, 1, 2, 3, 4, 1], np.int32)
+    dst = np.array([1, 2, 3, 4, 0, 3], np.int32)
+    tg, jg = _graphs(src, dst, np.ones(6, bool), 5)
+    idx = KHOP_SEEDS[seeds](5)
+    want = np.asarray(jalg.khop(jg, idx, k=2, use_kernel=False))
+    got = talg.khop(tg, idx, k=2, use_kernel=use_kernel)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), want)
+
+
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_degree_stats_matches_jax(zipf_graph, use_kernel):
     tg, jg, *_ = zipf_graph
@@ -490,6 +559,17 @@ def test_engine_analyze_matches_jax(engines):
                                           np.asarray(ref.values))
     with pytest.raises(ValueError, match="unknown algorithm"):
         te.analyze(model_t, algorithm="sssp")
+
+
+@pytest.mark.parametrize("seeds", list(KHOP_SEEDS))
+def test_engine_khop_seed_indices_out_of_range_match_jax(engines, seeds):
+    je, te = engines
+    model_t, model_j = tdata.fraud_model("store"), jdata.fraud_model("store")
+    n = te.analyze(model_t, algorithm="degree_stats").csr.num_vertices
+    idx = KHOP_SEEDS[seeds](n)
+    got = te.analyze(model_t, algorithm="khop", seeds=idx, k=2)
+    want = je.analyze(model_j, algorithm="khop", seeds=idx, k=2)
+    np.testing.assert_array_equal(_np(got.values), np.asarray(want.values))
 
 
 def test_engine_graph_view_shares_cache(engines):

@@ -20,6 +20,7 @@ import torch
 from repro.kernels import bloom as jbloom
 from repro.kernels import ref as jref
 from repro.kernels import sorted_probe as jprobe
+from repro_torch.kernels import bloom as tbloom
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sorted_probe as tprobe
@@ -151,6 +152,27 @@ def test_bloom_bits_policy_matches():
 
     for cap in (0, 1, 8, 100, 4096, 10**6, 2**24):
         assert kops.bloom_bits_for(cap) == jbits(cap)
+
+
+def test_bloom_scratch_is_cached_per_device_and_stream():
+    """One zeroed scratch per (device, stream): the same key gives the same
+    tensor, another stream another one.  The meta device stands in for a
+    card here (it allocates no data)."""
+    meta = torch.device("meta")
+    first = tbloom.build_scratch(meta, 11)
+    assert first.shape == (tbloom.SCRATCH_WORDS,)
+    assert first.dtype == torch.int32
+    assert tbloom.SCRATCH_WORDS == tbloom.MAX_BITS // 32 + 1
+    assert tbloom.build_scratch("meta", 11) is first
+    other = tbloom.build_scratch(meta, 12)
+    assert other is not first
+    assert tbloom.build_scratch(meta, 12) is other
+
+
+@pytest.mark.parametrize("device", ["cpu", torch.device("cpu")])
+def test_bloom_scratch_is_refused_for_a_cpu_tensor(device):
+    with pytest.raises(ValueError, match="scratch"):
+        tbloom.build_scratch(device, 0)
 
 
 def test_resolve_use_kernel_follows_device():

@@ -437,6 +437,29 @@ def test_prefill_and_decode_match_jax(arch):
         _close(tcache["cycles"][slot]["k"], lc["k"], CACHE_TOL)
 
 
+def test_decode_past_the_end_of_the_cache_matches_jax():
+    """Past the end of an ``attn`` cache both packages overwrite its last
+    slot: max_len 4, a prompt of 4, two decode steps."""
+    jc, tc, jp, tp, *_ = _setup("qwen2.5-3b")
+    toks = np.random.default_rng(5).integers(0, jc.vocab_size, (B, 4)).astype(
+        np.int32)
+    jlog, jcache = jmodels.prefill(jp, jc, {"tokens": jnp.asarray(toks)},
+                                   max_len=4)
+    tlog, tcache = tmodels.prefill(tp, tc, {"tokens": torch.from_numpy(toks)},
+                                   4)
+    step = jax.jit(lambda p, c, t: jmodels.decode_step(p, jc, c, t))
+    for _ in range(2):
+        tok = np.asarray(jnp.argmax(jlog, axis=-1)).astype(np.int32)
+        jlog, jcache = step(jp, jcache, jnp.asarray(tok))
+        tlog, tcache = tmodels.decode_step(tp, tc, tcache,
+                                           torch.from_numpy(tok))
+        assert bool(torch.isfinite(tlog).all())
+        _close(tlog, jlog, LOGIT_TOL)
+    assert int(tcache["pos"]) == int(jcache["pos"]) == 6
+    for slot, lc in jcache["cycles"].items():
+        _close(tcache["cycles"][slot]["k"], lc["k"], CACHE_TOL)
+
+
 def test_kernel_path_on_the_cpu_takes_the_plain_flash_version():
     """``use_kernel=True`` on CPU tensors goes through the wrapper, which
     takes its float32 plain version: no launch, and the logits agree with

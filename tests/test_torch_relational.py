@@ -38,6 +38,33 @@ def _same(jt, tt):
             name
 
 
+@pytest.mark.parametrize("column", [
+    pytest.param(np.arange(5), id="numpy-int64"),
+    pytest.param(np.arange(5, dtype=np.uint64) + 2**40, id="numpy-uint64"),
+    pytest.param(np.linspace(0.1, 2.5, 5), id="numpy-float64"),
+    pytest.param([3, 1, 4, 1, 5], id="python-int"),
+    pytest.param([1.5, 2, 3, 4, 5], id="python-float"),
+    pytest.param(np.array([True, False, True, True, False]), id="bool"),
+    pytest.param([True, False, True, True, False], id="python-bool"),
+    pytest.param(np.arange(5, dtype=np.int32) - 2, id="numpy-int32"),
+    pytest.param(np.arange(5, dtype=np.float32), id="numpy-float32"),
+])
+def test_from_arrays_canonicalises_dtypes_as_jax(column):
+    """numpy and Python inputs narrow as ``jnp.asarray`` narrows them (x64
+    off): int64 -> int32, uint64 -> uint32, float64 -> float32; bool and
+    32-bit types stay."""
+    key = np.arange(5, dtype=np.int32)
+    jt = jr.Table.from_arrays(capacity=8, k=key, c=column)
+    tt = tr.Table.from_arrays(capacity=8, device="cpu", k=key, c=column)
+    _same(jt, tt)
+
+
+def test_from_arrays_keeps_torch_dtypes():
+    t = tr.Table.from_arrays(device="cpu", a=torch.arange(4),
+                             b=torch.ones(4, dtype=torch.float64))
+    assert t["a"].dtype == torch.int64 and t["b"].dtype == torch.float64
+
+
 @pytest.fixture(scope="module")
 def sides():
     left = _tables(300, 1, ("k", "x", "a"), prefix="L.")
