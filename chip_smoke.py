@@ -22,13 +22,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    per-call time (``ms``, which holds the host's dispatch when that is
    longer than the kernel) each case gets ``device_ms``: the kernels,
    fills and copies ``torch.profiler`` records on the card over 20 more
-   launches, per call, and how many of them a call puts on the stream (a
-   CUDA-graph replay gives the time when the profiler records none).  The
-   join kernels
+   launches, per call, and how many of them a call puts on the stream.  A
+   capture counts only if it holds the wrapper's own kernel
+   (``<name>_kernel``); when none of ``PROFILE_TRIES`` does, a CUDA-graph
+   replay gives the time.  The join kernels
    (TPC-DS SF1 key columns) run first, with a probe edge case whose runs
    of one key are far longer than the probe's fence stride; the graph
-   kernels run at the start of phase 6, on the JS-OJ graph's CSR, where
-   their shapes first exist, with edge cases aimed at the shared-memory
+   kernels run on the JS-OJ graph's CSR (phase 6's shapes), with edge
+   cases aimed at the shared-memory
    table of ``edge_spmv`` and ``edge_min_label`` at that size (every edge
    into one vertex, more distinct destinations in a block's range than
    table slots, destinations past the probe bound, runs longer than a
@@ -37,10 +38,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 4. The JS-OJ path: ``ExtractionEngine.extract(fraud_model("store"))`` on
    ``make_tpcds(sf=1000)``, cold then warm.  ``Buy`` and ``Sell`` must
    equal the numpy bags (c_sk, i_sk) and (o_sk, i_sk) of store_sales, and
-   the plain-torch path's digests.  Every ``bloom_build`` and
-   ``bloom_probe`` launch of phases 4-5 is recorded: the run logs their
-   (N, num_bits) and, after phase 5, checks and times ``bloom_build`` at
-   the largest and the most frequent.
+   the plain-torch path's digests.  The kernel phase replays phases 4-5
+   with every ``bloom_build`` and ``bloom_probe`` launch recorded: it logs
+   their (N, num_bits) and checks and times ``bloom_build`` at the largest
+   and the most frequent.
 5. The JS-MV path: ``ExtractionEngine.extract(dblp_model())`` on
    ``make_dblp(scale=100)``, cold (view built) then warm (plan cache hit,
    view reused); edge counts against numpy, digests against the plain path.
@@ -55,16 +56,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    hub may be off by this much relative (the recursive-summation bound),
    and every vertex's rank shares the error through the dangling mass.
    The CSR built through the ``segment_counts`` kernel must equal the plain
-   build array for array.  Every ``segment_counts`` launch of the phase is
-   recorded, and the kernel is checked and timed on each distinct operand
-   (the CSR build's sources in extraction order, PageRank's out-degree,
-   the degree statistics' sources and targets), labelled by call site.
+   build array for array.  The kernel phase replays the phase with every
+   ``segment_counts`` launch recorded, and checks and times the kernel on
+   each distinct operand (the CSR build's sources in extraction order,
+   PageRank's out-degree, the degree statistics' sources and targets),
+   labelled by call site.
 7. Analytics on the JS-MV graph (dblp scale=100, ~25M edges): PageRank and
    WCC through the kernels against the plain-torch path on the same CSR:
    WCC exactly, PageRank to the tolerance of phase 6.  Then ``edge_spmv``
    on PageRank's edges and ``edge_min_label`` on WCC's (first step and
    second), checked and timed as in phase 3, and ``segment_counts`` on the
-   operands of its launches, as in phase 6.
+   operands of its launches (replayed), as in phase 6.
 8. The LM serving path.  (a) ``flash_attention`` against its plain version
    in bf16 at the main path's shapes (qwen2.5-3b prefill B 4 x S 2048,
    16/2 heads, Dh 128, causal; gemma-2b Dh 256; h2o-danube-3-4b S 8192,
@@ -83,19 +85,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    plain attention path: the last logits and the first step's logits must
    agree to ``LM_REL_TOL`` x std(logits) (see there).
 
+The phases run in their order, each kernel case checked and timed with
+CUDA events where it stands.  Then a kernel phase: the kernel cases of 4-7
+on the operands the paths' launches saw, taken from an untimed replay of
+each path on regenerated data with the wrappers recorded (``replay``, which
+checks that the replay launched every kernel as often as the timed run),
+and last every case's device time (``torch.profiler``, on operands rebuilt
+alike).  So no profiler session and no recorded operand comes before or
+during a path's timed run, nor a profiler session before a CUDA-event
+timing: after one, the host's launches are slower.
+
 Launch counters are set to 0 just before each of phases 4–7 and 8b and read
-just after; every kernel of a path must have launched inside it.  The last lines
-are a JSON object of the kernels, the card's name and power limit, and
+just after; every kernel of a path must have launched inside it.  The last
+lines are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
-
-``--ab PARENT`` (a checkout of an earlier commit, for example unpacked with
-``git archive`` under ``build/``) adds an A/B wherever ``segment_counts``
-and ``bloom_build`` are timed: each is checked and timed beside its
-variants (this checkout's source built with one switch flipped, or
-launched on another grid; see ``AB``) and beside PARENT's kernels, in
-turns, and the results are printed as one more JSON line.
 """
 from __future__ import annotations
 
@@ -173,13 +178,14 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time(torch, fn, iters: int = 20, warmup: int = 3):
+def device_time(torch, fn, kernel: str, iters: int = 20, warmup: int = 3):
     """(ms, operations) on the card per call of ``fn``: the kernels, fills
     and copies that ``torch.profiler`` records over ``iters`` calls, without
-    the host's dispatch: the larger of two captures.  A capture that
-    records none of them is taken again (up to ``PROFILE_TRIES``); with
-    none at all the time falls back to a CUDA-graph replay of the calls
-    (operations None)."""
+    the host's dispatch: the larger of two captures.  A capture counts only
+    if it holds ``kernel`` (the wrapper's CUDA kernel, by name) at least
+    every other call, and is taken again otherwise (up to
+    ``PROFILE_TRIES``); when none holds it, the time comes from a CUDA-graph
+    replay of the calls (operations None)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -194,22 +200,25 @@ def device_time(torch, fn, iters: int = 20, warmup: int = 3):
             torch.cuda.synchronize()
         # each operation's mean time x its launches a call: a few events
         # the profiler drops do not lower the sum
-        us, ops = 0.0, 0
+        us, ops, held = 0.0, 0, False
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA and \
                     2 * e.count >= iters:
                 per_call = round(e.count / iters) or 1
                 us += e.self_device_time_total / e.count * per_call
                 ops += per_call
-        if us > 0:
+                held = held or kernel in e.key
+        if held:
             seen.append((us / 1e3, ops))
+        else:
+            log(f"  (a profiler capture lacks {kernel}: taken again)")
         if len(seen) == 2:
             # now and then a capture drops most events of a kernel, and
             # its sum reads low: of two captures, the larger
             return max(seen)
     if seen:
         return seen[0]
-    log("  (the profiler recorded no device time: CUDA-graph replay)")
+    log(f"  (no profiler capture held {kernel}: CUDA-graph replay)")
     return graph_ms(torch, fn, iters), None
 
 
@@ -242,7 +251,8 @@ def graph_ms(torch, fn, iters: int = 20) -> float:
 def recording(kops, name: str):
     """Swap ``kops.<name>`` for a recorder while the block runs: each call
     appends (call site, args) to the yielded list and goes on to the
-    wrapper, whose launch count counts it as before."""
+    wrapper, whose launch count counts it as before.  The list holds every
+    operand, so only untimed replays (``replay``) record."""
     wrapper, calls = getattr(kops, name), []
 
     def record(*args, **kwargs):
@@ -311,7 +321,8 @@ def flash_ptxas(log_text: str):
     return out
 
 
-def record_rows(torch, rows, name, source, replaces, cases, compare=None):
+def record_rows(torch, rows, name, source, replaces, cases, compare=None,
+                device=True):
     """Check and time each case of one kernel; append its JSON row (or add
     the cases to the kernel's row, when it has one already) and return it.
 
@@ -319,6 +330,8 @@ def record_rows(torch, rows, name, source, replaces, cases, compare=None):
     an optional seventh item, the operations' peak rate (``bound_ms``).
     ``compare(got, want) -> max_abs_err`` raises when the two disagree
     beyond the kernel's tolerance; the default demands exact equality.
+    ``device=False`` leaves ``device_ms`` to ``add_device_times`` (a
+    profiler session must not precede the paths' timed runs).
     """
     out_cases = []
     worst = 0
@@ -339,7 +352,8 @@ def record_rows(torch, rows, name, source, replaces, cases, compare=None):
         k2 = cuda_ms(torch, run_k)
         p2 = cuda_ms(torch, run_p)
         lib = cuda_ms(torch, run_l) if run_l is not None else None
-        dev_ms, dev_ops = device_time(torch, run_k)
+        dev_ms, dev_ops = (device_time(torch, run_k, f"{name}_kernel")
+                           if device else (None, None))
         b, by = bound_ms(nbytes, ops, *rate)
         ms = min(k1, k2)
         ratio = None if lib is None else ms / lib
@@ -348,8 +362,9 @@ def record_rows(torch, rows, name, source, replaces, cases, compare=None):
                           "plain_ms": min(p1, p2), "library_ms": lib,
                           "library_ratio": ratio,
                           "bound_ms": b, "bound_by": by})
-        log(f"  {name} [{label}] kernel {ms:.4f} ms (device {dev_ms:.4f} ms"
-            f" in {dev_ops} operations a call), plain "
+        dev = "later" if dev_ms is None else \
+            f"{dev_ms:.4f} ms in {dev_ops} operations a call"
+        log(f"  {name} [{label}] kernel {ms:.4f} ms (device {dev}), plain "
             f"{min(p1, p2):.4f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
             f"{b:.4f} ms ({by})"
@@ -371,11 +386,27 @@ def record_rows(torch, rows, name, source, replaces, cases, compare=None):
     return row
 
 
+def add_device_times(torch, rows, name, cases):
+    """``device_ms`` of the cases ``record_rows(..., device=False)`` left
+    without it, on ``cases`` (record_rows' form) rebuilt alike, by label."""
+    row = next(r for r in rows if r["name"] == name)
+    for label, run_k, *_ in cases:
+        out = next(c for c in row["cases"] if c["shape"] == label)
+        assert out["device_ms"] is None, f"{name} [{label}] timed twice"
+        out["device_ms"], out["device_ops_per_call"] = device_time(
+            torch, run_k, f"{name}_kernel")
+        log(f"  {name} [{label}] device {out['device_ms']:.4f} ms in "
+            f"{out['device_ops_per_call']} operations a call")
+    row["device_ms"] = row["cases"][0]["device_ms"]
+
+
 def segment_case(torch, kops, ref, label, values, valid, n):
     """A ``record_rows`` case of segment_counts on one operand, with
-    ``bincount`` of its valid in-range values as the library call."""
+    ``bincount`` of its valid in-range values as the library call;
+    ``{live}`` in ``label`` becomes the count of valid slots."""
     counted = values[valid & (values >= 0) & (values < n)].to(torch.int64)
     e, live = values.shape[0], int(valid.sum())
+    label = label.format(live=live)
     # a flag per slot, a value per valid slot, a count per bin
     return (label, lambda: kops.segment_counts(values, valid, n),
             lambda: ref.segment_counts(values, valid, n),
@@ -384,30 +415,34 @@ def segment_case(torch, kops, ref, label, values, valid, n):
 
 
 def bloom_case(kops, ref, label, keys, valid, nbits):
-    """A ``record_rows`` case of bloom_build (no library call computes it)."""
+    """A ``record_rows`` case of bloom_build (no library call computes it);
+    ``{live}`` in ``label`` becomes the count of valid keys."""
     n, live = keys.shape[0], int(valid.sum())
+    label = label.format(live=live)
     # a flag per slot, a key per valid slot, an int32 per bit
     return (label, lambda: kops.bloom_build(keys, valid, nbits),
             lambda: ref.bloom_build(keys, valid, nbits), None,
             n + 4 * live + 4 * nbits, 2 * HASH_OPS * live)
 
 
-def record_segment_calls(torch, kops, ref, rows, path, calls, ab):
-    """Check and time segment_counts on the distinct operands of the
-    launches recorded on one path (cases of the kernel's row)."""
+def record_segment_calls(torch, kops, ref, rows, path, calls):
+    """Check and time segment_counts with CUDA events on the distinct
+    operands of the launches recorded on one path (cases of the kernel's
+    row); returns the cases, for ``add_device_times``."""
     cases = []
     for label, (values, valid, n) in distinct_calls(torch, calls):
-        label = f"{path} {label}: E={values.shape[0]} into V={n}"
+        label = (f"{path} {label}: E={values.shape[0]} ({{live}} valid) "
+                 f"into V={n}")
         cases.append(segment_case(torch, kops, ref, label, values, valid, n))
-        if ab is not None:
-            ab.segment(ref, label, values, valid, n)
     record_rows(torch, rows, "segment_counts", SEGMENT_SOURCE,
-                SEGMENT_REPLACES, cases)
+                SEGMENT_REPLACES, cases, device=False)
+    return cases
 
 
-def record_bloom_calls(torch, kops, ref, rows, calls, ab):
+def record_bloom_calls(torch, kops, ref, rows, calls):
     """Log the (N, num_bits) of every bloom_build launch of phases 4-5, and
-    check and time the kernel at the largest and the most frequent."""
+    check and time the kernel with CUDA events at the largest and the most
+    frequent; returns the cases, for ``add_device_times``."""
     shapes = collections.Counter((args[0].shape[0], args[2])
                                  for _, args in calls)
     log(f"bloom_build launches of phases 4-5 by (N, num_bits): "
@@ -416,226 +451,29 @@ def record_bloom_calls(torch, kops, ref, rows, calls, ab):
              "most frequent"}
     if len(picks) == 1:
         picks = {max(shapes): "largest and most frequent"}
-    if ab is not None:                 # the host's share, where it is all
-        keys, valid, nbits = next(args for _, args in calls
-                                  if (args[0].shape[0], args[2]) == min(shapes))
-        ab.bloom(ref, f"smallest of phases 4-5: N={min(shapes)[0]} "
-                 f"bits={nbits}", keys, valid, nbits, host=True)
     cases = []
     for shape, which in picks.items():
         keys, valid, nbits = next(args for _, args in calls
                                   if (args[0].shape[0], args[2]) == shape)
         label = (f"{which} of phases 4-5 ({shapes[shape]} of "
-                 f"{len(calls)} launches): N={shape[0]} bits={nbits}")
+                 f"{len(calls)} launches): N={shape[0]} ({{live}} valid) "
+                 f"bits={nbits}")
         cases.append(bloom_case(kops, ref, label, keys, valid, nbits))
-        if ab is not None:
-            ab.bloom(ref, label, keys, valid, nbits)
     record_rows(torch, rows, "bloom_build", BLOOM_SOURCE, BLOOM_REPLACES,
-                cases)
+                cases, device=False)
+    return cases
 
 
-class AB:
-    """``--ab PARENT``: segment_counts and bloom_build against their
-    variants (this checkout's sources built with one switch flipped, or
-    launched on another grid) and against the kernels of the checkout at
-    PARENT, on every operand the run times them on.  Each is checked equal
-    to the plain version, then timed in turns (CUDA events a call, and
-    device time from the profiler); ``results`` is printed as one JSON
-    line."""
-
-    SEGMENT = {"warp step": ("-DSEGMENT_COUNTS_WARP=1",),
-               "no table": ("-DSEGMENT_COUNTS_TABLE=0",)}
-    BLOCKS_PER_SM = (1, 2)          # the wrappers' grids have 4
-
-    def __init__(self, torch, parent: Path):
-        import ctypes
-
-        from repro_torch.kernels import _build
-
-        self.torch, self.results = torch, []
-        out = _build.BUILD_DIR.parent / "ab"
-        out.mkdir(parents=True, exist_ok=True)
-        csrc = _build.CSRC
-        old = parent / "src" / "repro_torch" / "kernels" / "csrc"
-        jobs = {("segment_csr", k): (csrc / "segment_csr.cu", d)
-                for k, d in self.SEGMENT.items()}
-        jobs[("segment_csr", "parent")] = (old / "segment_csr.cu", ())
-        jobs[("bloom", "parent")] = (old / "bloom.cu", ())
-        procs = {}
-        for i, (key, (src, defines)) in enumerate(jobs.items()):
-            lib = out / f"ab{i}.so"
-            procs[key] = (lib, subprocess.Popen(
-                [_build.nvcc_path(), *_build.NVCC_FLAGS, *defines, "-o",
-                 str(lib), str(src)], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-        P, I = ctypes.c_void_p, ctypes.c_int64
-        parent_sig = {"segment_csr": (P, P, P, I, I, P),
-                      "bloom": (P, P, P, P, I, I, I, P)}
-        self.libs = {}
-        for (name, variant), (lib, proc) in procs.items():
-            text, _ = proc.communicate()
-            assert proc.returncode == 0, f"A/B build {name} {variant}:\n{text}"
-            entry = "repro_segment_counts" if name == "segment_csr" \
-                else "repro_bloom_build"
-            fn = getattr(ctypes.CDLL(str(lib)), entry)
-            fn.argtypes = list(parent_sig[name] if variant == "parent"
-                               else _build.SIGNATURES[name][entry])
-            fn.restype = ctypes.c_int
-            self.libs[(name, variant)] = fn
-        log(f"A/B: built {sorted(self.libs)} against {parent}")
-
-    @staticmethod
-    def grid(e, dev, blocks_per_sm):
-        """The wrappers' grid with ``blocks_per_sm`` blocks an SM in place
-        of SCATTER_BLOCKS_PER_SM (asked of scatter_grid for fewer SMs)."""
-        from repro_torch.kernels import _build
-
-        return _build.scatter_grid(e, _build.num_sms(dev) * blocks_per_sm
-                                   // _build.SCATTER_BLOCKS_PER_SM)
-
-    def segment(self, ref, label, values, valid, n):
-        from repro_torch.kernels import _build
-        from repro_torch.kernels import ops as kops
-
-        torch = self.torch
-        dev = values.device
-        e = values.shape[0]
-
-        def variant(fn, blocks_per_sm=_build.SCATTER_BLOCKS_PER_SM):
-            blocks, per_block = self.grid(e, dev, blocks_per_sm)
-
-            def run():
-                counts = torch.zeros(n, dtype=torch.int32, device=dev)
-                _build.check(fn(values.data_ptr(), valid.data_ptr(),
-                                counts.data_ptr(), e, n, blocks, per_block,
-                                _build.stream_ptr(dev)), "A/B")
-                return counts
-            return run
-
-        def parent():
-            counts = torch.zeros(n, dtype=torch.int32, device=dev)
-            _build.check(self.libs[("segment_csr", "parent")](
-                values.data_ptr(), valid.data_ptr(), counts.data_ptr(), e, n,
-                _build.stream_ptr(dev)), "A/B parent")
-            return counts
-
-        runs = {"this": lambda: kops.segment_counts(values, valid, n)}
-        runs.update({k: variant(self.libs[("segment_csr", k)])
-                     for k in self.SEGMENT})
-        this = _build.library("segment_csr").repro_segment_counts
-        runs.update({f"{k} blocks/SM": variant(this, k)
-                     for k in self.BLOCKS_PER_SM})
-        runs["parent"] = parent
-        self._time("segment_counts", label, runs,
-                   ref.segment_counts(values, valid, n))
-
-    def bloom(self, ref, label, keys, valid, nbits, host=False):
-        """A/B of bloom_build on one operand; ``host`` adds the host time
-        of each piece of the wrapper."""
-        from repro_torch.kernels import _build
-        from repro_torch.kernels import bloom as kbloom
-        from repro_torch.kernels import ops as kops
-
-        torch = self.torch
-        dev = keys.device
-        e = keys.shape[0]
-        this = _build.library("bloom").repro_bloom_build
-
-        def on_grid(blocks_per_sm):
-            blocks, per_block = self.grid(e, dev, blocks_per_sm)
-
-            def run():
-                bits = torch.empty(nbits, dtype=torch.int32, device=dev)
-                stream = _build.stream_ptr(dev)
-                base = kbloom.build_scratch(dev, stream).data_ptr()
-                _build.check(this(
-                    keys.data_ptr(), valid.data_ptr(), base,
-                    base + 4 * (kbloom.SCRATCH_WORDS - 1), bits.data_ptr(),
-                    e, nbits, 2, blocks, per_block, stream), "A/B")
-                return bits
-            return run
-
-        def parent():
-            # the parent's wrapper: checks, a zeroed output, packed scratch
-            _build.check_input(keys, torch.int32, "keys")
-            _build.check_input(valid, torch.bool, "valid", device=dev)
-            bits = torch.zeros(nbits, dtype=torch.int32, device=dev)
-            packed = torch.empty((nbits + 31) // 32, dtype=torch.int32,
-                                 device=dev)
-            _build.check(self.libs[("bloom", "parent")](
-                keys.data_ptr(), valid.data_ptr(), packed.data_ptr(),
-                bits.data_ptr(), e, nbits, 2, _build.stream_ptr(dev)),
-                "A/B parent")
-            return bits
-
-        runs = {"this": lambda: kops.bloom_build(keys, valid, nbits)}
-        runs.update({f"{k} blocks/SM": on_grid(k)
-                     for k in self.BLOCKS_PER_SM})
-        runs["parent"] = parent
-        self._time("bloom_build", label, runs,
-                   ref.bloom_build(keys, valid, nbits))
-        if host:
-            stream = _build.stream_ptr(dev)
-            self._host_us(label, {
-                "check_input x2": lambda: (
-                    _build.check_input(keys, torch.int32, "keys"),
-                    _build.check_input(valid, torch.bool, "valid",
-                                       device=dev)),
-                "torch.empty": lambda: torch.empty(
-                    nbits, dtype=torch.int32, device=dev),
-                "stream_ptr": lambda: _build.stream_ptr(dev),
-                "build_scratch": lambda: kbloom.build_scratch(dev, stream),
-                "scatter_grid": lambda: _build.scatter_grid(
-                    e, _build.num_sms(dev)),
-                "wrapper": runs["this"], "parent's wrapper": parent})
-
-    def _host_us(self, label, pieces, reps: int = 2000):
-        """Host microseconds a call of each piece of a wrapper, on the host
-        clock over ``reps`` calls (at a build side small enough that the
-        card keeps up with the launches)."""
-        torch = self.torch
-        out = {}
-        for what, fn in pieces.items():
-            for _ in range(50):
-                fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            out[what] = (time.perf_counter() - t0) / reps * 1e6
-        self.results.append({"kernel": "bloom_build", "shape": label,
-                             "host_us": out})
-        log(f"  host us a call [{label}]: " + ", ".join(
-            f"{k} {v:.2f}" for k, v in out.items()))
-
-    def _time(self, name, label, runs, want):
-        torch = self.torch
-        for variant, run in runs.items():
-            assert torch.equal(run(), want), f"A/B {name} {variant} [{label}]"
-        ms = {k: [] for k in runs}
-        for k in list(runs) + list(runs)[::-1]:
-            ms[k].append(cuda_ms(torch, runs[k]))
-        out = {k: {"ms": min(ms[k]),
-                   "device_ms": device_time(torch, runs[k])[0]}
-               for k in runs}
-        self.results.append({"kernel": name, "shape": label, "runs": out})
-        log(f"  A/B {name} [{label}]: " + ", ".join(
-            f"{k} {v['ms']:.4f} ms (device {v['device_ms']:.4f})"
-            for k, v in out.items()))
-
-
-def check_kernels(torch, kops, ref, tpcds_np, ab):
-    """Phase 3: each kernel against its plain version, exact, and timed."""
+def check_kernels(torch, kops, ref, tpcds_np):
+    """Phase 3: the join kernels against their plain versions, exact, at
+    the edge cases and at ``join_cases``, timed with CUDA events (device
+    times later: ``add_device_times``)."""
     import numpy as np
 
     from repro_torch.kernels.sorted_probe import fence_stride
 
     dev = torch.device("cuda")
     null = np.int32(2**31 - 1)
-    fact_i = torch.from_numpy(tpcds_np["i_sk"]).to(dev)       # 2.88M
-    item_sorted = torch.from_numpy(np.sort(tpcds_np["i_id"])).to(dev)
-    fact_sorted = torch.sort(fact_i).values
     rng = np.random.default_rng(0)
 
     def t(a):
@@ -686,7 +524,21 @@ def check_kernels(torch, kops, ref, tpcds_np, ab):
         len(edge_bloom), "all exact")
 
     rows = []
-    record = functools.partial(record_rows, torch, rows)
+    for name, (source, replaces, cases) in join_cases(
+            torch, kops, ref, tpcds_np).items():
+        record_rows(torch, rows, name, source, replaces, cases, device=False)
+    return rows
+
+
+def join_cases(torch, kops, ref, tpcds_np):
+    """Phase 3's timed cases of the join kernels, {name: (source, replaces,
+    cases)} in ``record_rows``' form, on the TPC-DS SF1 key columns."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    fact_i = torch.from_numpy(tpcds_np["i_sk"]).to(dev)       # 2.88M
+    item_sorted = torch.from_numpy(np.sort(tpcds_np["i_id"])).to(dev)
+    fact_sorted = torch.sort(fact_i).values
 
     def probe_case(label, sk, pk):
         s, p = sk.shape[0], pk.shape[0]
@@ -699,31 +551,31 @@ def check_kernels(torch, kops, ref, tpcds_np, ab):
                                             out_int32=True)),
                 4 * s + 4 * p + 8 * p, 2 * depth * p)
 
-    record("sorted_probe", "src/repro_torch/kernels/csrc/sorted_probe.cu",
-           "src/repro/kernels/sorted_probe.py:45",
-           [probe_case(f"P={fact_i.shape[0]} into S={fact_sorted.shape[0]}",
-                       fact_sorted, fact_i),
-            probe_case(f"P={fact_i.shape[0]} into S={item_sorted.shape[0]}",
-                       item_sorted, fact_i)])
-
     nbits = kops.bloom_bits_for(fact_i.shape[0])
     valid = torch.ones(fact_i.shape, dtype=torch.bool, device=dev)
     n = fact_i.shape[0]
-    label = f"N={n} bits={nbits}"
-    record("bloom_build", BLOOM_SOURCE, BLOOM_REPLACES,
-           [bloom_case(kops, ref, label, fact_i, valid, nbits)])
-    if ab is not None:
-        ab.bloom(ref, label, fact_i, valid, nbits)
     bits = ref.bloom_build(item_sorted, torch.ones_like(item_sorted,
                                                         dtype=torch.bool),
                            nbits)
-    record("bloom_probe", BLOOM_SOURCE,
-           "src/repro/kernels/bloom.py:48",
-           [(f"N={n} bits={nbits}",
-             lambda: kops.bloom_probe(bits, fact_i),
-             lambda: ref.bloom_probe(bits, fact_i),
-             None, 4 * nbits + 5 * n, 2 * HASH_OPS * n)])
-    return rows
+    return {
+        "sorted_probe": (
+            "src/repro_torch/kernels/csrc/sorted_probe.cu",
+            "src/repro/kernels/sorted_probe.py:45",
+            [probe_case(f"P={n} into S={fact_sorted.shape[0]}",
+                        fact_sorted, fact_i),
+             probe_case(f"P={n} into S={item_sorted.shape[0]}",
+                        item_sorted, fact_i)]),
+        "bloom_build": (
+            BLOOM_SOURCE, BLOOM_REPLACES,
+            [bloom_case(kops, ref, f"N={n} ({{live}} valid) bits={nbits}",
+                        fact_i, valid, nbits)]),
+        "bloom_probe": (
+            BLOOM_SOURCE, "src/repro/kernels/bloom.py:48",
+            [(f"N={n} bits={nbits}",
+              lambda: kops.bloom_probe(bits, fact_i),
+              lambda: ref.bloom_probe(bits, fact_i),
+              None, 4 * nbits + 5 * n, 2 * HASH_OPS * n)]),
+    }
 
 
 def spmv_compare(torch, src, dst, valid, x, n, stats):
@@ -750,7 +602,8 @@ def spmv_compare(torch, src, dst, valid, x, n, stats):
     return compare
 
 
-def record_spmv(torch, kops, ref, rows, label, src, dst, valid, x, n):
+def record_spmv(torch, kops, ref, rows, label, src, dst, valid, x, n,
+                device=True):
     """Check edge_spmv to its bound on one edge list and time it beside
     gather + ``index_add_``, into the kernel's row."""
     keep = valid & (dst >= 0) & (dst < n)
@@ -764,7 +617,8 @@ def record_spmv(torch, kops, ref, rows, label, src, dst, valid, x, n):
           lambda: ref.edge_spmv(src, dst, valid, x, n),
           lambda: torch.zeros(n, device=x.device).index_add_(0, d64, x[s64]),
           9 * e + 8 * n, e)],
-        compare=spmv_compare(torch, src, dst, valid, x, n, stats))
+        compare=spmv_compare(torch, src, dst, valid, x, n, stats),
+        device=device)
     seen = row.setdefault("error_over_bound", {})
     for who, ratio in stats.items():
         seen[who] = max(seen.get(who, 0.0), ratio)
@@ -772,7 +626,7 @@ def record_spmv(torch, kops, ref, rows, label, src, dst, valid, x, n):
 
 
 def record_min_label(torch, kops, ref, rows, label, src, dst, valid, labels,
-                     n):
+                     n, device=True):
     """Check edge_min_label exactly on one edge list and labels, and time
     it beside clone + gather + ``scatter_reduce_``, into the kernel's row."""
     keep = valid & (dst >= 0) & (dst < n)
@@ -786,7 +640,7 @@ def record_min_label(torch, kops, ref, rows, label, src, dst, valid, labels,
           lambda: ref.edge_min_label(src, dst, valid, labels, n),
           lambda: labels[:n].clone().scatter_reduce_(0, d64, labels[s64],
                                                      "amin"),
-          9 * e + 8 * n, e)])
+          9 * e + 8 * n, e)], device=device)
 
 
 def check_scatter_table(torch, kops, ref, n, n_edges):
@@ -842,8 +696,9 @@ def check_scatter_table(torch, kops, ref, n, n_edges):
 
 
 def check_graph_kernels(torch, kops, ref, csr):
-    """Phase 3, graph kernels: each against its plain version at the JS-OJ
-    graph's shapes and at the edge cases; exact, spmv to its bound."""
+    """Phase 3, graph kernels (at the start of phase 6): each against its
+    plain version at the edge cases and at ``oj_graph_specs``, exact, spmv
+    to its bound; timed with CUDA events (device times later)."""
     import numpy as np
 
     dev = csr.device
@@ -884,40 +739,94 @@ def check_graph_kernels(torch, kops, ref, csr):
     log("edge cases: graph kernels", len(edge_cases), "all exact")
     check_scatter_table(torch, kops, ref, csr.num_vertices,
                         csr.coo("Buy")[0].shape[0])
-
     rows = []
-    record = functools.partial(record_rows, torch, rows)
-    n = csr.num_vertices
+    record_specs(torch, kops, ref, rows, oj_graph_specs(torch, ref, csr),
+                 device=False)
+    return rows
+
+
+def oj_graph_specs(torch, ref, csr):
+    """The graph kernels' timed operands on the JS-OJ CSR: [(kernel,
+    label, args)], ``args`` as the kernel's wrapper takes them."""
+    import numpy as np
+
+    dev, n = csr.device, csr.num_vertices
     sb, db, vb = csr.coo("Buy")                   # PageRank's label
     sa, da, va = csr.coo()                        # k-hop, degree stats
     ss, ds, vs = csr.coo(symmetric=True)          # WCC
     e_b, e_a, e_s = sb.shape[0], sa.shape[0], ss.shape[0]
-
-    record("segment_counts", SEGMENT_SOURCE, SEGMENT_REPLACES,
-           [segment_case(torch, kops, ref,
-                         f"Buy sources, CSR order: E={e_b} into V={n}",
-                         sb, vb, n)])
-
-    x = t(rng.random(n).astype(np.float32) / n)
-    record_spmv(torch, kops, ref, rows, f"E={e_b} V={n}", sb, db, vb, x, n)
+    x = torch.from_numpy(np.random.default_rng(1).random(n).astype(
+        np.float32) / n).to(dev)
     lab = torch.arange(n, dtype=torch.int32, device=dev)
-    record_min_label(torch, kops, ref, rows, f"E={e_s} (symmetric) V={n}",
-                     ss, ds, vs, lab, n)
-    # the labels WCC's second to last launches see
-    record_min_label(torch, kops, ref, rows,
-                     f"E={e_s} (symmetric) V={n}, labels after one step",
-                     ss, ds, vs, ref.edge_min_label(ss, ds, vs, lab, n), n)
-
     front = torch.zeros(n, dtype=torch.bool, device=dev)
     front[:KHOP_SEEDS] = True
-    seen = front.clone()
-    record("frontier_expand", "src/repro_torch/kernels/csrc/frontier.cu",
-           "src/repro/kernels/frontier.py:28",
-           [(f"E={e_a} V={n} frontier={KHOP_SEEDS}",
-             lambda: kops.frontier_expand(sa, da, va, front, seen, n),
-             lambda: ref.frontier_expand(sa, da, va, front, seen, n),
-             None, 9 * e_a + 3 * n, e_a)])
-    return rows
+    label = f"E={e_s} (symmetric) V={n}"
+    return [
+        ("segment_counts", f"Buy sources, CSR order: E={e_b} "
+         f"({int(vb.sum())} valid) into V={n}", (sb, vb, n)),
+        ("edge_spmv", f"E={e_b} V={n}", (sb, db, vb, x, n)),
+        ("edge_min_label", label, (ss, ds, vs, lab, n)),
+        # the labels WCC's second to last launches see
+        ("edge_min_label", f"{label}, labels after one step",
+         (ss, ds, vs, ref.edge_min_label(ss, ds, vs, lab, n), n)),
+        ("frontier_expand", f"E={e_a} V={n} frontier={KHOP_SEEDS}",
+         (sa, da, va, front, front.clone(), n)),
+    ]
+
+
+def mv_graph_specs(torch, ref, csr):
+    """``oj_graph_specs`` on the JS-MV CSR: edge_spmv on PageRank's edges,
+    edge_min_label on WCC's (first step and second)."""
+    import numpy as np
+
+    dev, n = csr.device, csr.num_vertices
+    src, dst, valid = csr.coo()                   # PageRank's edges
+    x = torch.from_numpy(np.random.default_rng(7).random(n).astype(
+        np.float32) / n).to(dev)
+    ss, ds, vs = csr.coo(symmetric=True)          # WCC's edges
+    lab = torch.arange(n, dtype=torch.int32, device=dev)
+    label = f"JS-MV E={ss.shape[0]} (symmetric) V={n}"
+    return [
+        ("edge_spmv", f"JS-MV E={src.shape[0]} V={n}",
+         (src, dst, valid, x, n)),
+        ("edge_min_label", label, (ss, ds, vs, lab, n)),
+        ("edge_min_label", f"{label}, labels after one step",
+         (ss, ds, vs, ref.edge_min_label(ss, ds, vs, lab, n), n)),
+    ]
+
+
+def record_specs(torch, kops, ref, rows, specs, device):
+    """Check and time each (kernel, label, args) of ``specs`` into
+    ``rows`` (``record_rows``; ``device`` as there)."""
+    for kernel, label, args in specs:
+        if kernel == "segment_counts":
+            record_rows(torch, rows, kernel, SEGMENT_SOURCE,
+                        SEGMENT_REPLACES,
+                        [segment_case(torch, kops, ref, label, *args)],
+                        device=device)
+        elif kernel == "edge_spmv":
+            record_spmv(torch, kops, ref, rows, label, *args, device=device)
+        elif kernel == "edge_min_label":
+            record_min_label(torch, kops, ref, rows, label, *args,
+                             device=device)
+        else:
+            src, dst, valid, front, seen, n = args
+            e = src.shape[0]
+            record_rows(torch, rows, kernel,
+                        "src/repro_torch/kernels/csrc/frontier.cu",
+                        "src/repro/kernels/frontier.py:28",
+                        [(label, functools.partial(kops.frontier_expand,
+                                                   *args),
+                          functools.partial(ref.frontier_expand, *args),
+                          None, 9 * e + 3 * n, e)], device=device)
+
+
+def add_spec_device_times(torch, kops, rows, specs):
+    """``add_device_times`` for the cases ``record_specs(..., device=False)``
+    recorded, on ``specs`` rebuilt alike."""
+    for kernel, label, args in specs:
+        add_device_times(torch, rows, kernel, [
+            (label, functools.partial(getattr(kops, kernel), *args))])
 
 
 def digest_s(graph) -> float:
@@ -956,12 +865,31 @@ def check_pagerank(err: dict, tol: float, what: str) -> None:
         f"{what}: {err} beyond L1 / max_rel {tol}"
 
 
+def replay(torch, kops, names, counts, fn):
+    """Run ``fn`` (a path) once more, untimed, with the wrappers ``names``
+    recorded: (its result, {name: recorded calls}).  The replay must launch
+    every kernel as often as the timed run whose ``counts`` are given, so
+    the recorded operands are the ones that run's launches saw."""
+    kops.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        calls = {n: stack.enter_context(recording(kops, n)) for n in names}
+        out = fn()
+        torch.cuda.synchronize()
+    again = kops.launch_counts()
+    assert again == counts, f"replay launched {again}, the timed run {counts}"
+    return out, calls
+
+
+def extract_twice(engine, model):
+    """The extraction paths (phases 4-5): a cold request, then a warm one."""
+    return engine.extract(model), engine.extract(model)
+
+
 def drive(torch, kops, engine, model, label):
     """Cold then warm extract between a counter reset and a counter read."""
     torch.cuda.reset_peak_memory_stats()
     kops.reset_launch_counts()
-    cold = engine.extract(model)
-    warm = engine.extract(model)
+    cold, warm = extract_twice(engine, model)
     counts = kops.launch_counts()
     missing = [k for k in JOIN_KERNELS if counts[k] == 0]
     assert not missing, f"{label}: kernels never launched: {missing}"
@@ -978,8 +906,34 @@ def drive(torch, kops, engine, model, label):
     return cold, warm, counts, rows
 
 
-def analytics_oj(torch, kops, ref, ExtractionEngine, db, model, graph, ab):
-    """Phase 6: the graph kernels, then engine.analyze on the JS-OJ graph."""
+def analyze_oj(kops, engine, model):
+    """Phase 6's requests: PageRank on Buy cold then warm, WCC, k-hop and
+    degree statistics; also the launches WCC took."""
+    import numpy as np
+
+    cold = engine.analyze(model, algorithm="pagerank", label="Buy",
+                          iters=PR_ITERS)
+    warm = engine.analyze(model, algorithm="pagerank", label="Buy",
+                          iters=PR_ITERS)
+    before = kops.launch_counts()["edge_min_label"]
+    wcc = engine.analyze(model, algorithm="wcc")
+    wcc_iters = kops.launch_counts()["edge_min_label"] - before
+    khop = engine.analyze(model, algorithm="khop",
+                          seeds=np.arange(KHOP_SEEDS), k=KHOP_K)
+    deg = engine.analyze(model, algorithm="degree_stats")
+    return cold, warm, wcc, khop, deg, wcc_iters
+
+
+def analyze_mv(engine, model):
+    """Phase 7's requests: PageRank, then WCC."""
+    return (engine.analyze(model, algorithm="pagerank", iters=PR_ITERS),
+            engine.analyze(model, algorithm="wcc"))
+
+
+def analytics_oj(torch, kops, ref, ExtractionEngine, db, model, graph):
+    """Phase 6: the graph kernels checked and timed with CUDA events
+    (their rows, device times later), then engine.analyze on the JS-OJ
+    graph, timed, against numpy and the plain CSR build."""
     import numpy as np
 
     from repro_torch.graph import algorithms as talg
@@ -997,17 +951,7 @@ def analytics_oj(torch, kops, ref, ExtractionEngine, db, model, graph, ab):
     engine = ExtractionEngine(db)
     torch.cuda.reset_peak_memory_stats()
     kops.reset_launch_counts()
-    with recording(kops, "segment_counts") as seg_calls:
-        cold = engine.analyze(model, algorithm="pagerank", label="Buy",
-                              iters=PR_ITERS)
-        warm = engine.analyze(model, algorithm="pagerank", label="Buy",
-                              iters=PR_ITERS)
-        before = kops.launch_counts()["edge_min_label"]
-        wcc = engine.analyze(model, algorithm="wcc")
-        wcc_iters = kops.launch_counts()["edge_min_label"] - before
-        khop = engine.analyze(model, algorithm="khop",
-                              seeds=np.arange(KHOP_SEEDS), k=KHOP_K)
-        deg = engine.analyze(model, algorithm="degree_stats")
+    cold, warm, wcc, khop, deg, wcc_iters = analyze_oj(kops, engine, model)
     counts = kops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k in GRAPH_KERNELS if counts[k] == 0]
@@ -1078,25 +1022,20 @@ def analytics_oj(torch, kops, ref, ExtractionEngine, db, model, graph, ab):
         f"PageRank L1 {pr_err['l1']:.3e} (plain {plain_err['l1']:.3e}), "
         f"max_rel {pr_err['max_rel']:.3e} (plain {plain_err['max_rel']:.3e})"
         f" <= {pr_tol:.3e}")
-    log("segment_counts on the operands of the JS-OJ launches:")
-    record_segment_calls(torch, kops, ref, rows, "JS-OJ", seg_calls, ab)
     return rows, counts, timing
 
 
-def analytics_mv(torch, kops, ref, ExtractionEngine, db, model, rows, ab):
-    """Phase 7: PageRank and WCC on the JS-MV graph, kernels vs plain; then
-    edge_spmv and edge_min_label checked and timed on its edge lists (cases
-    added to their ``rows``)."""
-    import numpy as np
-
+def analytics_mv(torch, kops, ref, ExtractionEngine, db, model, rows):
+    """Phase 7: PageRank and WCC on the JS-MV graph, timed, kernels vs the
+    plain path on the same CSR; then edge_spmv and edge_min_label checked
+    and timed with CUDA events on its edge lists (cases added to their
+    ``rows``, device times later)."""
     from repro_torch.graph import algorithms as talg
 
     engine = ExtractionEngine(db)
     torch.cuda.reset_peak_memory_stats()
     kops.reset_launch_counts()
-    with recording(kops, "segment_counts") as seg_calls:
-        pr = engine.analyze(model, algorithm="pagerank", iters=PR_ITERS)
-        wcc = engine.analyze(model, algorithm="wcc")
+    pr, wcc = analyze_mv(engine, model)
     counts = kops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k in ("segment_counts", "edge_spmv", "edge_min_label")
@@ -1133,23 +1072,9 @@ def analytics_mv(torch, kops, ref, ExtractionEngine, db, model, rows, ab):
     log(f"JS-MV analytics: {json.dumps(timing)}")
     log(f"  WCC == plain path; PageRank L1 {pr_err['l1']:.3e}, max_rel "
         f"{pr_err['max_rel']:.3e} <= {pr_err['tolerance']:.3e}")
-
     log("JS-MV graph kernels vs plain, CUDA-event times:")
-    n = csr.num_vertices
-    src, dst, valid = csr.coo()                   # PageRank's edges
-    x = torch.from_numpy(np.random.default_rng(7).random(n).astype(
-        np.float32) / n).to(csr.device)
-    record_spmv(torch, kops, ref, rows, f"JS-MV E={src.shape[0]} V={n}",
-                src, dst, valid, x, n)
-    src, dst, valid = csr.coo(symmetric=True)     # WCC's edges
-    lab = torch.arange(n, dtype=torch.int32, device=csr.device)
-    label = f"JS-MV E={src.shape[0]} (symmetric) V={n}"
-    record_min_label(torch, kops, ref, rows, label, src, dst, valid, lab, n)
-    record_min_label(torch, kops, ref, rows, f"{label}, labels after one step",
-                     src, dst, valid,
-                     ref.edge_min_label(src, dst, valid, lab, n), n)
-    log("segment_counts on the operands of the JS-MV launches:")
-    record_segment_calls(torch, kops, ref, rows, "JS-MV", seg_calls, ab)
+    record_specs(torch, kops, ref, rows, mv_graph_specs(torch, ref, csr),
+                 device=False)
     return counts, timing
 
 
@@ -1179,20 +1104,23 @@ def flash_compare(torch):
     return compare
 
 
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:32"
+
+
+def flash_qkv(torch, gen, b, sq, sk, hq, hkv, dh):
+    """Random bf16 (B, S, H, Dh) q, k, v on the card from ``gen``."""
+    dev = torch.device("cuda")
+    return [torch.randn((b, s, h, dh), generator=gen, device=dev)
+            .to(torch.bfloat16) for s, h in ((sq, hq), (sk, hkv), (sk, hkv))]
+
+
 def check_flash_kernel(torch, kops, ref):
     """Phase 8a: flash_attention against its plain version in bf16, at the
-    LM path's shapes (timed) and at the edge cases."""
-    import torch.nn.functional as F
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(8)
+    edge cases and at ``flash_cases`` (timed with CUDA events; device times
+    later: ``add_device_times``)."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(8)
     compare = flash_compare(torch)
-
-    def qkv(b, sq, sk, hq, hkv, dh):
-        return [torch.randn((b, s, h, dh), generator=gen, device=dev)
-                .to(torch.bfloat16) for s, h in ((sq, hq), (sk, hkv),
-                                                 (sk, hkv))]
-
     edge = [  # (B, Sq, Sk, Hq, Hkv, Dh, causal, window)
         ("S 1", (1, 1, 1, 2, 1, 64), True, None),
         ("S 200, Dh 32", (2, 200, 200, 4, 2, 32), True, None),
@@ -1205,13 +1133,27 @@ def check_flash_kernel(torch, kops, ref):
         ("ring wrap, S 4096, Dh 128", (1, 4096, 4096, 2, 1, 128), True, None),
     ]
     for name, shape, causal, window in edge:
-        q, k, v = qkv(*shape)
+        q, k, v = flash_qkv(torch, gen, *shape)
         compare(kops.flash_attention(q, k, v, causal=causal, window=window),
                 ref.flash_attention(q, k, v, causal=causal, window=window))
     log(f"edge cases: flash_attention {len(edge)} within {FLASH_TOL}")
+    rows = []
+    record_rows(torch, rows, "flash_attention", FLASH_SOURCE, FLASH_REPLACES,
+                flash_cases(torch, kops, ref), compare=compare, device=False)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flash_cases(torch, kops, ref):
+    """The LM path's flash_attention shapes in ``record_rows``' form, on
+    inputs from one seeded generator (the same on every call)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
 
     def case(label, b, s, hq, hkv, dh, window):
-        q, k, v = qkv(b, s, s, hq, hkv, dh)
+        q, k, v = flash_qkv(torch, gen, b, s, s, hq, hkv, dh)
         # the library yardstick: (B, H, S, Dh) copies with K/V expanded to
         # Hq heads, prepared outside the timing; a window needs a mask
         qt, kt, vt = (x.transpose(1, 2).repeat_interleave(hq // x.shape[2],
@@ -1236,19 +1178,12 @@ def check_flash_kernel(torch, kops, ref):
                 lambda: ref.flash_attention(q, k, v, window=window),
                 library, nbytes, 4 * b * hq * dh * pairs, BF16_FLOPS_PER_S)
 
-    rows = []
-    record_rows(torch, rows, "flash_attention",
-                "src/repro_torch/kernels/csrc/flash_attention.cu",
-                "src/repro/kernels/flash_attention.py:32",
-                [case(f"{LM_ARCH} prefill B 4 S 2048 16/2 Dh 128 causal",
-                      4, 2048, 16, 2, 128, None),
-                 case("gemma-2b B 1 S 2048 8/1 Dh 256 causal",
-                      1, 2048, 8, 1, 256, None),
-                 case("h2o-danube-3-4b B 1 S 8192 32/8 Dh 120 window 4096",
-                      1, 8192, 32, 8, 120, 4096)],
-                compare=compare)
-    torch.cuda.empty_cache()
-    return rows
+    return [case(f"{LM_ARCH} prefill B 4 S 2048 16/2 Dh 128 causal",
+                 4, 2048, 16, 2, 128, None),
+            case("gemma-2b B 1 S 2048 8/1 Dh 256 causal",
+                 1, 2048, 8, 1, 256, None),
+            case("h2o-danube-3-4b B 1 S 8192 32/8 Dh 120 window 4096",
+                 1, 8192, 32, 8, 120, 4096)]
 
 
 def serve_lm(torch, kops):
@@ -1362,11 +1297,7 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument(
-        "--ab", metavar="PARENT", type=Path,
-        help="also time segment_counts and bloom_build against their "
-             "variants and the kernels of the checkout at PARENT")
-    args = parser.parse_args(argv)
+    parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1383,6 +1314,7 @@ def main(argv=None) -> int:
     from repro_torch.core.pipeline import PipelineCompiler
     from repro_torch.data import (dblp_model, fraud_model, make_dblp,
                                   make_tpcds)
+    from repro_torch.graph import build_csr
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ops as kops
     from repro_torch.relational import Table
@@ -1413,8 +1345,6 @@ def main(argv=None) -> int:
         log(f"  flash_attention<{template}> (head dims up to {template}): "
             f"{usage}")
 
-    ab = None if args.ab is None else AB(torch, args.ab)
-
     # 4's data first: phase 3 takes its shapes from it
     t0 = time.perf_counter()
     tpcds = make_tpcds(sf=TPCDS_SF)
@@ -1426,17 +1356,17 @@ def main(argv=None) -> int:
     fact_np = {"i_sk": ss["i_sk"],
                "i_id": tpcds.table("item")["i_id"].cpu().numpy()}
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions (CUDA events only: the
+    # profiler's device times come after the paths, which run with nothing
+    # recorded; see the module's docstring)
     log("kernels vs plain (exact), CUDA-event times:")
-    kernel_rows = check_kernels(torch, kops, ref, fact_np, ab)
+    kernel_rows = check_kernels(torch, kops, ref, fact_np)
 
     # 4. the JS-OJ path
-    model = fraud_model("store")
-    with recording(kops, "bloom_build") as bloom_calls, \
-            recording(kops, "bloom_probe") as probe_calls:
-        cold, warm, counts_oj, rows_oj = drive(
-            torch, kops, ExtractionEngine(tpcds), model,
-            f"JS-OJ fraud_model(store) sf={TPCDS_SF}")
+    oj_model = fraud_model("store")
+    cold, warm, counts_oj, rows_oj = drive(
+        torch, kops, ExtractionEngine(tpcds), oj_model,
+        f"JS-OJ fraud_model(store) sf={TPCDS_SF}")
     plan_units = [("merged" if not u.is_single else "single")
                   for u in cold.plan.units]
     log(f"  plan units {plan_units}, views {[v.name for v in cold.plan.views]}")
@@ -1450,10 +1380,10 @@ def main(argv=None) -> int:
     got = digests(cold.edges)
     assert got == want, f"JS-OJ edges differ from numpy: {got} vs {want}"
     plain = ExtractionEngine(tpcds, compiler=PipelineCompiler(
-        use_kernel=False, use_bloom=False)).extract(model)
+        use_kernel=False, use_bloom=False)).extract(oj_model)
     assert digests(plain.edges) == got, "JS-OJ kernel path != plain path"
     log("  edges == numpy bags == plain-torch path")
-    oj_model, oj_graph = model, cold.graph
+    oj_graph = cold.graph
     del plain, cold, warm
     torch.cuda.empty_cache()
 
@@ -1464,14 +1394,10 @@ def main(argv=None) -> int:
     log(f"data: make_dblp(scale={DBLP_SCALE}) "
         f"{time.perf_counter() - t0:.2f} s, wrote "
         f"{dblp.stats['wrote'].rows} rows")
-    model = dblp_model()
-    with recording(kops, "bloom_build") as calls, \
-            recording(kops, "bloom_probe") as probes:
-        cold, warm, counts_mv, rows_mv = drive(
-            torch, kops, ExtractionEngine(dblp), model,
-            f"JS-MV dblp_model scale={DBLP_SCALE}")
-    bloom_calls += calls
-    probe_calls += probes
+    mv_model = dblp_model()
+    cold, warm, counts_mv, rows_mv = drive(
+        torch, kops, ExtractionEngine(dblp), mv_model,
+        f"JS-MV dblp_model scale={DBLP_SCALE}")
     log(f"  cold {cold.provenance}\n  warm {warm.provenance}")
     assert cold.provenance.views_built, "cold request built no view"
     assert warm.provenance.plan_cache_hit, "warm request missed the plan"
@@ -1486,28 +1412,22 @@ def main(argv=None) -> int:
                  "Auth-Edit": int(editors[v_of_paper[wrote["p_sk"]]].sum())}
     assert rows_mv == want_rows, f"JS-MV rows {rows_mv} != numpy {want_rows}"
     plain = ExtractionEngine(dblp, compiler=PipelineCompiler(
-        use_kernel=False, use_bloom=False)).extract(model)
+        use_kernel=False, use_bloom=False)).extract(mv_model)
     assert digests(plain.edges) == digests(cold.edges), \
         "JS-MV kernel path != plain path"
     log("  edge counts == numpy; digests == plain-torch path")
     del plain, cold, warm
     torch.cuda.empty_cache()
-    record_bloom_calls(torch, kops, ref, kernel_rows, bloom_calls, ab)
-    probe_shapes = collections.Counter((args[1].shape[0], args[0].shape[0])
-                                       for _, args in probe_calls)
-    log(f"bloom_probe launches of phases 4-5 by (N, num_bits): "
-        f"{sorted(probe_shapes.items())}")
-    del bloom_calls, probe_calls, probes
 
     # 6. analytics on the JS-OJ graph (and phase 3's graph kernels)
     graph_rows, counts_oja, _ = analytics_oj(
-        torch, kops, ref, ExtractionEngine, tpcds, oj_model, oj_graph, ab)
+        torch, kops, ref, ExtractionEngine, tpcds, oj_model, oj_graph)
     del tpcds, oj_graph
     torch.cuda.empty_cache()
 
     # 7. analytics on the JS-MV graph
     counts_mva, _ = analytics_mv(torch, kops, ref, ExtractionEngine, dblp,
-                                 model, graph_rows, ab)
+                                 mv_model, graph_rows)
     del dblp
     torch.cuda.empty_cache()
 
@@ -1515,17 +1435,73 @@ def main(argv=None) -> int:
     log("flash_attention vs plain (bf16), CUDA-event times:")
     flash_rows = check_flash_kernel(torch, kops, ref)
     counts_lm, _ = serve_lm(torch, kops)
+    torch.cuda.empty_cache()
+
+    # the kernel phase: the kernel cases of 4-7 on untimed replays of the
+    # paths, then every case's device time (a profiler session slows the
+    # host's later launches, so it comes after every CUDA-event timing)
+    tpcds = make_tpcds(sf=TPCDS_SF)
+    dblp = make_dblp(scale=DBLP_SCALE)
+    names = ("bloom_build", "bloom_probe")
+    (cold, _), calls = replay(
+        torch, kops, names, counts_oj,
+        lambda: extract_twice(ExtractionEngine(tpcds), oj_model))
+    oj_csr = build_csr(cold.graph, oj_model, use_kernel=False)
+    del cold
+    _, calls_mv = replay(
+        torch, kops, names, counts_mv,
+        lambda: extract_twice(ExtractionEngine(dblp), mv_model))
+    bloom_cases = record_bloom_calls(
+        torch, kops, ref, kernel_rows,
+        calls["bloom_build"] + calls_mv["bloom_build"])
+    probe_shapes = collections.Counter(
+        (args[1].shape[0], args[0].shape[0])
+        for _, args in calls["bloom_probe"] + calls_mv["bloom_probe"])
+    log(f"bloom_probe launches of phases 4-5 by (N, num_bits): "
+        f"{sorted(probe_shapes.items())}")
+    del calls, calls_mv
+    _, calls = replay(torch, kops, ["segment_counts"], counts_oja,
+                      lambda: analyze_oj(kops, ExtractionEngine(tpcds),
+                                         oj_model))
+    log("segment_counts on the operands of the JS-OJ launches:")
+    segment_cases = record_segment_calls(torch, kops, ref, graph_rows,
+                                         "JS-OJ", calls["segment_counts"])
+    (pr, _), calls = replay(torch, kops, ["segment_counts"], counts_mva,
+                            lambda: analyze_mv(ExtractionEngine(dblp),
+                                               mv_model))
+    mv_csr = pr.csr
+    del pr
+    log("segment_counts on the operands of the JS-MV launches:")
+    segment_cases += record_segment_calls(torch, kops, ref, graph_rows,
+                                          "JS-MV", calls["segment_counts"])
+    del calls
+
+    log("device times (torch.profiler), every case above:")
+    for kernel, (_, _, cases) in join_cases(torch, kops, ref,
+                                            fact_np).items():
+        add_device_times(torch, kernel_rows, kernel, cases)
+    add_device_times(torch, kernel_rows, "bloom_build", bloom_cases)
+    add_spec_device_times(torch, kops, graph_rows,
+                          oj_graph_specs(torch, ref, oj_csr))
+    add_spec_device_times(torch, kops, graph_rows,
+                          mv_graph_specs(torch, ref, mv_csr))
+    add_device_times(torch, graph_rows, "segment_counts", segment_cases)
+    add_device_times(torch, flash_rows, "flash_attention",
+                     flash_cases(torch, kops, ref))
+    del bloom_cases, segment_cases, tpcds, dblp, oj_csr, mv_csr
+    torch.cuda.empty_cache()
 
     by_path = {"js_oj": counts_oj, "js_mv": counts_mv,
                "js_oj_analytics": counts_oja, "js_mv_analytics": counts_mva,
                "lm_serve": counts_lm}
     kernel_rows += graph_rows + flash_rows
+    untimed = [(row["name"], case["shape"]) for row in kernel_rows
+               for case in row["cases"] if case["device_ms"] is None]
+    assert not untimed, f"cases without a device time: {untimed}"
     for row in kernel_rows:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
-    if ab is not None:
-        print(json.dumps({"ab": ab.results}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,11 +35,11 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "repro_sorted_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "bloom": {
-        "repro_bloom_build": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "repro_bloom_build": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "repro_bloom_probe": (_P, _P, _P, _I, _I, _I, _P),
     },
     "segment_csr": {
-        "repro_segment_counts": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "repro_segment_counts": (_P, _P, _P, _I, _I, _I, _P),
     },
     "spmv": {
         "repro_edge_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -190,7 +190,13 @@ def scatter_grid(n_edges: int, num_sms: int) -> Tuple[int, int]:
     """(blocks, edges per block) of a persistent launch over ``n_edges``
     edges (values, keys): at most ``SCATTER_BLOCKS_PER_SM`` blocks an SM,
     each over a contiguous range of whole tiles, as even as whole tiles
-    allow and none of them empty."""
+    allow and none of them empty.
+
+    ``edge_spmv`` and ``edge_min_label`` give each block that range.
+    ``segment_counts`` and ``bloom_build`` take only the block count and
+    stride the tiles over it (block b the tiles b, b + blocks, ...): their
+    inputs are prefix-compacted, so a range past the valid rows would idle
+    its block."""
     if n_edges <= 0 or num_sms <= 0:
         raise ValueError(f"scatter_grid: no grid for {n_edges} edges on "
                          f"{num_sms} SMs")

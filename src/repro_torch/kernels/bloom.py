@@ -74,11 +74,11 @@ def bloom_build(keys: torch.Tensor, valid: torch.Tensor, num_bits: int,
     bits = torch.empty((num_bits,), dtype=torch.int32, device=dev)
     stream = _build.stream_ptr(dev)
     scratch = build_scratch(dev, stream).data_ptr()
-    blocks, per_block = _build.scatter_grid(n, _build.num_sms(dev))
+    blocks, _ = _build.scatter_grid(n, _build.num_sms(dev))
     err = _build.library("bloom").repro_bloom_build(
         keys.data_ptr(), valid.data_ptr(), scratch,
         scratch + 4 * (SCRATCH_WORDS - 1), bits.data_ptr(), n, num_bits,
-        num_hashes, blocks, per_block, stream)
+        num_hashes, blocks, stream)
     _build.check(err, "bloom_build")
     bloom_build.launches += 1
     return bits

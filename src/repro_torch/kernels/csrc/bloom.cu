@@ -16,7 +16,8 @@
 //
 // Build: one launch a call, with no fill of the output, no memset of the
 // scratch and no second kernel to unpack it.
-//   * Persistent blocks (the wrapper's _build.scatter_grid) take strided
+//   * Persistent blocks (the block count of the wrapper's
+//     _build.scatter_grid, no more than there are tiles) take strided
 //     tiles of kTileKeys keys (block b the tiles b, b + blocks, ...), with
 //     4-byte loads of valid and, where one of the 4 flags is on, 16-byte
 //     loads of keys (scalar loads for unaligned views and at the ragged
@@ -61,7 +62,7 @@ constexpr int kThreads = 512;    // the build's tiles: 512 threads x 4 keys
 constexpr int kVec = 4;
 constexpr int64_t kTileKeys = kThreads * kVec;
 constexpr int kProbeThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 4;
+constexpr int64_t kProbeMaxBlocks = 132 * 4;
 
 __device__ __forceinline__ uint32_t bloom_hash(int32_t key, uint32_t i) {
   uint32_t h = (uint32_t)key * (2654435761u + 40503u * i) + 97u * i;
@@ -191,9 +192,9 @@ __global__ void bloom_probe_kernel(const int32_t* __restrict__ bits,
   }
 }
 
-unsigned grid_for(int64_t n) {
+unsigned probe_grid(int64_t n) {
   int64_t blocks = (n + kProbeThreads - 1) / kProbeThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks > kProbeMaxBlocks) blocks = kProbeMaxBlocks;
   if (blocks < 1) blocks = 1;
   return (unsigned)blocks;
 }
@@ -202,16 +203,15 @@ unsigned grid_for(int64_t n) {
 
 // keys int32 (n), valid bool (n) -> bits int32 0/1 (num_bits); packed
 // (ceil(num_bits / 32) uint32) and ticket (one uint32) are the wrapper's
-// zeroed scratch, left zero.
+// zeroed scratch, left zero.  Strided tiles cover any grid: the entry
+// refuses one with a block and no tile, whose ticket would still count.
 extern "C" int repro_bloom_build(const void* keys, const void* valid,
                                  void* packed, void* ticket, void* bits,
                                  int64_t n, int64_t num_bits,
                                  int64_t num_hashes, int64_t blocks,
-                                 int64_t keys_per_block, void* stream) {
+                                 void* stream) {
   if (n <= 0 || num_bits <= 0 || num_bits > (1ll << 31) - 32 || blocks <= 0 ||
-      keys_per_block <= 0 || keys_per_block % kTileKeys != 0 ||
-      blocks * keys_per_block < n || (blocks - 1) * keys_per_block >= n ||
-      blocks > (1ll << 31) - 1)
+      blocks > (n + kTileKeys - 1) / kTileKeys || blocks > (1ll << 31) - 1)
     return (int)cudaErrorInvalidValue;
   const uint32_t nb = (uint32_t)num_bits;
   const size_t smem = sizeof(uint32_t) * ((nb + 31) / 32);
@@ -235,7 +235,7 @@ extern "C" int repro_bloom_probe(const void* bits, const void* keys, void* out,
   if (n <= 0 || num_bits <= 0) return (int)cudaErrorInvalidValue;
   const uint32_t nb = (uint32_t)num_bits;
   const size_t smem = sizeof(uint32_t) * ((nb + 31) / 32);
-  bloom_probe_kernel<<<grid_for(n), kProbeThreads, smem,
+  bloom_probe_kernel<<<probe_grid(n), kProbeThreads, smem,
                        (cudaStream_t)stream>>>(
       (const int32_t*)bits, nb, (uint32_t)num_hashes, (const int32_t*)keys, n,
       (bool*)out);

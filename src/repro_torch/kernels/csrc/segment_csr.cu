@@ -13,12 +13,13 @@
 //
 // Design: block-private aggregation in shared memory, as csrc/spmv.cu
 // does for its float sums, with an int32 count in place of the sum.
-//   * Persistent blocks (a few per SM; the wrapper's _build.scatter_grid,
-//     whose ranges the C entry checks cover the input): block b takes the
-//     tiles of kTileValues values b, b + blocks, b + 2 blocks, ...
+//   * Persistent blocks (a few per SM; the block count of the wrapper's
+//     _build.scatter_grid, which the C entry checks leaves no block
+//     without a tile): block b takes the tiles of kTileValues values b,
+//     b + blocks, b + 2 blocks, ...
 //     A thread loads 4 values at once: values as one 16-byte load, valid
 //     as one 4-byte word (scalar loads when the operands are not so
-//     aligned, and at the range's ragged end).
+//     aligned, and at the input's ragged end).
 //   * A table in shared memory, kSlots slots of (int32 key = value, int32
 //     count), empty key -1, multiplicative hash and linear probing.  Each
 //     lane claims or finds its value's slot (atomicCAS on the key, at most
@@ -42,12 +43,10 @@
 // atomic per value did; what bounds it then is the rate of the L2's
 // atomics.
 //
-// Switches for the A/B of chip_smoke.py --ab, which builds this file with
-// each one flipped: SEGMENT_COUNTS_WARP=1 adds a warp step (lanes with
-// equal values find each other with __match_any_sync and the group's
-// lowest lane goes on with __popc(peers)); it bought nothing on the
-// paths' operands, since the shared int32 atomic is native.
-// SEGMENT_COUNTS_TABLE=0 counts every value with a global atomic.
+// A warp step before the table (lanes with equal values merged with
+// __match_any_sync, the group's lowest lane adding __popc of it) measured
+// slower on every operand of the paths, since the shared int32 atomic is
+// native; so did one global atomic per value (PERF.md).
 //
 // Bound.  1 byte per slot (the flag), 4 per valid slot (its value) and 4
 // per bin written; the counts (600k bins x 4 B = 2.4 MB on the JS-OJ
@@ -56,17 +55,9 @@
 // Launch: on the caller's stream, no synchronisation, no allocation; the
 // wrapper zeroes counts on the stream and handles n == 0 and
 // num_segments == 0 without a launch.  Returns cudaGetLastError() (or
-// cudaErrorInvalidValue for a grid that does not cover the values in whole
-// tiles) as an int.
+// cudaErrorInvalidValue for a grid with more blocks than tiles) as an int.
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#ifndef SEGMENT_COUNTS_WARP
-#define SEGMENT_COUNTS_WARP 0
-#endif
-#ifndef SEGMENT_COUNTS_TABLE
-#define SEGMENT_COUNTS_TABLE 1
-#endif
 
 namespace {
 
@@ -84,11 +75,10 @@ __device__ __forceinline__ unsigned home_slot(int32_t v) {
   return ((uint32_t)v * 2654435769u) >> (32 - kSlotBits);
 }
 
-// Add c to key v's slot, counting a slot this lane claims in claims;
+// Add 1 to key v's slot, counting a slot this lane claims in claims;
 // false when no slot within kMaxProbe is v's.
 __device__ __forceinline__ bool table_add(int32_t* keys, int32_t* cnt,
-                                          int& claims, int32_t v,
-                                          int32_t c) {
+                                          int& claims, int32_t v) {
   const volatile int32_t* vkeys = keys;
   unsigned slot = home_slot(v);
   for (int p = 0; p < kMaxProbe; ++p, slot = (slot + 1) & (kSlots - 1)) {
@@ -98,36 +88,21 @@ __device__ __forceinline__ bool table_add(int32_t* keys, int32_t* cnt,
       claims += k == kEmpty;
     }
     if (k == kEmpty || k == v) {
-      atomicAdd(cnt + slot, c);
+      atomicAdd(cnt + slot, 1);
       return true;
     }
   }
   return false;
 }
 
-// One value a lane; all 32 lanes of the warp call it together.
+// One value a lane: into the table, or past the probe bound into counts.
 __device__ __forceinline__ void count_value(int32_t v, bool ok,
                                             int64_t num_segments,
                                             int32_t* __restrict__ counts,
                                             int32_t* keys, int32_t* cnt,
                                             int& claims) {
-  const bool keep = ok && v >= 0 && (int64_t)v < num_segments;
-  int32_t c = 1;
-#if SEGMENT_COUNTS_WARP
-  const unsigned lane = threadIdx.x & 31u;
-  // equal values in the warp merge first; a dropped lane matches none
-  // (its key is negative and its own)
-  const unsigned peers =
-      __match_any_sync(kFull, keep ? v : -1 - (int32_t)lane);
-  if (!keep || lane != (unsigned)(__ffs(peers) - 1)) return;
-  c = __popc(peers);
-#else
-  if (!keep) return;
-#endif
-#if SEGMENT_COUNTS_TABLE
-  if (table_add(keys, cnt, claims, v, c)) return;
-#endif
-  atomicAdd(counts + v, c);
+  if (!ok || v < 0 || (int64_t)v >= num_segments) return;
+  if (!table_add(keys, cnt, claims, v)) atomicAdd(counts + v, 1);
 }
 
 // Every occupied slot into counts with one global atomic, and emptied.
@@ -148,18 +123,16 @@ __global__ void __launch_bounds__(kThreads)
 segment_counts_kernel(const int32_t* __restrict__ values,
                       const bool* __restrict__ valid, int64_t n,
                       int64_t num_segments, int32_t* __restrict__ counts) {
-  __shared__ int32_t keys[SEGMENT_COUNTS_TABLE ? kSlots : 1];
-  __shared__ int32_t cnt[SEGMENT_COUNTS_TABLE ? kSlots : 1];
+  __shared__ int32_t keys[kSlots];
+  __shared__ int32_t cnt[kSlots];
   // slots claimed in a tile, by the tile's parity: tile t counts into
   // claimed[t & 1] while thread 0 zeroes the other one, which every thread
   // read before the barrier that starts tile t
   __shared__ int claimed[2];
-#if SEGMENT_COUNTS_TABLE
   for (int i = threadIdx.x; i < kSlots; i += kThreads) {
     keys[i] = kEmpty;
     cnt[i] = 0;
   }
-#endif
   if (threadIdx.x < 2) claimed[threadIdx.x] = 0;
   // slots occupied since the last flush: the same in every thread, since
   // every thread adds the same shared counts
@@ -198,7 +171,6 @@ segment_counts_kernel(const int32_t* __restrict__ values,
 #pragma unroll
     for (int k = 0; k < kVec; ++k)
       count_value(v[k], ok[k], num_segments, counts, keys, cnt, claims);
-#if SEGMENT_COUNTS_TABLE
     // one shared atomic a warp, not one a claim
     claims = __reduce_add_sync(kFull, claims);
     if ((threadIdx.x & 31u) == 0 && claims)
@@ -209,11 +181,9 @@ segment_counts_kernel(const int32_t* __restrict__ values,
       flush(keys, cnt, counts);
       occupied = 0;
     }
-#endif
   }
-#if SEGMENT_COUNTS_TABLE
-  if (occupied > 0) flush(keys, cnt, counts);   // after the last tile's
-#endif                                          // barrier: nothing inserts
+  // after the last tile's barrier: nothing inserts
+  if (occupied > 0) flush(keys, cnt, counts);
 }
 
 }  // namespace
@@ -221,10 +191,10 @@ segment_counts_kernel(const int32_t* __restrict__ values,
 extern "C" int repro_segment_counts(const void* values, const void* valid,
                                     void* counts, int64_t n,
                                     int64_t num_segments, int64_t blocks,
-                                    int64_t values_per_block, void* stream) {
-  if (n <= 0 || num_segments <= 0 || blocks <= 0 || values_per_block <= 0 ||
-      values_per_block % kTileValues != 0 || blocks * values_per_block < n ||
-      (blocks - 1) * values_per_block >= n || blocks > (1ll << 31) - 1)
+                                    void* stream) {
+  // strided tiles cover any grid; refuse one with a block and no tile
+  if (n <= 0 || num_segments <= 0 || blocks <= 0 ||
+      blocks > (n + kTileValues - 1) / kTileValues || blocks > (1ll << 31) - 1)
     return (int)cudaErrorInvalidValue;
   const bool aligned =
       (uintptr_t)values % 16 == 0 && (uintptr_t)valid % 4 == 0;

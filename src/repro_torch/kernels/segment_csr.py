@@ -38,10 +38,10 @@ def segment_counts(values: torch.Tensor, valid: torch.Tensor,
     counts = torch.zeros((num_segments,), dtype=torch.int32, device=dev)
     if n == 0 or num_segments == 0:
         return counts
-    blocks, per_block = _build.scatter_grid(n, _build.num_sms(dev))
+    blocks, _ = _build.scatter_grid(n, _build.num_sms(dev))
     err = _build.library("segment_csr").repro_segment_counts(
         values.data_ptr(), valid.data_ptr(), counts.data_ptr(), n,
-        num_segments, blocks, per_block, _build.stream_ptr(dev))
+        num_segments, blocks, _build.stream_ptr(dev))
     _build.check(err, "segment_counts")
     segment_counts.launches += 1
     return counts

@@ -340,9 +340,8 @@ SEGMENT_SIZES = {"small": (50_000, 20_000), "full": (5_760_000, 600_502)}
 TILE = _build.SCATTER_TILE_EDGES
 
 
-def _segment_case(name, n, n_v, per_block):
-    """Values aimed at segment_counts' shared-memory table; ``per_block``
-    is the values of one block's tiles."""
+def _segment_case(name, n, n_v):
+    """Values aimed at segment_counts' shared-memory table."""
     rng = np.random.default_rng(zlib.crc32(name.encode()))
     valid = rng.random(n) < 0.95
     if name == "one_hub":                 # every value one bin
@@ -351,7 +350,7 @@ def _segment_case(name, n, n_v, per_block):
         values = np.arange(n) // (3 * TILE) % n_v
     elif name == "distinct_over_slots":
         # a stride through the bins: at full size a block's tiles hold
-        # more distinct values than the table has slots
+        # more distinct values than the table has slots (it flushes)
         values = np.arange(n, dtype=np.int64) * 7919 % n_v
     elif name == "colliding":
         # values that share one home slot: past the probe bound they go to
@@ -379,14 +378,16 @@ def test_cuda_segment_counts_adversarial(cuda, case, size):
     """segment_counts exactly equal to its plain version, in one launch, on
     values aimed at its shared-memory table."""
     n, n_v = SEGMENT_SIZES[size]
-    _, per_block = _build.scatter_grid(
+    blocks, _ = _build.scatter_grid(
         n, torch.cuda.get_device_properties(cuda).multi_processor_count)
-    values, valid = _segment_case(case, n, n_v, per_block)
+    values, valid = _segment_case(case, n, n_v)
     if size == "full":
         if case == "colliding":
             assert np.unique(values).size > TABLE_MAX_PROBE
         if case == "distinct_over_slots":
-            assert np.unique(values[:per_block]).size > 2**TABLE_SLOT_BITS
+            # block 0's strided tiles: 0, blocks, 2 blocks, ...
+            first = values[:n - n % TILE].reshape(-1, TILE)[::blocks]
+            assert np.unique(first).size > 2**TABLE_SLOT_BITS
     v, ok = _t(values, cuda), _t(valid, cuda)
     if case == "misaligned":
         v, ok = v[1:], ok[1:]

@@ -247,11 +247,12 @@ def test_scatter_grid_rejects_an_empty_launch(n_edges, n_sms):
         _build.scatter_grid(n_edges, n_sms)
 
 
-def _grid_accepted(blocks, per_block, n):
-    """The C entries' check of a persistent grid (csrc/spmv.cu,
-    label_prop.cu, segment_csr.cu, bloom.cu)."""
-    return (blocks > 0 and per_block > 0 and per_block % SCATTER_TILE == 0
-            and blocks * per_block >= n and (blocks - 1) * per_block < n)
+def _strided_grid_accepted(blocks, n):
+    """The C entries' check of a strided persistent grid (csrc/segment_csr.cu,
+    csrc/bloom.cu): block b takes tiles b, b + blocks, ..., so any grid
+    covers the input; they refuse one with no block or a block without a
+    tile."""
+    return 1 <= blocks <= -(-n // SCATTER_TILE)
 
 
 @pytest.mark.parametrize("source", ["spmv", "label_prop", "segment_csr",
@@ -275,12 +276,25 @@ def test_grid_kernels_tile_as_scatter_grid(source):
 @pytest.mark.parametrize("source", ["segment_csr", "bloom"])
 def test_segment_counts_and_bloom_grids_cover_the_input(source, n_values,
                                                         n_sms):
-    """The grid segment_counts and bloom_build launch covers the input in
-    whole tiles, which their C entries check (they refuse any other)."""
-    blocks, per_block = _build.scatter_grid(n_values, n_sms)
-    assert _grid_accepted(blocks, per_block, n_values)
-    assert not _grid_accepted(blocks - 1, per_block, n_values)
+    """The grid segment_counts and bloom_build launch: scatter_grid's block
+    count, which their C entries accept (no block without a tile), and
+    whose strided tiles take every tile once.  Their C entries take the
+    block count and no range (the signature in _build.SIGNATURES)."""
+    blocks, _ = _build.scatter_grid(n_values, n_sms)
+    tiles = -(-n_values // SCATTER_TILE)
+    assert _strided_grid_accepted(blocks, n_values)
+    assert not _strided_grid_accepted(tiles + 1, n_values)
+    assert not _strided_grid_accepted(0, n_values)
     assert blocks <= n_sms * _build.SCATTER_BLOCKS_PER_SM
+    taken = np.concatenate([np.arange(b, tiles, blocks)
+                            for b in range(blocks)])
+    assert np.array_equal(np.sort(taken), np.arange(tiles))
+    entry = {"segment_csr": "repro_segment_counts",
+             "bloom": "repro_bloom_build"}[source]
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text).group(1)
+    assert "int64_t blocks" in params and "per_block" not in params
+    assert params.count(",") + 1 == len(_build.SIGNATURES[source][entry])
 
 
 @pytest.mark.parametrize("n_values", [0, -1])
