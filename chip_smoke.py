@@ -39,9 +39,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``make_tpcds(sf=1000)``, cold then warm.  ``Buy`` and ``Sell`` must
    equal the numpy bags (c_sk, i_sk) and (o_sk, i_sk) of store_sales, and
    the plain-torch path's digests.  The kernel phase replays phases 4-5
-   with every ``bloom_build`` and ``bloom_probe`` launch recorded: it logs
-   their (N, num_bits) and checks and times ``bloom_build`` at the largest
-   and the most frequent.
+   with every ``bloom_build`` and ``bloom_prune_keys`` launch recorded (the
+   join's pruning: the probe kernel in its prune mode, counted as
+   ``bloom_probe``): it logs their (N, num_bits) and checks and times both
+   kernels at the largest and the most frequent, with the bits the path
+   built: ``bloom_probe`` itself, ``bloom_prune_keys`` beside the two calls
+   it replaces (``bloom_probe`` + ``torch.where``, timed in the same run),
+   and ``bloom_probe`` at N = 1 (its prologue alone).
 5. The JS-MV path: ``ExtractionEngine.extract(dblp_model())`` on
    ``make_dblp(scale=100)``, cold (view built) then warm (plan cache hit,
    view reused); edge counts against numpy, digests against the plain path.
@@ -60,7 +64,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``segment_counts`` launch recorded, and checks and times the kernel on
    each distinct operand (the CSR build's sources in extraction order,
    PageRank's out-degree, the degree statistics' sources and targets),
-   labelled by call site.
+   labelled by call site, and ``frontier_expand`` on each of k-hop's three
+   launch operands, bounded by the bytes any kernel must read for the
+   operand (a flag per edge, a source per valid edge, a destination per
+   valid edge from the frontier, the fill of the output).
 7. Analytics on the JS-MV graph (dblp scale=100, ~25M edges): PageRank and
    WCC through the kernels against the plain-torch path on the same CSR:
    WCC exactly, PageRank to the tolerance of phase 6.  Then ``edge_spmv``
@@ -125,6 +132,10 @@ HASH_OPS = 6                  # multiply, add, shift, xor, modulo, or/test
 JOIN_KERNELS = ("sorted_probe", "bloom_build", "bloom_probe")
 BLOOM_SOURCE = "src/repro_torch/kernels/csrc/bloom.cu"
 BLOOM_REPLACES = "src/repro/kernels/bloom.py:29"
+PROBE_REPLACES = "src/repro/kernels/bloom.py:48"
+FRONTIER_SOURCE = "src/repro_torch/kernels/csrc/frontier.cu"
+FRONTIER_REPLACES = "src/repro/kernels/frontier.py:28"
+NULL_KEY = 2**31 - 1
 SEGMENT_SOURCE = "src/repro_torch/kernels/csrc/segment_csr.cu"
 SEGMENT_REPLACES = "src/repro/kernels/segment_csr.py:24"
 GRAPH_KERNELS = ("segment_counts", "edge_spmv", "edge_min_label",
@@ -464,6 +475,119 @@ def record_bloom_calls(torch, kops, ref, rows, calls):
     return cases
 
 
+def bloom_probe_case(kops, ref, label, bits, keys):
+    """A ``record_rows`` case of bloom_probe (no library call computes it):
+    a key read and a bool written per key, the bitset read once."""
+    n, nbits = keys.shape[0], bits.shape[0]
+    return (label, lambda: kops.bloom_probe(bits, keys),
+            lambda: ref.bloom_probe(bits, keys), None,
+            5 * n + 4 * nbits, 2 * HASH_OPS * n)
+
+
+def prune_case(torch, kops, ref, label, bits, keys):
+    """A ``record_rows`` case of bloom_prune_keys against its plain
+    version, ``where(ref.bloom_probe(...), keys, NULL_KEY)``: a key read
+    and an int32 written per key, the bitset read once."""
+    n, nbits = keys.shape[0], bits.shape[0]
+    null = torch.tensor(NULL_KEY, dtype=torch.int32, device=keys.device)
+    return (label, lambda: kops.bloom_prune_keys(bits, keys),
+            lambda: torch.where(ref.bloom_probe(bits, keys), keys, null),
+            None, 8 * n + 4 * nbits, 2 * HASH_OPS * n)
+
+
+def probe_pair(torch, kops, bits, keys):
+    """The two calls bloom_prune_keys replaces on the join path:
+    ``where(bloom_probe(bits, keys), keys, NULL_KEY)``."""
+    null = torch.tensor(NULL_KEY, dtype=torch.int32, device=keys.device)
+    return lambda: torch.where(kops.bloom_probe(bits, keys), keys, null)
+
+
+def record_probe_calls(torch, kops, ref, rows, calls):
+    """Log the (N, num_bits) of every bloom_prune_keys launch of phases
+    4-5, and check and time (CUDA events) at the largest and the most
+    frequent, with the bits the path built: bloom_probe, bloom_prune_keys
+    beside ``probe_pair`` (``pair_ms``, same run), and bloom_probe at
+    N = 1 on the largest's bits (the prologue alone).  Returns
+    ``(cases, pairs)`` for ``add_device_times`` / ``add_pair_device_times``.
+    """
+    shapes = collections.Counter((args[1].shape[0], args[0].shape[0])
+                                 for _, args in calls)
+    log(f"bloom_probe launches of phases 4-5 (bloom_prune_keys) by "
+        f"(N, num_bits): {sorted(shapes.items())}")
+    picks = {max(shapes): "largest", shapes.most_common(1)[0][0]:
+             "most frequent"}
+    if len(picks) == 1:
+        picks = {max(shapes): "largest and most frequent"}
+    cases, pairs = [], []
+    for shape, which in picks.items():
+        bits, keys = next(args[:2] for _, args in calls
+                          if (args[1].shape[0], args[0].shape[0]) == shape)
+        where = (f"{which} of phases 4-5 ({shapes[shape]} of {len(calls)} "
+                 f"launches): N={shape[0]} bits={shape[1]}")
+        cases.append(bloom_probe_case(kops, ref, where, bits, keys))
+        prune = prune_case(torch, kops, ref, f"bloom_prune_keys, {where}",
+                           bits, keys)
+        cases.append(prune)
+        pairs.append((prune[0], probe_pair(torch, kops, bits, keys)))
+        if which.startswith("largest"):
+            cases.append(bloom_probe_case(
+                kops, ref, f"prologue alone: N=1 bits={shape[1]} (the "
+                f"largest's)", bits, keys[:1].clone()))
+    row = record_rows(torch, rows, "bloom_probe", BLOOM_SOURCE,
+                      PROBE_REPLACES, cases, device=False)
+    for label, pair in pairs:
+        case = next(c for c in row["cases"] if c["shape"] == label)
+        case["pair_ms"] = min(cuda_ms(torch, pair), cuda_ms(torch, pair))
+        log(f"  bloom_probe + torch.where [{label}] {case['pair_ms']:.4f} "
+            f"ms; bloom_prune_keys / pair {case['ms'] / case['pair_ms']:.3f}")
+    return cases, pairs
+
+
+def add_pair_device_times(torch, rows, pairs):
+    """``pair_device_ms`` of ``record_probe_calls``' pairs, beside the
+    prune cases' ``device_ms``, and their ratio."""
+    row = next(r for r in rows if r["name"] == "bloom_probe")
+    for label, pair in pairs:
+        case = next(c for c in row["cases"] if c["shape"] == label)
+        case["pair_device_ms"], _ = device_time(torch, pair,
+                                                "bloom_probe_kernel")
+        case["device_over_pair"] = case["device_ms"] / case["pair_device_ms"]
+        log(f"  bloom_probe + torch.where [{label}] device "
+            f"{case['pair_device_ms']:.4f} ms; bloom_prune_keys / pair "
+            f"{case['device_over_pair']:.3f}")
+
+
+def frontier_case(torch, kops, ref, label, args):
+    """A ``record_rows`` case of frontier_expand on one operand (no library
+    call computes it), bounded by the bytes any kernel must read for it: a
+    flag per edge, a source per valid edge, a destination per valid edge
+    from the frontier, and the n bytes of the fill.  ``{live}`` and
+    ``{reach}`` in ``label`` become those two edge counts."""
+    src, _, valid, front, _, n = args
+    e, live = src.shape[0], int(valid.sum())
+    gather = src.clamp(0, front.shape[0] - 1).to(torch.int64)
+    reach = int((valid & front[gather]).sum())
+    return (label.format(live=live, reach=reach),
+            functools.partial(kops.frontier_expand, *args),
+            functools.partial(ref.frontier_expand, *args), None,
+            e + 4 * live + 4 * reach + n, e)
+
+
+def record_frontier_calls(torch, kops, ref, rows, calls):
+    """Check and time frontier_expand with CUDA events on each launch
+    recorded in k-hop (cases of the kernel's row); returns the cases."""
+    cases = []
+    for i, (_, args) in enumerate(calls):
+        front = int(args[3].sum())
+        label = (f"k-hop launch {i + 1} of {len(calls)}: E={args[0].shape[0]}"
+                 f" ({{live}} valid, {{reach}} from a frontier of {front}) "
+                 f"V={args[5]}")
+        cases.append(frontier_case(torch, kops, ref, label, args))
+    record_rows(torch, rows, "frontier_expand", FRONTIER_SOURCE,
+                FRONTIER_REPLACES, cases, device=False)
+    return cases
+
+
 def check_kernels(torch, kops, ref, tpcds_np):
     """Phase 3: the join kernels against their plain versions, exact, at
     the edge cases and at ``join_cases``, timed with CUDA events (device
@@ -517,9 +641,12 @@ def check_kernels(torch, kops, ref, tpcds_np):
         err = max_abs_err(torch, bits, rbits)
         assert err == 0, f"bloom_build {name}: max_abs_err {err}"
         probe = torch.cat([keys, t([-5, 0, null])])
-        err = max_abs_err(torch, kops.bloom_probe(bits, probe),
-                          ref.bloom_probe(rbits, probe))
+        hit = ref.bloom_probe(rbits, probe)
+        err = max_abs_err(torch, kops.bloom_probe(bits, probe), hit)
         assert err == 0, f"bloom_probe {name}: max_abs_err {err}"
+        err = max_abs_err(torch, kops.bloom_prune_keys(bits, probe),
+                          torch.where(hit, probe, t(null)))
+        assert err == 0, f"bloom_prune_keys {name}: max_abs_err {err}"
     log("edge cases: sorted_probe", len(edge_probe), "bloom",
         len(edge_bloom), "all exact")
 
@@ -570,11 +697,9 @@ def join_cases(torch, kops, ref, tpcds_np):
             [bloom_case(kops, ref, f"N={n} ({{live}} valid) bits={nbits}",
                         fact_i, valid, nbits)]),
         "bloom_probe": (
-            BLOOM_SOURCE, "src/repro/kernels/bloom.py:48",
-            [(f"N={n} bits={nbits}",
-              lambda: kops.bloom_probe(bits, fact_i),
-              lambda: ref.bloom_probe(bits, fact_i),
-              None, 4 * nbits + 5 * n, 2 * HASH_OPS * n)]),
+            BLOOM_SOURCE, PROBE_REPLACES,
+            [bloom_probe_case(kops, ref, f"N={n} bits={nbits}", bits,
+                              fact_i)]),
     }
 
 
@@ -810,15 +935,10 @@ def record_specs(torch, kops, ref, rows, specs, device):
             record_min_label(torch, kops, ref, rows, label, *args,
                              device=device)
         else:
-            src, dst, valid, front, seen, n = args
-            e = src.shape[0]
-            record_rows(torch, rows, kernel,
-                        "src/repro_torch/kernels/csrc/frontier.cu",
-                        "src/repro/kernels/frontier.py:28",
-                        [(label, functools.partial(kops.frontier_expand,
-                                                   *args),
-                          functools.partial(ref.frontier_expand, *args),
-                          None, 9 * e + 3 * n, e)], device=device)
+            record_rows(torch, rows, kernel, FRONTIER_SOURCE,
+                        FRONTIER_REPLACES,
+                        [frontier_case(torch, kops, ref, label, args)],
+                        device=device)
 
 
 def add_spec_device_times(torch, kops, rows, specs):
@@ -1442,7 +1562,7 @@ def main(argv=None) -> int:
     # host's later launches, so it comes after every CUDA-event timing)
     tpcds = make_tpcds(sf=TPCDS_SF)
     dblp = make_dblp(scale=DBLP_SCALE)
-    names = ("bloom_build", "bloom_probe")
+    names = ("bloom_build", "bloom_prune_keys")
     (cold, _), calls = replay(
         torch, kops, names, counts_oj,
         lambda: extract_twice(ExtractionEngine(tpcds), oj_model))
@@ -1454,18 +1574,20 @@ def main(argv=None) -> int:
     bloom_cases = record_bloom_calls(
         torch, kops, ref, kernel_rows,
         calls["bloom_build"] + calls_mv["bloom_build"])
-    probe_shapes = collections.Counter(
-        (args[1].shape[0], args[0].shape[0])
-        for _, args in calls["bloom_probe"] + calls_mv["bloom_probe"])
-    log(f"bloom_probe launches of phases 4-5 by (N, num_bits): "
-        f"{sorted(probe_shapes.items())}")
+    probe_cases, probe_pairs = record_probe_calls(
+        torch, kops, ref, kernel_rows,
+        calls["bloom_prune_keys"] + calls_mv["bloom_prune_keys"])
     del calls, calls_mv
-    _, calls = replay(torch, kops, ["segment_counts"], counts_oja,
+    _, calls = replay(torch, kops, ["segment_counts", "frontier_expand"],
+                      counts_oja,
                       lambda: analyze_oj(kops, ExtractionEngine(tpcds),
                                          oj_model))
     log("segment_counts on the operands of the JS-OJ launches:")
     segment_cases = record_segment_calls(torch, kops, ref, graph_rows,
                                          "JS-OJ", calls["segment_counts"])
+    log("frontier_expand on the operands of the k-hop launches:")
+    frontier_cases = record_frontier_calls(torch, kops, ref, graph_rows,
+                                           calls["frontier_expand"])
     (pr, _), calls = replay(torch, kops, ["segment_counts"], counts_mva,
                             lambda: analyze_mv(ExtractionEngine(dblp),
                                                mv_model))
@@ -1481,14 +1603,18 @@ def main(argv=None) -> int:
                                             fact_np).items():
         add_device_times(torch, kernel_rows, kernel, cases)
     add_device_times(torch, kernel_rows, "bloom_build", bloom_cases)
+    add_device_times(torch, kernel_rows, "bloom_probe", probe_cases)
+    add_pair_device_times(torch, kernel_rows, probe_pairs)
     add_spec_device_times(torch, kops, graph_rows,
                           oj_graph_specs(torch, ref, oj_csr))
     add_spec_device_times(torch, kops, graph_rows,
                           mv_graph_specs(torch, ref, mv_csr))
     add_device_times(torch, graph_rows, "segment_counts", segment_cases)
+    add_device_times(torch, graph_rows, "frontier_expand", frontier_cases)
     add_device_times(torch, flash_rows, "flash_attention",
                      flash_cases(torch, kops, ref))
-    del bloom_cases, segment_cases, tpcds, dblp, oj_csr, mv_csr
+    del bloom_cases, probe_cases, probe_pairs, segment_cases, \
+        frontier_cases, tpcds, dblp, oj_csr, mv_csr
     torch.cuda.empty_cache()
 
     by_path = {"js_oj": counts_oj, "js_mv": counts_mv,

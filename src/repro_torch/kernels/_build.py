@@ -36,7 +36,7 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     },
     "bloom": {
         "repro_bloom_build": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-        "repro_bloom_probe": (_P, _P, _P, _I, _I, _I, _P),
+        "repro_bloom_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "segment_csr": {
         "repro_segment_counts": (_P, _P, _P, _I, _I, _I, _P),
@@ -49,7 +49,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                  _P),
     },
     "frontier": {
-        "repro_frontier_expand": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "repro_frontier_expand": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _P),
     },
     "flash_attention": {
         "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _P),
@@ -179,30 +180,34 @@ def check_coo(src, dst, valid, what: str) -> None:
 
 
 # Launch geometry of the scatter kernels (csrc/spmv.cu, csrc/label_prop.cu,
-# csrc/segment_csr.cu) and of the Bloom build (csrc/bloom.cu): a tile is
-# 512 threads x 4 edges (values, keys), and a few persistent blocks run on
-# each SM.
+# csrc/segment_csr.cu), of the Bloom build (csrc/bloom.cu) and of
+# frontier_expand (csrc/frontier.cu): a tile is 512 threads x 4 edges
+# (values, keys), and a few persistent blocks run on each SM.  The Bloom
+# probe passes its own tile and blocks an SM (kernels/bloom.py).
 SCATTER_TILE_EDGES = 2048
 SCATTER_BLOCKS_PER_SM = 4
 
 
-def scatter_grid(n_edges: int, num_sms: int) -> Tuple[int, int]:
+def scatter_grid(n_edges: int, num_sms: int,
+                 tile: int = SCATTER_TILE_EDGES,
+                 per_sm: int = SCATTER_BLOCKS_PER_SM) -> Tuple[int, int]:
     """(blocks, edges per block) of a persistent launch over ``n_edges``
-    edges (values, keys): at most ``SCATTER_BLOCKS_PER_SM`` blocks an SM,
-    each over a contiguous range of whole tiles, as even as whole tiles
+    edges (values, keys) in tiles of ``tile``: at most ``per_sm`` blocks an
+    SM, each over a contiguous range of whole tiles, as even as whole tiles
     allow and none of them empty.
 
     ``edge_spmv`` and ``edge_min_label`` give each block that range.
-    ``segment_counts`` and ``bloom_build`` take only the block count and
-    stride the tiles over it (block b the tiles b, b + blocks, ...): their
-    inputs are prefix-compacted, so a range past the valid rows would idle
-    its block."""
+    ``segment_counts``, ``bloom_build``, ``bloom_probe`` and
+    ``frontier_expand`` take only the block count and stride the tiles over
+    it (block b the tiles b, b + blocks, ...): their inputs are
+    prefix-compacted, so a range past the valid rows would idle its
+    block."""
     if n_edges <= 0 or num_sms <= 0:
         raise ValueError(f"scatter_grid: no grid for {n_edges} edges on "
                          f"{num_sms} SMs")
-    tiles = -(-n_edges // SCATTER_TILE_EDGES)
-    per_block = -(-tiles // min(tiles, num_sms * SCATTER_BLOCKS_PER_SM))
-    return -(-tiles // per_block), per_block * SCATTER_TILE_EDGES
+    tiles = -(-n_edges // tile)
+    per_block = -(-tiles // min(tiles, num_sms * per_sm))
+    return -(-tiles // per_block), per_block * tile
 
 
 @functools.lru_cache(maxsize=None)

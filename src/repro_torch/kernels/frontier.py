@@ -7,8 +7,6 @@ plain version in :mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -18,7 +16,14 @@ def frontier_expand(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
                     frontier: torch.Tensor, visited: torch.Tensor,
                     num_vertices: int) -> torch.Tensor:
     """Bool mask of the vertices reached from ``frontier`` over one valid
-    edge and not in ``visited``."""
+    edge and not in ``visited``.
+
+    On the card the wrapper zeroes the mask, then persistent blocks
+    (:func:`_build.scatter_grid`) stream the edges, reading a source only
+    for a valid edge and a destination only for an edge from the frontier,
+    and set a vertex's byte only when it is still 0 (see
+    ``csrc/frontier.cu``).
+    """
     _build.check_coo(src, dst, valid, "frontier_expand")
     _build.check_input(frontier, torch.bool, "frontier_expand frontier",
                        device=src.device)
@@ -36,15 +41,11 @@ def frontier_expand(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
     n_edges, n_front = src.shape[0], frontier.shape[0]
     if n_edges == 0 or num_vertices == 0 or n_front == 0:
         return out
-    lib = _build.library("frontier")
-    err = lib.repro_frontier_expand(
-        ctypes.c_void_p(src.data_ptr()), ctypes.c_void_p(dst.data_ptr()),
-        ctypes.c_void_p(valid.data_ptr()),
-        ctypes.c_void_p(frontier.data_ptr()),
-        ctypes.c_void_p(visited.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_int64(n_edges), ctypes.c_int64(n_front),
-        ctypes.c_int64(num_vertices),
-        ctypes.c_void_p(_build.stream_ptr(dev)))
+    blocks, _ = _build.scatter_grid(n_edges, _build.num_sms(dev))
+    err = _build.library("frontier").repro_frontier_expand(
+        src.data_ptr(), dst.data_ptr(), valid.data_ptr(), frontier.data_ptr(),
+        visited.data_ptr(), out.data_ptr(), n_edges, n_front, num_vertices,
+        blocks, _build.stream_ptr(dev))
     _build.check(err, "frontier_expand")
     frontier_expand.launches += 1
     return out

@@ -22,6 +22,8 @@ from repro_torch.kernels import spmv as _spmv
 sorted_probe = _sorted_probe.sorted_probe
 bloom_build = _bloom.bloom_build
 bloom_probe = _bloom.bloom_probe
+# the probe kernel's prune mode: its launches count as bloom_probe's
+bloom_prune_keys = _bloom.bloom_prune_keys
 segment_counts = _segment_csr.segment_counts
 edge_spmv = _spmv.edge_spmv
 edge_min_label = _label_prop.edge_min_label

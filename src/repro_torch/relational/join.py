@@ -232,7 +232,7 @@ def join_with_capacity(
 
         bits = kops.bloom_build(rk, right.valid & (rk != int(NULL_KEY64)),
                                 bloom_bits)
-        lk = torch.where(kops.bloom_probe(bits, lk), lk, _null_like(lk))
+        lk = kops.bloom_prune_keys(bits, lk)
     out, total = _join_core(left, right, lk, rk, how, capacity, indicator,
                             use_kernel)
     for lcol, rcol in rest:

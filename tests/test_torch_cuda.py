@@ -474,6 +474,126 @@ def test_cuda_bloom_build_on_two_streams(cuda):
     assert kops.launch_counts()["bloom_build"] == before + 4
 
 
+PROBE_KEYS = [1, 3, 5, 4 * 1024 + 1, 4 * 8192 + 1, 16_777_216]
+PROBE_BITS = [1, 31, 1000, 1024, 16383, 16384]
+
+
+def _probe_keys(rng, n):
+    """n int32 probe keys: build-side keys, random ones (negatives among
+    them), NULL_KEY and -1."""
+    keys = rng.integers(-2**31, 2**31 - 1, n + 3).astype(np.int32)
+    keys[::3] = rng.integers(0, 5000, keys[::3].size)
+    keys[::7] = NULL32
+    keys[::11] = -1
+    return keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", PROBE_BITS)
+@pytest.mark.parametrize("n", PROBE_KEYS)
+def test_cuda_bloom_probe_and_prune_match_plain(cuda, n, bits):
+    """bloom_probe and bloom_prune_keys exactly equal to their plain
+    versions, one launch each, for 1-3 hashes, on views 0-3 elements in
+    (unaligned keys: scalar loads and stores) and a bitset 1 element in
+    (unaligned: packed by ballots)."""
+    rng = np.random.default_rng(n * 17 + bits)
+    build = _t(rng.integers(0, 5000, 3000).astype(np.int32), cuda)
+    keys = _t(_probe_keys(rng, n), cuda)
+    null = torch.tensor(int(NULL32), dtype=torch.int32, device=cuda)
+    for num_hashes in (1, 2, 3):
+        built = kops.bloom_build(build, torch.ones_like(build, dtype=bool),
+                                 bits, num_hashes)
+        spare = torch.cat([built[:1], built])[1:]      # 4 bytes in
+        for b in (built, spare):
+            for off in range(4):
+                k = keys[off:off + n]
+                assert k.shape == (n,)
+                want = tref.bloom_probe(b, k, num_hashes)
+                got = _launched("bloom_probe",
+                                lambda: kops.bloom_probe(b, k, num_hashes))
+                assert torch.equal(got, want)
+                got = _launched("bloom_probe", lambda: kops.bloom_prune_keys(
+                    b, k, num_hashes))
+                assert got.dtype == torch.int32
+                assert torch.equal(got, torch.where(want, k, null))
+        assert spare.data_ptr() % 16
+
+
+@pytest.mark.cuda
+def test_cuda_bloom_probe_no_false_negatives_at_the_path_size(cuda):
+    """Every valid build key probes True and is kept by the prune, on the
+    join path's largest probe side (16,777,216 keys into 16,384 bits)."""
+    rng = np.random.default_rng(8)
+    n = 16_777_216
+    keys = _t(rng.integers(0, 2**31 - 1, n).astype(np.int32), cuda)
+    valid = _t(rng.random(n) < 0.1, cuda)
+    bits = kops.bloom_build(keys, valid, 16384)
+    hit = _launched("bloom_probe", lambda: kops.bloom_probe(bits, keys))
+    assert bool(hit[valid].all())
+    kept = _launched("bloom_probe", lambda: kops.bloom_prune_keys(bits, keys))
+    assert torch.equal(kept[valid], keys[valid])
+    assert torch.equal(hit, tref.bloom_probe(bits, keys))
+
+
+FRONTIER_CASES = ["one_hub", "all_set", "empty", "visited_all_set",
+                  "out_of_range", "misaligned", "ragged"]
+FRONTIER_SIZES = {"small": (50_000, 700), "full": (5_760_000, 600_502)}
+
+
+def _frontier_case(name, n_edges, n_v):
+    """(src, dst, valid, frontier, visited) aimed at frontier_expand."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    src = rng.integers(0, n_v, n_edges)
+    dst = rng.integers(0, n_v, n_edges)
+    valid = rng.random(n_edges) < 0.95
+    frontier = rng.random(n_v) < 0.01
+    visited = frontier | (rng.random(n_v) < 0.2)
+    if name == "one_hub":
+        # 100k frontier edges into one vertex (at full size)
+        hub_edges = min(100_000, n_edges // 2)
+        src[:hub_edges] = rng.integers(0, 8, hub_edges)
+        dst[:hub_edges] = n_v - 1
+        frontier[:8] = True
+        visited[n_v - 1] = False
+    elif name == "all_set":
+        frontier[:] = True
+    elif name == "empty":
+        frontier[:] = False
+    elif name == "visited_all_set":
+        visited[:] = True
+    elif name == "out_of_range":
+        # sources clip into the frontier; destinations outside [0, n) drop
+        src = rng.integers(-n_v, 2 * n_v, n_edges)
+        dst = rng.integers(-n_v, 2 * n_v, n_edges)
+        frontier[0] = frontier[-1] = True
+    return (src.astype(np.int32), dst.astype(np.int32), valid, frontier,
+            visited)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", list(FRONTIER_SIZES))
+@pytest.mark.parametrize("case", FRONTIER_CASES)
+def test_cuda_frontier_expand_adversarial(cuda, case, size):
+    """frontier_expand exactly equal to its plain version, in one launch."""
+    n_edges, n_v = FRONTIER_SIZES[size]
+    src, dst, valid, frontier, visited = _frontier_case(case, n_edges, n_v)
+    s, d, v, f, seen = (_t(a, cuda) for a in (src, dst, valid, frontier,
+                                              visited))
+    if case == "misaligned":
+        s, d, v = s[1:], d[1:], v[1:]
+        assert s.data_ptr() % 16 and d.data_ptr() % 16 and v.data_ptr() % 4
+    elif case == "ragged":           # a tail shorter than a thread's 4
+        s, d, v = s[:-3], d[:-3], v[:-3]
+    got = _launched("frontier_expand", lambda: kops.frontier_expand(
+        s, d, v, f, seen, n_v))
+    want = tref.frontier_expand(s, d, v, f, seen, n_v)
+    assert torch.equal(got, want)
+    if case == "one_hub":
+        assert bool(want[n_v - 1])
+    if case in ("empty", "visited_all_set"):
+        assert not bool(want.any())
+
+
 # ---------------------------------------------------------------------------
 # flash attention and the LM slice
 # ---------------------------------------------------------------------------

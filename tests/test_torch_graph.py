@@ -297,6 +297,28 @@ def test_segment_counts_and_bloom_grids_cover_the_input(source, n_values,
     assert params.count(",") + 1 == len(_build.SIGNATURES[source][entry])
 
 
+@pytest.mark.parametrize("n_sms", [114, 132])
+@pytest.mark.parametrize("n_edges", [1, SCATTER_TILE - 1, SCATTER_TILE + 1,
+                                     5_760_000, 11_520_000])
+def test_frontier_grid_covers_the_edges(n_edges, n_sms):
+    """frontier_expand launches scatter_grid's block count over strided
+    tiles of kThreads x kVec edges, which its C entry accepts (no block
+    without a tile); the entry takes the block count and no range, with
+    the arity in _build.SIGNATURES."""
+    blocks, _ = _build.scatter_grid(n_edges, n_sms)
+    assert _strided_grid_accepted(blocks, n_edges)
+    assert blocks <= n_sms * _build.SCATTER_BLOCKS_PER_SM
+    text = (_build.CSRC / "frontier.cu").read_text()
+    threads, vec = (int(re.search(rf"constexpr int {name} = (\d+);",
+                                  text).group(1))
+                    for name in ("kThreads", "kVec"))
+    assert threads * vec == SCATTER_TILE
+    entry = "repro_frontier_expand"
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text).group(1)
+    assert "int64_t blocks" in params and "per_block" not in params
+    assert params.count(",") + 1 == len(_build.SIGNATURES["frontier"][entry])
+
+
 @pytest.mark.parametrize("n_values", [0, -1])
 def test_segment_counts_grid_rejects_an_empty_launch(n_values):
     with pytest.raises(ValueError, match="scatter_grid"):

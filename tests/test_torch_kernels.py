@@ -8,6 +8,7 @@ kernels are held against the plain versions on a card by the jax-free
 ``tests/test_torch_cuda.py``.
 """
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +21,7 @@ import torch
 from repro.kernels import bloom as jbloom
 from repro.kernels import ref as jref
 from repro.kernels import sorted_probe as jprobe
+from repro_torch.kernels import _build
 from repro_torch.kernels import bloom as tbloom
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as tref
@@ -145,6 +147,77 @@ def test_bloom_negative_and_outside_keys():
     _bloom_parity(keys, rng.random(3000) < 0.7, 2048,
                   probe=np.concatenate([keys, [-5, 10_001, 2**31 - 2,
                                                NULL32]]))
+
+
+@pytest.mark.parametrize("n,bits", [(1, 256), (3000, 1024), (5000, 16384),
+                                    (777, 1000)])
+@pytest.mark.parametrize("num_hashes", [1, 2, 3])
+def test_bloom_prune_keys_matches_jax_where(n, bits, num_hashes):
+    """The join's pruning in one call: on the CPU exactly the JAX join's
+    ``where(bloom_probe(bits, keys), keys, NULL_KEY)`` (Pallas probe in
+    interpret mode), with NULL_KEY and negative probe keys."""
+    rng = np.random.default_rng(n * 3 + bits + num_hashes)
+    build = rng.integers(-5000, 5000, n).astype(np.int32)
+    valid = rng.random(n) < 0.8
+    probe = np.concatenate([build, rng.integers(-2**31, 2**31 - 1, 2 * n),
+                            [NULL32, -1, 0]]).astype(np.int32)
+    bits_t = kops.bloom_build(_t(build), _t(valid), bits, num_hashes)
+    got = kops.bloom_prune_keys(bits_t, _t(probe), num_hashes)
+    assert got.dtype == torch.int32 and tuple(got.shape) == probe.shape
+    jbits = jbloom.bloom_build(jnp.asarray(build), jnp.asarray(valid), bits,
+                               num_hashes, interpret=True)
+    want = jnp.where(jbloom.bloom_probe(jbits, jnp.asarray(probe),
+                                        num_hashes, interpret=True),
+                     jnp.asarray(probe), NULL32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # no false negatives: a valid build key is never pruned
+    assert (got.numpy()[:n][valid] == build[valid]).all()
+
+
+def test_bloom_prune_keys_prunes_and_keeps_dtype():
+    """A sparse filter prunes most foreign keys to NULL_KEY; an empty probe
+    side gives an empty int32 result; the CPU path launches nothing."""
+    kops.reset_launch_counts()
+    bits = kops.bloom_build(_t(np.arange(10, dtype=np.int32)),
+                            torch.ones(10, dtype=torch.bool), 16384)
+    probe = _t(np.arange(10_000, dtype=np.int32))
+    got = kops.bloom_prune_keys(bits, probe).numpy()
+    assert (got[:10] == np.arange(10)).all()
+    assert (got[10:] == NULL32).mean() > 0.99
+    empty = kops.bloom_prune_keys(bits, _t(np.zeros(0, np.int32)))
+    assert tuple(empty.shape) == (0,) and empty.dtype == torch.int32
+    with pytest.raises(TypeError):
+        kops.bloom_prune_keys(bits, probe.to(torch.int64))
+    assert kops.launch_counts()["bloom_probe"] == 0
+
+
+@pytest.mark.parametrize("n_sms", [114, 132])
+@pytest.mark.parametrize("n_keys", [1, 40_000, 131_072, 1_800_000, 2_880_000,
+                                    4_194_304, 8_388_608, 16_777_216])
+def test_bloom_probe_grid_covers_the_keys(n_keys, n_sms):
+    """The probe's launch (the path's probe sides): at most
+    PROBE_BLOCKS_PER_SM persistent blocks an SM over tiles of
+    PROBE_TILE_KEYS (the kernel's threads x 4 vectors of 4 keys), none
+    without a tile, which its C entry checks; the entry's arity is the
+    one in _build.SIGNATURES."""
+    blocks, _ = _build.scatter_grid(n_keys, n_sms,
+                                    tile=tbloom.PROBE_TILE_KEYS,
+                                    per_sm=tbloom.PROBE_BLOCKS_PER_SM)
+    tiles = -(-n_keys // tbloom.PROBE_TILE_KEYS)
+    assert 1 <= blocks <= min(tiles, n_sms * tbloom.PROBE_BLOCKS_PER_SM)
+    text = (_build.CSRC / "bloom.cu").read_text()
+    const = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                 text).group(1))
+             for name in ("kProbeThreads", "kVec", "kProbeUnroll",
+                          "kProbeBlocksPerSm")}
+    assert const["kProbeThreads"] * const["kVec"] * const["kProbeUnroll"] \
+        == tbloom.PROBE_TILE_KEYS
+    assert const["kProbeBlocksPerSm"] == tbloom.PROBE_BLOCKS_PER_SM
+    params = re.search(r'extern "C" int repro_bloom_probe\(([^)]*)\)',
+                       text).group(1)
+    assert "int64_t blocks" in params and "int64_t prune" in params
+    assert params.count(",") + 1 == len(
+        _build.SIGNATURES["bloom"]["repro_bloom_probe"])
 
 
 def test_bloom_bits_policy_matches():

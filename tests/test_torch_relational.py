@@ -92,6 +92,40 @@ def test_join_with_capacity_parity(sides, how, on, use_kernel, bloom):
     _same(jt, tt)
 
 
+@pytest.mark.parametrize("how", ["inner", "left_outer"])
+@pytest.mark.parametrize("bloom", [256, 1024, 16384])
+def test_bloom_pruned_join_parity(how, bloom):
+    """A join whose Bloom filter prunes most probe keys (wide left keys, a
+    few right keys, NULL and negative left keys): equal digests and
+    required counts in both packages, for inner and left-outer joins."""
+    rng = np.random.default_rng(bloom)
+    lk = rng.integers(-5000, 50_000, 600).astype(np.int32)
+    lk[rng.random(600) < 0.05] = NULL32
+    rk = rng.integers(0, 2000, 150).astype(np.int32)
+    lv, rv = rng.random(600) < 0.9, rng.random(150) < 0.9
+    cols_l = {"L.k": lk, "L.a": np.arange(600, dtype=np.int32)}
+    cols_r = {"R.k": rk, "R.b": np.arange(150, dtype=np.int32)}
+    jl, tl = (jr.Table.from_arrays(**cols_l).mask(lv),
+              tr.Table.from_arrays(device="cpu", **cols_l).mask(
+                  torch.from_numpy(lv)))
+    jrt, trt = (jr.Table.from_arrays(**cols_r).mask(rv),
+                tr.Table.from_arrays(device="cpu", **cols_r).mask(
+                    torch.from_numpy(rv)))
+    kw = dict(capacity=2048, bloom_bits=bloom, indicator="m")
+    on = [("L.k", "R.k")]
+    jt, jreq = jjoin.join_with_capacity(jl, jrt, on, how, **kw)
+    tt, treq = tjoin.join_with_capacity(tl, trt, on, how, **kw)
+    assert int(treq) == int(jreq)
+    _same(jt, tt)
+    # the filter does prune: most valid left keys miss the right side
+    from repro_torch.kernels import ops as kops
+
+    rk_t = tjoin.composite_key(trt, ("R.k",))
+    bits = kops.bloom_build(rk_t, trt.valid & (rk_t != int(NULL32)), bloom)
+    kept = kops.bloom_prune_keys(bits, tjoin.composite_key(tl, ("L.k",)))
+    assert (kept.numpy() == NULL32).mean() > 0.5
+
+
 @pytest.mark.parametrize("on", [[("L.k", "R.k")],
                                 [("L.k", "R.k"), ("L.x", "R.x")]])
 def test_eager_joins_parity(sides, on):
