@@ -92,18 +92,49 @@ Run from the root of a checkout:  python3 chip_smoke.py
    plain attention path: the last logits and the first step's logits must
    agree to ``LM_REL_TOL`` x std(logits) (see there).
 
+9. Refresh and recovery.  (a) JS-OJ: ``fraud_model("store")`` on a fresh
+   ``make_tpcds(sf=1000)``, extracted cold and warm, PageRank analysed so a
+   CSR is cached, then four ``engine.refresh`` rounds: 28,800 store_sales
+   rows in and 14,400 out (the delta path; the cached CSR patched), 1,000
+   new items (delta; the vertex set changes, no patch), 432,000 rows out
+   (or more, until the churn exceeds the 0.1 threshold: the full path),
+   nothing (noop).  Each round must take its path and give the digests of
+   every vertex and edge table of a from-scratch extraction on the plain
+   path (a new database, exact ANALYZE, a new engine whose compiler
+   launches no kernel); after round 1, the patched CSR's live (src, dst)
+   multiset of every label must equal the fresh plain build's, PageRank on
+   it meets phase 6's ``D_max * 2**-24`` check against plain PageRank on
+   that build, and WCC equals plain WCC there.  (b) JS-MV:
+   ``dblp_model()`` on a fresh ``make_dblp(scale=100)``; 18,000 wrote rows
+   in and 9,000 out; the delta path with the view maintained, digests
+   against a plain-path fresh extraction.
+   (c) A WAL in a temporary directory is attached to (a)'s database before
+   round 1 and a manifest written after round 2; after round 4 the WAL is
+   abandoned and ``recover_database`` rebuilds the database on the card:
+   its fingerprint, every table's digest and capacity, and the graph an
+   engine extracts from it must equal the live ones.  Logged: each
+   refresh's ``extract_s`` beside the cold and warm ones, the host fold's
+   (``apply_table_delta``) share, the delta terms, the peak device memory,
+   and the seconds of the manifest write, the recovery, and its restore and
+   replay.  The delta refreshes must launch ``sorted_probe``,
+   ``bloom_build`` and ``bloom_probe``.
+
 The phases run in their order, each kernel case checked and timed with
 CUDA events where it stands.  Then a kernel phase: the kernel cases of 4-7
 on the operands the paths' launches saw, taken from an untimed replay of
 each path on regenerated data with the wrappers recorded (``replay``, which
-checks that the replay launched every kernel as often as the timed run),
-and last every case's device time (``torch.profiler``, on operands rebuilt
-alike).  So no profiler session and no recorded operand comes before or
+checks that the replay launched every kernel as often as the timed run);
+then phase 9's three delta refreshes replayed alike (the same seeded
+churn), every one of their ``sorted_probe``, ``bloom_build`` and
+``bloom_prune_keys`` launches held exactly against its plain version and
+the largest and most frequent operands of each timed; and last every
+case's device time (``torch.profiler``, on operands rebuilt alike).  So no profiler session and no recorded operand comes before or
 during a path's timed run, nor a profiler session before a CUDA-event
 timing: after one, the host's launches are slower.
 
-Launch counters are set to 0 just before each of phases 4–7 and 8b and read
-just after; every kernel of a path must have launched inside it.  The last
+Launch counters are set to 0 just before each of phases 4–7 and 8b, and
+before each refresh of phase 9, and read just after; every kernel of a path
+must have launched inside it.  The last
 lines are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
@@ -147,6 +178,14 @@ PROFILE_TRIES = 4
 TABLE_HASH, TABLE_SLOT_BITS, TABLE_MAX_PROBE = 2654435769, 12, 16
 KHOP_SEEDS, KHOP_K = 8, 3
 PR_ITERS = 20
+# phase 9's churn on JS-OJ's store_sales (2.88M rows) and JS-MV's wrote
+# (1.8M rows): ~1% in then 0.5% out (delta path, CSR patched), 1,000 new
+# items (delta, the vertex set changes), 15% out (full), nothing (noop)
+REFRESH_INSERT, REFRESH_DELETE = 28_800, 14_400
+ITEM_INSERT = 1_000
+FULL_DELETE = 432_000
+MV_INSERT, MV_DELETE = 18_000, 9_000
+OJ_SEED, MV_SEED = 9, 10
 
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 FLASH_TOL = 2e-2              # rtol = atol of tests/test_kernels.py
@@ -411,6 +450,20 @@ def add_device_times(torch, rows, name, cases):
     row["device_ms"] = row["cases"][0]["device_ms"]
 
 
+def probe_case(torch, kops, ref, label, sk, pk):
+    """A ``record_rows`` case of sorted_probe, with two ``searchsorted``
+    calls as the library call: the sorted keys and the probe keys read
+    once, two int32 bounds written per probe key; a bisection's compares."""
+    s, p = sk.shape[0], pk.shape[0]
+    depth = (max(s, 2) - 1).bit_length() + 1     # ceil(log2 s) + 1
+    return (label,
+            lambda: kops.sorted_probe(sk, pk),
+            lambda: ref.sorted_probe(sk, pk),
+            lambda: (torch.searchsorted(sk, pk, out_int32=True),
+                     torch.searchsorted(sk, pk, right=True, out_int32=True)),
+            4 * s + 4 * p + 8 * p, 2 * depth * p)
+
+
 def segment_case(torch, kops, ref, label, values, valid, n):
     """A ``record_rows`` case of segment_counts on one operand, with
     ``bincount`` of its valid in-range values as the library call;
@@ -450,23 +503,29 @@ def record_segment_calls(torch, kops, ref, rows, path, calls):
     return cases
 
 
-def record_bloom_calls(torch, kops, ref, rows, calls):
-    """Log the (N, num_bits) of every bloom_build launch of phases 4-5, and
-    check and time the kernel with CUDA events at the largest and the most
-    frequent; returns the cases, for ``add_device_times``."""
-    shapes = collections.Counter((args[0].shape[0], args[2])
-                                 for _, args in calls)
-    log(f"bloom_build launches of phases 4-5 by (N, num_bits): "
-        f"{sorted(shapes.items())}")
+def most(shapes):
+    """{shape: "largest" / "most frequent"} of a Counter of shapes."""
     picks = {max(shapes): "largest", shapes.most_common(1)[0][0]:
              "most frequent"}
     if len(picks) == 1:
         picks = {max(shapes): "largest and most frequent"}
+    return picks
+
+
+def record_bloom_calls(torch, kops, ref, rows, calls, where="phases 4-5"):
+    """Log the (N, num_bits) of every bloom_build launch ``where`` (the
+    paths that made ``calls``), and check and time the kernel with CUDA
+    events at the largest and the most frequent; returns the cases, for
+    ``add_device_times``."""
+    shapes = collections.Counter((args[0].shape[0], args[2])
+                                 for _, args in calls)
+    log(f"bloom_build launches of {where} by (N, num_bits): "
+        f"{sorted(shapes.items())}")
     cases = []
-    for shape, which in picks.items():
+    for shape, which in most(shapes).items():
         keys, valid, nbits = next(args for _, args in calls
                                   if (args[0].shape[0], args[2]) == shape)
-        label = (f"{which} of phases 4-5 ({shapes[shape]} of "
+        label = (f"{which} of {where} ({shapes[shape]} of "
                  f"{len(calls)} launches): N={shape[0]} ({{live}} valid) "
                  f"bits={nbits}")
         cases.append(bloom_case(kops, ref, label, keys, valid, nbits))
@@ -502,9 +561,9 @@ def probe_pair(torch, kops, bits, keys):
     return lambda: torch.where(kops.bloom_probe(bits, keys), keys, null)
 
 
-def record_probe_calls(torch, kops, ref, rows, calls):
-    """Log the (N, num_bits) of every bloom_prune_keys launch of phases
-    4-5, and check and time (CUDA events) at the largest and the most
+def record_probe_calls(torch, kops, ref, rows, calls, where="phases 4-5"):
+    """Log the (N, num_bits) of every bloom_prune_keys launch ``where``,
+    and check and time (CUDA events) at the largest and the most
     frequent, with the bits the path built: bloom_probe, bloom_prune_keys
     beside ``probe_pair`` (``pair_ms``, same run), and bloom_probe at
     N = 1 on the largest's bits (the prologue alone).  Returns
@@ -512,27 +571,23 @@ def record_probe_calls(torch, kops, ref, rows, calls):
     """
     shapes = collections.Counter((args[1].shape[0], args[0].shape[0])
                                  for _, args in calls)
-    log(f"bloom_probe launches of phases 4-5 (bloom_prune_keys) by "
+    log(f"bloom_probe launches of {where} (bloom_prune_keys) by "
         f"(N, num_bits): {sorted(shapes.items())}")
-    picks = {max(shapes): "largest", shapes.most_common(1)[0][0]:
-             "most frequent"}
-    if len(picks) == 1:
-        picks = {max(shapes): "largest and most frequent"}
     cases, pairs = [], []
-    for shape, which in picks.items():
+    for shape, which in most(shapes).items():
         bits, keys = next(args[:2] for _, args in calls
                           if (args[1].shape[0], args[0].shape[0]) == shape)
-        where = (f"{which} of phases 4-5 ({shapes[shape]} of {len(calls)} "
+        label = (f"{which} of {where} ({shapes[shape]} of {len(calls)} "
                  f"launches): N={shape[0]} bits={shape[1]}")
-        cases.append(bloom_probe_case(kops, ref, where, bits, keys))
-        prune = prune_case(torch, kops, ref, f"bloom_prune_keys, {where}",
+        cases.append(bloom_probe_case(kops, ref, label, bits, keys))
+        prune = prune_case(torch, kops, ref, f"bloom_prune_keys, {label}",
                            bits, keys)
         cases.append(prune)
         pairs.append((prune[0], probe_pair(torch, kops, bits, keys)))
         if which.startswith("largest"):
             cases.append(bloom_probe_case(
                 kops, ref, f"prologue alone: N=1 bits={shape[1]} (the "
-                f"largest's)", bits, keys[:1].clone()))
+                f"largest's of {where})", bits, keys[:1].clone()))
     row = record_rows(torch, rows, "bloom_probe", BLOOM_SOURCE,
                       PROBE_REPLACES, cases, device=False)
     for label, pair in pairs:
@@ -541,6 +596,57 @@ def record_probe_calls(torch, kops, ref, rows, calls):
         log(f"  bloom_probe + torch.where [{label}] {case['pair_ms']:.4f} "
             f"ms; bloom_prune_keys / pair {case['ms'] / case['pair_ms']:.3f}")
     return cases, pairs
+
+
+def record_sorted_probe_calls(torch, kops, ref, rows, calls, where):
+    """Log the (P, S) of every sorted_probe launch ``where``, and check and
+    time the kernel with CUDA events at the largest and the most frequent
+    (cases of the kernel's row); returns the cases, for
+    ``add_device_times``."""
+    shapes = collections.Counter((args[1].shape[0], args[0].shape[0])
+                                 for _, args in calls)
+    log(f"sorted_probe launches of {where} by (P, S): "
+        f"{sorted(shapes.items())}")
+    cases = []
+    for shape, which in most(shapes).items():
+        sk, pk = next(args for _, args in calls
+                      if (args[1].shape[0], args[0].shape[0]) == shape)
+        cases.append(probe_case(
+            torch, kops, ref, f"{which} of {where} ({shapes[shape]} of "
+            f"{len(calls)} launches): P={shape[0]} into S={shape[1]}",
+            sk, pk))
+    record_rows(torch, rows, "sorted_probe",
+                "src/repro_torch/kernels/csrc/sorted_probe.cu",
+                "src/repro/kernels/sorted_probe.py:45", cases, device=False)
+    return cases
+
+
+def check_every_call(torch, kops, ref, calls, where):
+    """Every recorded launch of the join kernels ``where`` once more, each
+    against its plain version on the same operands, exact: sorted_probe
+    against the bisection, bloom_build against the plain bitset,
+    bloom_prune_keys against ``where(plain bloom_probe, keys, NULL_KEY)``.
+    Returns {kernel: launches checked}."""
+    checked = {}
+    for name, recorded in calls.items():
+        for i, (_, args) in enumerate(recorded):
+            if name == "sorted_probe":
+                got, want = kops.sorted_probe(*args), ref.sorted_probe(*args)
+                err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+            elif name == "bloom_build":
+                err = max_abs_err(torch, kops.bloom_build(*args),
+                                  ref.bloom_build(*args))
+            else:
+                bits, keys = args[:2]
+                null = torch.full_like(keys, NULL_KEY)
+                err = max_abs_err(
+                    torch, kops.bloom_prune_keys(*args),
+                    torch.where(ref.bloom_probe(bits, keys), keys, null))
+            assert err == 0, \
+                f"{name} launch {i + 1} of {where}: max_abs_err {err}"
+        checked[name] = len(recorded)
+    log(f"{where}: every launch against its plain version, exact: {checked}")
+    return checked
 
 
 def add_pair_device_times(torch, rows, pairs):
@@ -667,17 +773,6 @@ def join_cases(torch, kops, ref, tpcds_np):
     item_sorted = torch.from_numpy(np.sort(tpcds_np["i_id"])).to(dev)
     fact_sorted = torch.sort(fact_i).values
 
-    def probe_case(label, sk, pk):
-        s, p = sk.shape[0], pk.shape[0]
-        depth = int(np.ceil(np.log2(max(s, 2)))) + 1
-        return (label,
-                lambda: kops.sorted_probe(sk, pk),
-                lambda: ref.sorted_probe(sk, pk),
-                lambda: (torch.searchsorted(sk, pk, out_int32=True),
-                         torch.searchsorted(sk, pk, right=True,
-                                            out_int32=True)),
-                4 * s + 4 * p + 8 * p, 2 * depth * p)
-
     nbits = kops.bloom_bits_for(fact_i.shape[0])
     valid = torch.ones(fact_i.shape, dtype=torch.bool, device=dev)
     n = fact_i.shape[0]
@@ -688,9 +783,11 @@ def join_cases(torch, kops, ref, tpcds_np):
         "sorted_probe": (
             "src/repro_torch/kernels/csrc/sorted_probe.cu",
             "src/repro/kernels/sorted_probe.py:45",
-            [probe_case(f"P={n} into S={fact_sorted.shape[0]}",
+            [probe_case(torch, kops, ref,
+                        f"P={n} into S={fact_sorted.shape[0]}",
                         fact_sorted, fact_i),
-             probe_case(f"P={n} into S={item_sorted.shape[0]}",
+             probe_case(torch, kops, ref,
+                        f"P={n} into S={item_sorted.shape[0]}",
                         item_sorted, fact_i)]),
         "bloom_build": (
             BLOOM_SOURCE, BLOOM_REPLACES,
@@ -1397,6 +1494,377 @@ def serve_lm(torch, kops):
     return counts, timing
 
 
+@contextlib.contextmanager
+def fold_timer():
+    """Sums the seconds of the engine's host fold (``apply_table_delta``,
+    edges and views) while it is active; ``{"s": seconds, "calls": n}``."""
+    import repro_torch.api.engine as eng
+
+    fold = eng.apply_table_delta
+    acc = {"s": 0.0, "calls": 0}
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fold(*args, **kwargs)
+        acc["s"] += time.perf_counter() - t0
+        acc["calls"] += 1
+        return out
+
+    eng.apply_table_delta = timed
+    try:
+        yield acc
+    finally:
+        eng.apply_table_delta = fold
+
+
+def graph_digests(graph) -> dict:
+    """Every vertex and edge table's bag digest."""
+    return {"vertices": digests(graph.vertices), "edges": digests(graph.edges)}
+
+
+def fresh_graph(ExtractionEngine, Database, db, model):
+    """A from-scratch extraction over ``db``'s current tables on the plain
+    path: a new database (exact ANALYZE) and a new engine whose compiler
+    launches no kernel, so no kernel's fault can reach the reference."""
+    from repro_torch.core.pipeline import PipelineCompiler
+
+    engine = ExtractionEngine(Database(dict(db.tables)),
+                              compiler=PipelineCompiler(use_kernel=False,
+                                                        use_bloom=False))
+    return engine, engine.extract(model)
+
+
+def check_coo(torch, got, want, what):
+    """Every edge label's live (src, dst) multiset of CSR ``got`` equal to
+    ``want``'s, on the same vertex numbering; {label: live edges}."""
+    assert got.num_vertices == want.num_vertices and torch.equal(
+        got.vertex_ids, want.vertex_ids), f"{what}: vertices differ"
+    assert sorted(got.targets) == sorted(want.targets), what
+    n, live = got.num_vertices, {}
+    for label in sorted(want.targets):
+        bags = []
+        for csr in (got, want):
+            src, dst, valid = csr.coo(label)
+            bags.append(torch.sort(src[valid].to(torch.int64) * n
+                                   + dst[valid].to(torch.int64)).values)
+        assert torch.equal(*bags), f"{what}: {label} edges differ"
+        live[label] = bags[0].numel()
+    return live
+
+
+def churn_sales(db, rng, n_ins, n_del):
+    """Insert ``n_ins`` store_sales rows (new rids, foreign keys drawn over
+    the dimensions) and delete ``n_del`` live rows by slot."""
+    import numpy as np
+
+    if n_ins:
+        n = int(db.tables["store_sales"]["rid"].max()) + 1
+        draw = {c: db.stats[t].rows for c, t in (
+            ("c_sk", "customer"), ("i_sk", "item"), ("p_sk", "promotion"),
+            ("o_sk", "outlet_store"))}
+        db.insert_rows("store_sales",
+                       rid=np.arange(n, n + n_ins, dtype=np.int32),
+                       **{c: rng.integers(0, k, n_ins).astype(np.int32)
+                          for c, k in draw.items()})
+    if n_del:
+        live = np.flatnonzero(db.tables["store_sales"].valid.cpu().numpy())
+        db.delete_rows("store_sales", rng.choice(live, n_del, replace=False))
+
+
+def mutate_oj(db, rng, rnd):
+    """Phase 9(a)'s churn before delta round ``rnd``: 1, store_sales rows
+    in and out; 2, new items that no sale references."""
+    import numpy as np
+
+    if rnd == 1:
+        churn_sales(db, rng, REFRESH_INSERT, REFRESH_DELETE)
+        return
+    n_item = int(db.tables["item"]["rid"].max()) + 1
+    ids = np.arange(n_item, n_item + ITEM_INSERT, dtype=np.int32)
+    db.insert_rows("item", rid=ids, i_id=ids,
+                   i_price=rng.integers(1, 100, ITEM_INSERT).astype(np.int32))
+
+
+def mutate_mv(db, rng):
+    """Phase 9(b)'s churn: wrote rows in and out."""
+    import numpy as np
+
+    n = int(db.tables["wrote"]["rid"].max()) + 1
+    db.insert_rows(
+        "wrote", rid=np.arange(n, n + MV_INSERT, dtype=np.int32),
+        a_sk=rng.integers(0, db.stats["author"].rows,
+                          MV_INSERT).astype(np.int32),
+        p_sk=rng.integers(0, db.stats["paper"].rows,
+                          MV_INSERT).astype(np.int32))
+    live = np.flatnonzero(db.tables["wrote"].valid.cpu().numpy())
+    db.delete_rows("wrote", rng.choice(live, MV_DELETE, replace=False))
+
+
+def analyze_patched(engine, model):
+    """Phase 9(a)'s requests on the patched CSR after round 1: PageRank on
+    Buy, then WCC, each after a refresh that must be a noop."""
+    return (engine.analyze(model, algorithm="pagerank", label="Buy",
+                           iters=PR_ITERS, auto_refresh=True),
+            engine.analyze(model, algorithm="wcc", auto_refresh=True))
+
+
+def refresh_round(torch, kops, engine, model, expect, label):
+    """One ``engine.refresh`` between a counter reset and a counter read,
+    timed on the host clock ending in a device sync; the path must be
+    ``expect``.  Returns (result, launches, record)."""
+    from repro_torch import obs
+
+    terms0 = obs.REGISTRY.value("delta_terms_total")
+    with fold_timer() as fold:
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = engine.refresh(model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kops.launch_counts()
+    rp = res.refresh
+    assert rp.path == expect, f"{label}: path {rp.path}, expected {expect}"
+    record = {"path": rp.path, "churn": rp.churn,
+              "rows_changed": rp.rows_changed,
+              "tables_changed": list(rp.tables_changed),
+              "views_maintained": list(rp.views_maintained),
+              "csr_patched": rp.csr_patched,
+              "extract_s": res.timings.extract_s, "refresh_s": wall,
+              "fold_s": fold["s"], "fold_calls": fold["calls"],
+              "delta_terms": obs.REGISTRY.value("delta_terms_total") - terms0,
+              "launches": {k: v for k, v in counts.items() if v}}
+    if rp.path == "delta":
+        missing = [k for k in JOIN_KERNELS if counts[k] == 0]
+        assert not missing, f"{label}: kernels never launched: {missing}"
+    return res, counts, record
+
+
+def check_fresh(ExtractionEngine, Database, db, model, res, label):
+    """The refreshed graph's digests against a from-scratch extraction;
+    returns the fresh engine (its CSR cache is cold)."""
+    engine, fresh = fresh_graph(ExtractionEngine, Database, db, model)
+    got, want = graph_digests(res.graph), graph_digests(fresh.graph)
+    assert got == want, f"{label}: refreshed digests {got} != fresh {want}"
+    return engine
+
+
+def refresh_oj(torch, kops, ref, ExtractionEngine, Database, wal_dir):
+    """Phase 9(a) and (c): JS-OJ refresh rounds on a database with a WAL in
+    ``wal_dir``, then recovery.  Returns (launches summed over the rounds,
+    the launches of rounds 1 and 2, record)."""
+    import numpy as np
+
+    from repro_torch.data import fraud_model, make_tpcds
+    from repro_torch.durability import (load_manifest, recover_database,
+                                        replay_wal, restore_database,
+                                        write_manifest)
+    from repro_torch.relational.ops import table_digest
+
+    model = fraud_model("store")
+    db = make_tpcds(sf=TPCDS_SF)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ExtractionEngine(db)
+    cold, warm = extract_twice(engine, model)
+    engine.analyze(model, algorithm="pagerank", label="Buy", iters=PR_ITERS)
+    assert len(engine._csrs) == 1
+    db.attach_wal(str(wal_dir))
+    rng = np.random.default_rng(OJ_SEED)
+    rounds, total, delta_counts = {}, collections.Counter(), []
+
+    # round 1: 1% in, 0.5% out: the delta path, the cached CSR patched
+    mutate_oj(db, rng, 1)
+    res, counts, rec = refresh_round(torch, kops, engine, model, "delta",
+                                     "JS-OJ round 1")
+    assert rec["csr_patched"], "JS-OJ round 1 did not patch the CSR"
+    total.update(counts)
+    delta_counts.append(counts)
+    fresh_engine = check_fresh(ExtractionEngine, Database, db, model, res,
+                               "JS-OJ round 1")
+    pr, wcc = analyze_patched(engine, model)
+    assert pr.extraction.refresh.path == "noop"
+    assert pr.provenance.csr_cache_hit, "the patched CSR did not serve"
+    assert wcc.provenance.csr_cache_hit
+    # the reference: a CSR built from the fresh extraction, and PageRank
+    # and WCC on it, all on the plain path
+    want = fresh_engine.analyze(model, algorithm="pagerank", label="Buy",
+                                iters=PR_ITERS, use_kernel=False)
+    rec["patched_live_edges"] = check_coo(
+        torch, pr.csr, want.csr, "the patched CSR vs a fresh build")
+    err = pagerank_error(pr.values, want.values)
+    check_pagerank(err, pagerank_tolerance(ref, want.csr, "Buy"),
+                   "PageRank on the patched CSR vs a fresh build")
+    assert torch.equal(wcc.values, fresh_engine.analyze(
+        model, algorithm="wcc", use_kernel=False).values), \
+        "WCC on the patched CSR != fresh"
+    rec["patched_labels_dirty"] = sorted(pr.csr.dirty)
+    rec["pagerank_vs_fresh"] = err
+    rounds["1_delta_csr_patched"] = rec
+    del fresh_engine, want, pr, wcc
+
+    # round 2: new items, no sale references them: the vertex set changes
+    mutate_oj(db, rng, 2)
+    res, counts, rec = refresh_round(torch, kops, engine, model, "delta",
+                                     "JS-OJ round 2")
+    assert not rec["csr_patched"], "round 2 changed the vertex set"
+    total.update(counts)
+    delta_counts.append(counts)
+    check_fresh(ExtractionEngine, Database, db, model, res, "JS-OJ round 2")
+    rounds["2_delta_vertices"] = rec
+    t0 = time.perf_counter()
+    write_manifest(str(wal_dir), db, {}, {"fraud": res.graph.fingerprint()})
+    manifest_s = time.perf_counter() - t0
+
+    # round 3: 15% out (or more, so that churn > threshold): the full path
+    base = sum(db.stats[t].rows for t in
+               {r.table for q in model.queries() for r in q.relations})
+    n_del = max(FULL_DELETE, base // 11 + 1)
+    churn_sales(db, rng, 0, n_del)
+    res, counts, rec = refresh_round(torch, kops, engine, model, "full",
+                                     "JS-OJ round 3")
+    assert rec["churn"] > engine.refresh_threshold
+    rec["deleted"] = n_del
+    total.update(counts)
+    check_fresh(ExtractionEngine, Database, db, model, res, "JS-OJ round 3")
+    rounds["3_full"] = rec
+
+    # round 4: nothing changed: noop
+    res, counts, rec = refresh_round(torch, kops, engine, model, "noop",
+                                     "JS-OJ round 4")
+    total.update(counts)
+    check_fresh(ExtractionEngine, Database, db, model, res, "JS-OJ round 4")
+    rounds["4_noop"] = rec
+    peak = torch.cuda.max_memory_allocated()
+    final_fp = res.graph.fingerprint()
+
+    # (c) crash: the WAL abandoned; recover from the manifest + its tail
+    db.detach_wal()
+    t0 = time.perf_counter()
+    recovered, report = recover_database(str(wal_dir), Database(),
+                                         device=db.device)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    assert report.path == "checkpoint" and report.replayed_records == 1
+    assert recovered.epoch == db.epoch
+    assert recovered.fingerprint() == db.fingerprint(), "stats differ"
+    for t in db.tables:
+        assert recovered.tables[t].capacity == db.tables[t].capacity, t
+        assert table_digest(recovered.tables[t]) == \
+            table_digest(db.tables[t]), f"recovered {t} differs"
+    got = ExtractionEngine(recovered).extract(model).graph.fingerprint()
+    assert got == final_fp, "the recovered database extracts another graph"
+    t0 = time.perf_counter()
+    again = restore_database(str(wal_dir), load_manifest(str(wal_dir)),
+                             device=db.device)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replay_wal(again, str(wal_dir))
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    assert again.fingerprint() == db.fingerprint()
+    wal_bytes = sum(f.stat().st_size for f in wal_dir.iterdir())
+    record = {"extract_s_cold": cold.timings.extract_s,
+              "extract_s_warm": warm.timings.extract_s, "rounds": rounds,
+              "max_memory_allocated_gib": peak / 2**30,
+              "durability": {"manifest_s": manifest_s,
+                             "recovery_s": recovery_s,
+                             "restore_s": restore_s, "replay_s": replay_s,
+                             "report": report.summary(),
+                             "dir_bytes": wal_bytes}}
+    log(f"JS-OJ refresh: {json.dumps(record)}")
+    log("  every round's digests == a plain-path fresh extract; the patched "
+        "CSR's edges, PageRank and WCC == a fresh plain build's; recovered "
+        "fingerprint, digests and graph == the live database's")
+    return dict(total), delta_counts, record
+
+
+def refresh_mv(torch, kops, ExtractionEngine, Database):
+    """Phase 9(b): one JS-MV refresh through the maintained view."""
+    import numpy as np
+
+    from repro_torch.data import dblp_model, make_dblp
+
+    model = dblp_model()
+    db = make_dblp(scale=DBLP_SCALE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ExtractionEngine(db)
+    cold, warm = extract_twice(engine, model)
+    assert cold.provenance.views_built
+    mutate_mv(db, np.random.default_rng(MV_SEED))
+    res, counts, rec = refresh_round(torch, kops, engine, model, "delta",
+                                     "JS-MV")
+    assert list(cold.provenance.views_built) == rec["views_maintained"], \
+        f"JS-MV maintained {rec['views_maintained']}"
+    peak = torch.cuda.max_memory_allocated()
+    check_fresh(ExtractionEngine, Database, db, model, res, "JS-MV")
+    record = {"extract_s_cold": cold.timings.extract_s,
+              "extract_s_warm": warm.timings.extract_s, "round": rec,
+              "max_memory_allocated_gib": peak / 2**30}
+    log(f"JS-MV refresh: {json.dumps(record)}")
+    log("  digests == a plain-path fresh extract")
+    return counts, record
+
+
+def refresh_and_recovery(torch, kops, ref, ExtractionEngine):
+    """Phase 9: refresh rounds on JS-OJ (a) and JS-MV (b), and the WAL and
+    its recovery on JS-OJ's database (c).  Returns the launches of each
+    path's refreshes, and of JS-OJ's two delta rounds one by one."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.database import Database
+
+    wal_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_wal_"))
+    try:
+        counts_oj, delta_counts, _ = refresh_oj(
+            torch, kops, ref, ExtractionEngine, Database, wal_dir)
+    finally:
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    counts_mv, _ = refresh_mv(torch, kops, ExtractionEngine, Database)
+    torch.cuda.empty_cache()
+    return counts_oj, counts_mv, delta_counts
+
+
+def replay_refresh(torch, kops, ExtractionEngine, counts_oj, counts_mv):
+    """Phase 9's delta refreshes once more, untimed, on regenerated data
+    with the same seeded churn and the same requests between them, the
+    join wrappers recorded (``replay``: each refresh must launch every
+    kernel as often as its timed run).  {"JS-OJ" / "JS-MV": {name: calls}}.
+    """
+    import numpy as np
+
+    from repro_torch.data import dblp_model, fraud_model, make_dblp, make_tpcds
+
+    names = ("sorted_probe", "bloom_build", "bloom_prune_keys")
+    out = {"JS-OJ": collections.defaultdict(list)}
+    model = fraud_model("store")
+    db = make_tpcds(sf=TPCDS_SF)
+    engine = ExtractionEngine(db)
+    extract_twice(engine, model)
+    engine.analyze(model, algorithm="pagerank", label="Buy", iters=PR_ITERS)
+    rng = np.random.default_rng(OJ_SEED)
+    for rnd, counts in enumerate(counts_oj, 1):
+        mutate_oj(db, rng, rnd)
+        _, calls = replay(torch, kops, names, counts,
+                          lambda: engine.refresh(model))
+        for name, recorded in calls.items():
+            out["JS-OJ"][name] += recorded
+        if rnd == 1:
+            analyze_patched(engine, model)
+    del engine, db
+    model = dblp_model()
+    db = make_dblp(scale=DBLP_SCALE)
+    engine = ExtractionEngine(db)
+    extract_twice(engine, model)
+    mutate_mv(db, np.random.default_rng(MV_SEED))
+    _, out["JS-MV"] = replay(torch, kops, names, counts_mv,
+                             lambda: engine.refresh(model))
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1557,6 +2025,11 @@ def main(argv=None) -> int:
     counts_lm, _ = serve_lm(torch, kops)
     torch.cuda.empty_cache()
 
+    # 9. refresh and recovery: JS-OJ rounds (delta, delta, full, noop) on a
+    # durable database, JS-MV through its maintained view, then recovery
+    counts_oj_ref, counts_mv_ref, delta_counts = refresh_and_recovery(
+        torch, kops, ref, ExtractionEngine)
+
     # the kernel phase: the kernel cases of 4-7 on untimed replays of the
     # paths, then every case's device time (a profiler session slows the
     # host's later launches, so it comes after every CUDA-event timing)
@@ -1597,6 +2070,24 @@ def main(argv=None) -> int:
     segment_cases += record_segment_calls(torch, kops, ref, graph_rows,
                                           "JS-MV", calls["segment_counts"])
     del calls
+    # phase 9's delta refreshes: every launch against its plain version,
+    # the largest and most frequent operands timed
+    refresh_cases = collections.defaultdict(list)
+    for path, calls in replay_refresh(torch, kops, ExtractionEngine,
+                                      delta_counts, counts_mv_ref).items():
+        where = (f"{path} delta refresh"
+                 + (f"es 1-{len(delta_counts)}" if path == "JS-OJ" else ""))
+        check_every_call(torch, kops, ref, calls, where)
+        refresh_cases["sorted_probe"] += record_sorted_probe_calls(
+            torch, kops, ref, kernel_rows, calls["sorted_probe"], where)
+        refresh_cases["bloom_build"] += record_bloom_calls(
+            torch, kops, ref, kernel_rows, calls["bloom_build"], where)
+        cases, pairs = record_probe_calls(
+            torch, kops, ref, kernel_rows, calls["bloom_prune_keys"], where)
+        refresh_cases["bloom_probe"] += cases
+        probe_pairs += pairs
+    del calls
+    torch.cuda.empty_cache()
 
     log("device times (torch.profiler), every case above:")
     for kernel, (_, _, cases) in join_cases(torch, kops, ref,
@@ -1604,6 +2095,8 @@ def main(argv=None) -> int:
         add_device_times(torch, kernel_rows, kernel, cases)
     add_device_times(torch, kernel_rows, "bloom_build", bloom_cases)
     add_device_times(torch, kernel_rows, "bloom_probe", probe_cases)
+    for kernel, cases in refresh_cases.items():
+        add_device_times(torch, kernel_rows, kernel, cases)
     add_pair_device_times(torch, kernel_rows, probe_pairs)
     add_spec_device_times(torch, kops, graph_rows,
                           oj_graph_specs(torch, ref, oj_csr))
@@ -1614,12 +2107,13 @@ def main(argv=None) -> int:
     add_device_times(torch, flash_rows, "flash_attention",
                      flash_cases(torch, kops, ref))
     del bloom_cases, probe_cases, probe_pairs, segment_cases, \
-        frontier_cases, tpcds, dblp, oj_csr, mv_csr
+        frontier_cases, refresh_cases, tpcds, dblp, oj_csr, mv_csr
     torch.cuda.empty_cache()
 
     by_path = {"js_oj": counts_oj, "js_mv": counts_mv,
                "js_oj_analytics": counts_oja, "js_mv_analytics": counts_mva,
-               "lm_serve": counts_lm}
+               "lm_serve": counts_lm, "js_oj_refresh": counts_oj_ref,
+               "js_mv_refresh": counts_mv_ref}
     kernel_rows += graph_rows + flash_rows
     untimed = [(row["name"], case["shape"]) for row in kernel_rows
                for case in row["cases"] if case["device_ms"] is None]

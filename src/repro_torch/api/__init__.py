@@ -15,12 +15,14 @@ from repro_torch.api.engine import (
     ExtractionEngine,
     ExtractionResult,
     PlanProvenance,
+    RefreshProvenance,
 )
 
 __all__ = [
     "ExtractionEngine",
     "ExtractionResult",
     "PlanProvenance",
+    "RefreshProvenance",
     "AnalyticsProvenance",
     "AnalyticsResult",
     "AnalyticsTimings",

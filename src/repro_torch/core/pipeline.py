@@ -576,6 +576,56 @@ class PipelineCompiler:
             return None if rec is None else {k: list(v)
                                              for k, v in rec.items()}
 
+    def peek_program(self, db: Database, kind: str, unit):
+        """The program a unit *would* run with — read-only introspection.
+
+        Resolution mirrors :meth:`_program` (stats-keyed programs first,
+        then the stats-independent memo with its proven capacities), but a
+        miss builds a fresh cost-model program WITHOUT entering it into
+        either cache: EXPLAIN over estimated view stats must not pin
+        estimate-derived capacities into the memo the execution path will
+        later trust.  Returns ``(program, source)`` with source one of
+        ``"programs"`` | ``"memo"`` | ``"estimated"``.
+        """
+        inputs = (_merged_inputs(unit) if kind == "merged"
+                  else _query_inputs(unit))
+        pkey = (kind, unit, self._stats_fp(db, inputs))
+        with self._lock:
+            prog = self._programs.get(pkey)
+            if prog is not None:
+                return prog, "programs"
+            prog = self._unit_memo.get((kind, unit))
+            if prog is not None:
+                return prog, "memo"
+        if kind == "merged":
+            prog = build_merged_program(db, unit, self.margin,
+                                        self.initial_capacity_clamp)
+        else:
+            prog = build_query_program(db, unit, edges=(kind == "edges"),
+                                       margin=self.margin,
+                                       clamp=self.initial_capacity_clamp)
+        return prog, "estimated"
+
+    def executable_state(self, prog: UnitProgram,
+                         tables: Dict[str, Table]) -> str:
+        """Would running this program build a unit function or reuse one?
+
+        Nothing is compiled here, so the states mean: ``"cached"`` — the
+        built unit function for the exact (signature, orders, capacities,
+        kernel flags, input schema) key is in the process-wide unit store;
+        ``"uncompiled"`` — it is not, and the first run would build it (a
+        host-side closure, no compile); ``"unknown"`` — an input (an
+        unmaterialized view) is missing from ``tables``, so the schema part
+        of the key cannot be formed without executing.
+        """
+        if any(n not in tables for n in prog.inputs):
+            return "unknown"
+        inputs = {n: tables[n] for n in prog.inputs}
+        key = (prog.signature, prog.orders, prog.capacities,
+               self.use_kernel, self.use_bloom, _schema_fp(inputs))
+        with _CACHE_LOCK:
+            return "cached" if key in _EXECUTABLE_CACHE else "uncompiled"
+
     def _run(self, db: Database, pkey, prog: UnitProgram):
         """Execute with overflow-retry; remembers proven capacities.
 

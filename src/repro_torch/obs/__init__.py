@@ -17,6 +17,11 @@ Usage::
             ...
     obs.REGISTRY.counter("engine_requests_total", path="extract").inc()
 """
+from repro_torch.obs.explain import (  # noqa: F401
+    PlanReport,
+    StepReport,
+    UnitReport,
+)
 from repro_torch.obs.memory import (  # noqa: F401
     array_nbytes,
     csr_nbytes,
@@ -51,6 +56,7 @@ __all__ = [
     "FAILURE_FAMILIES", "failure_counter", "get_registry", "CATEGORIES",
     "TRACER", "Tracer", "new_trace_id", "sanitize_trace_id", "set_enabled",
     "span", "span_tree_shape", "traced_call",
+    "PlanReport", "UnitReport", "StepReport",
     "array_nbytes", "table_nbytes", "graph_nbytes", "csr_nbytes",
     "entry_nbytes",
     "device_memory_stats",

@@ -40,6 +40,15 @@ MAKERS = {"tpcds": ("make_tpcds", dict(sf=1, seed=0)),
           "imdb": ("make_imdb", dict(scale=1, seed=2))}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _leave_jax_executables_cold():
+    """Empty the JAX package's process-wide executable store after this
+    module: its own tests count the compiles of a cold request, and may
+    run next in the same worker process."""
+    yield
+    jpipe.clear_executable_cache()
+
+
 @pytest.fixture(scope="module")
 def dbs():
     """{name: (JAX database, port database)}, same seeds."""
@@ -188,12 +197,12 @@ def test_engine_cold_warm_matches_jax(dbs):
 
 def test_engine_rejects_unported_modes(dbs):
     td = dbs["tpcds"][1]
-    with pytest.raises(NotImplementedError, match="incremental"):
-        tapi.ExtractionEngine(td, auto_refresh=True)
-    engine = tapi.ExtractionEngine(td)
-    with pytest.raises(NotImplementedError, match="incremental"):
-        engine.extract(tdata.fraud_model("store"), auto_refresh=True)
-    with pytest.raises(NotImplementedError, match="incremental"):
-        engine.analyze(tdata.fraud_model("store"), auto_refresh=True)
+    # auto_refresh is ported (tests/test_torch_incremental.py); schema
+    # discovery is not, and the engine has no stand-in for it
+    engine = tapi.ExtractionEngine(td, auto_refresh=True)
+    assert engine.auto_refresh
+    assert not hasattr(engine, "discover")
     with pytest.raises(ValueError, match="unknown method"):
         engine.extract(tdata.fraud_model("store"), method="sqlgraph")
+    with pytest.raises(ValueError, match="planned methods"):
+        engine.refresh(tdata.fraud_model("store"), method="ringo")

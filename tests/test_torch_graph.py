@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core.pipeline as jpipe
 import repro.api as japi
 import repro.core.extract as jext
 import repro.data as jdata
@@ -59,6 +60,15 @@ SPMV_ATOL = 1e-6
 PR_RTOL = 1e-5
 PR_RTOL_HUBS = 1e-4
 PR_ATOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _leave_jax_executables_cold():
+    """Empty the JAX package's process-wide executable store after this
+    module: its own tests count the compiles of a cold request, and may
+    run next in the same worker process."""
+    yield
+    jpipe.clear_executable_cache()
 
 
 def _t(a, device="cpu"):
