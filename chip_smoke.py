@@ -118,23 +118,62 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and the seconds of the manifest write, the recovery, and its restore and
    replay.  The delta refreshes must launch ``sorted_probe``,
    ``bloom_build`` and ``bloom_probe``.
+10. Discovery.  ``ExtractionEngine.discover(use_name_hints=False)`` on
+   ``anonymize_columns(make_tpcds(sf=1000))`` (JS-OJ's data) and
+   ``anonymize_columns(make_dblp(scale=100))`` (JS-MV's), cold then warm.
+   The warm call must be a cache hit that runs no pipeline and launches
+   nothing.  The cold result must equal a plain-path discovery
+   (``PipelineCompiler(use_kernel=False, use_bloom=False)``) in every
+   profile's NDV, non-null count and null fraction, every candidate's
+   (pair, sampled, matched, confidence), the accepted FKs and the edge
+   candidates' signatures, and the JAX package's result at these sizes
+   (``DISCOVERY_REF``: the counts, the FK precision and recall, the edge
+   recall, and sha1 digests of the accepted (pair, matched, sampled) with
+   every profile's NDV, and of every candidate; written by
+   ``examples/discovery_summary.py`` on the JAX package).  Every
+   containment check launches ``sorted_probe``, ``bloom_build`` and
+   ``bloom_probe``.  Logged: the cold and warm seconds, profile, infer
+   and synthesize seconds, containment checks a second, the peak device
+   memory and the launches.
+11. The graph service.  ``GraphService`` over a fresh
+   ``make_tpcds(sf=1000)`` serving ``fraud_model("store")``, with 4
+   workers, two tenants and a ``durable_dir`` in a temporary directory:
+   8 identical extracts submitted at once execute once (the others
+   coalesce), a tenant's repeat is served from its cache, PageRank on
+   ``Buy`` and ``discover`` run through it; phase 9's round-1 churn
+   (28,800 store_sales rows in, 14,400 out) goes in through ``mutate``
+   and ``refresh`` publishes the next epoch while readers pinned to
+   epoch 0 read: their payloads (epoch, fingerprint, vertex and edge
+   counts) must equal the first one, during the build and after, and the
+   published graph's digests a plain-path fresh extraction's.  Then
+   ``examples/serve_graphs_torch.py``'s ``make_server(svc, port=0)``
+   answers ``/healthz``, ``/v1/extract``, ``/v1/analyze``,
+   ``/v1/discover``, ``/v1/mutate`` (1,000 new items) and ``/v1/refresh``,
+   and a 429 under a tight quota.  The service is closed and reopened on
+   the same directory: it must report a checkpoint recovery verified
+   against, and serve, the fingerprint it last published.  Logged: each
+   request kind's seconds (cold and warm), the publish's, the recovery's,
+   and the peak device memory with two live snapshots.  Its worker
+   threads overlap, so the phase only requires every join kernel,
+   ``segment_counts`` and ``edge_spmv`` to launch.
 
 The phases run in their order, each kernel case checked and timed with
 CUDA events where it stands.  Then a kernel phase: the kernel cases of 4-7
 on the operands the paths' launches saw, taken from an untimed replay of
 each path on regenerated data with the wrappers recorded (``replay``, which
 checks that the replay launched every kernel as often as the timed run);
-then phase 9's three delta refreshes replayed alike (the same seeded
-churn), every one of their ``sorted_probe``, ``bloom_build`` and
-``bloom_prune_keys`` launches held exactly against its plain version and
-the largest and most frequent operands of each timed; and last every
+then phase 9's three delta refreshes and phase 10's two cold discoveries
+replayed alike (the same seeded churn, the same data), every one of their
+``sorted_probe``, ``bloom_build`` and ``bloom_prune_keys`` launches held
+exactly against its plain version and the largest and most frequent
+operands of each timed; and last every
 case's device time (``torch.profiler``, on operands rebuilt alike).  So no profiler session and no recorded operand comes before or
 during a path's timed run, nor a profiler session before a CUDA-event
 timing: after one, the host's launches are slower.
 
-Launch counters are set to 0 just before each of phases 4–7 and 8b, and
-before each refresh of phase 9, and read just after; every kernel of a path
-must have launched inside it.  The last
+Launch counters are set to 0 just before each of phases 4–7 and 8b,
+before each refresh of phase 9, each discovery of phase 10 and phase 11,
+and read just after; every kernel of a path must have launched inside it.  The last
 lines are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
@@ -186,6 +225,36 @@ ITEM_INSERT = 1_000
 FULL_DELETE = 432_000
 MV_INSERT, MV_DELETE = 18_000, 9_000
 OJ_SEED, MV_SEED = 9, 10
+# phase 10: what the JAX package's discovery gives at these sizes, on
+# anonymized data without name hints, written by
+# examples/discovery_summary.py run on the JAX package on a CPU.  numpy's
+# Zipf draws differ between releases, so the TPC-DS numbers are of the
+# tables make_tpcds(sf=1000) generates with numpy 2.3.5 (the H100
+# machine's: saved there with ``--package repro_torch --save-tables``,
+# loaded on the CPU with ``--load-tables``); numpy 2.0.2 draws other
+# sales keys.  The DBLP tables are the same under both.
+DISCOVERY_REF = {
+    "tpcds": {"candidates": 123, "containment_checks": 123,
+              "compiled_checks": 123, "accepted_fks": 14,
+              "edge_candidates": 428, "precision": 0.6428571428571429,
+              "recall": 0.75, "edge_recall": 0.5,
+              "data_sha1": "d4295a6759621d4f0d2b50a45a44d2a42316ff20",
+              "fk_ndv_sha1": "0cc8345717da57d051a459ca1bb2c981ab8e938f",
+              "candidates_sha1":
+                  "d90ead77a3f959199a2f0dc4641a36b514201dde"},
+    "dblp": {"candidates": 50, "containment_checks": 50,
+             "compiled_checks": 50, "accepted_fks": 5,
+             "edge_candidates": 16, "precision": 1.0, "recall": 1.0,
+             "edge_recall": 1.0,
+             "data_sha1": "5adb53b8aa7abd7793eef2fbfb2b0d09c26d08ee",
+             "fk_ndv_sha1": "caf2679d62cdc10054c4f745f025873a447f528e",
+             "candidates_sha1": "abdea35c8a4708076c5b28575c06700941898e31"},
+}
+DISCOVERY_SIZES = (("tpcds", TPCDS_SF, "js_oj_discovery"),
+                   ("dblp", DBLP_SCALE, "js_mv_discovery"))
+SERVICE_TENANTS = ("alice", "bob")
+SERVICE_COALESCE = 8          # identical concurrent extracts
+SERVICE_PINNED_READS = 3      # epoch-0 reads during and after a publish
 
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 FLASH_TOL = 2e-2              # rtol = atol of tests/test_kernels.py
@@ -1865,6 +1934,404 @@ def replay_refresh(torch, kops, ExtractionEngine, counts_oj, counts_mv):
     return out
 
 
+def anonymized(dataset, size):
+    """Phase 10's input: ``dataset`` at ``size`` on the card, columns
+    renamed ``col<j>``; (database, mapping, truth models, hand queries)."""
+    from discovery_summary import make_dataset
+    from repro_torch.discovery import anonymize_columns
+
+    db, truth, hand = make_dataset("repro_torch", dataset, size)
+    adb, mapping = anonymize_columns(db)
+    return adb, mapping, truth, hand
+
+
+def cold_discover(ExtractionEngine, db):
+    """Phase 10's first request on a new engine: (engine, result)."""
+    engine = ExtractionEngine(db)
+    return engine, engine.discover(use_name_hints=False)
+
+
+def discovery_view(res):
+    """What phase 10 holds the kernel path to the plain path on: every
+    profile's NDV / non-null / null fraction, every candidate's (pair,
+    sampled, matched, confidence), the accepted FKs, the edge candidates'
+    signatures."""
+    return {
+        "profiles": {(t, c): (p.ndv, p.non_null, p.null_frac)
+                     for t, tp in res.profiles.items()
+                     for c, p in tp.columns.items()},
+        "candidates": [(c.pair(), c.sampled, c.matched, c.confidence)
+                       for c in res.candidates],
+        "fks": [c.pair() for c in res.fks],
+        "edges": [repr(e.signature) for e in res.edges]}
+
+
+def discovery_phase(torch, kops, ExtractionEngine):
+    """Phase 10: ``engine.discover(use_name_hints=False)`` cold then warm on
+    anonymized JS-OJ and JS-MV data, against the plain path and the JAX
+    package's constants.  Returns ({path: launches}, {path: record})."""
+    import numpy as np
+
+    from discovery_summary import summary
+    from repro_torch.core.pipeline import PipelineCompiler
+
+    counts, records = {}, {}
+    for dataset, size, path in DISCOVERY_SIZES:
+        adb, mapping, truth, hand = anonymized(dataset, size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        engine, cold = cold_discover(ExtractionEngine, adb)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        counts[path] = kops.launch_counts()
+        pipe = engine.compiler.cache_info()
+        t0 = time.perf_counter()
+        warm = engine.discover(use_name_hints=False)
+        warm_s = time.perf_counter() - t0
+        label = f"{path} {dataset} {size}"
+        assert warm is cold, f"{label}: the warm call missed the cache"
+        assert engine.compiler.cache_info() == pipe and \
+            kops.launch_counts() == counts[path], \
+            f"{label}: the warm call ran a pipeline"
+        missing = [k for k in JOIN_KERNELS if counts[path][k] == 0]
+        assert not missing, f"{label}: kernels never launched: {missing}"
+        peak = torch.cuda.max_memory_allocated()
+        plain = ExtractionEngine(adb, compiler=PipelineCompiler(
+            use_kernel=False, use_bloom=False)).discover(use_name_hints=False)
+        assert discovery_view(cold) == discovery_view(plain), \
+            f"{label}: the kernel path's discovery != the plain path's"
+        got = summary("repro_torch", cold, adb, mapping, truth, hand)
+        want = DISCOVERY_REF[dataset]
+        assert got["data_sha1"] == want["data_sha1"], \
+            f"{label}: numpy {np.__version__} generated other tables than " \
+            f"those DISCOVERY_REF was written for"
+        assert got == want, f"{label}: {got} != the JAX package's {want}"
+        t = cold.timings
+        records[path] = {
+            "discover_s_cold": cold_s, "discover_s_warm": warm_s,
+            # profiled by the engine (its cache), each table timed alone
+            "profile_s": sum(p.profile_s for p in cold.profiles.values()),
+            "infer_s": t["infer_s"],
+            "synthesize_s": t["synthesize_s"],
+            "checks_per_s": cold.stats["containment_checks"] / t["infer_s"],
+            "executable_misses": cold.stats["executable_misses"],
+            "max_memory_allocated_gib": peak / 2**30,
+            "launches": {k: v for k, v in counts[path].items() if v},
+            **got}
+        log(f"discovery {label}: {json.dumps(records[path])}")
+        log("  == the plain path (profiles, candidates, FKs, edges) and the "
+            "JAX package's counts, quality and digests; warm: a cache hit, "
+            "no pipeline")
+        del engine, cold, warm, plain, adb
+        torch.cuda.empty_cache()
+    return counts, records
+
+
+def replay_discovery(torch, kops, ExtractionEngine, counts):
+    """Phase 10's cold discoveries once more, untimed, on regenerated data,
+    the join wrappers recorded (``replay``).  {path: {name: calls}}."""
+    names = ("sorted_probe", "bloom_build", "bloom_prune_keys")
+    out = {}
+    for dataset, size, path in DISCOVERY_SIZES:
+        adb = anonymized(dataset, size)[0]
+        _, out[path] = replay(torch, kops, names, counts[path],
+                              lambda: cold_discover(ExtractionEngine, adb))
+        del adb
+    return out
+
+
+def http(url, payload=None, tenant=None):
+    """(status, headers, JSON body) of one request to the front end."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(url, data=data,
+                                 headers={"X-Tenant": tenant} if tenant
+                                 else {})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.headers, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, json.loads(e.read())
+
+
+def timed(fn):
+    """(fn(), seconds on the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def wait_until(cond, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, "condition never became true"
+        time.sleep(0.005)
+
+
+def payload_view(p):
+    """What an extract payload says of the graph: its epoch, fingerprint
+    and vertex and edge counts (not how the request was served)."""
+    return {k: p[k] for k in ("kind", "model", "method", "epoch",
+                              "fingerprint", "vertices", "edges")}
+
+
+def churn_request(db, rng):
+    """Phase 9's round-1 churn as one ``mutate``: REFRESH_INSERT new
+    store_sales rows and a mask of REFRESH_DELETE live rows."""
+    import numpy as np
+
+    t = db.tables["store_sales"]
+    n = int(t["rid"].max()) + 1
+    insert = {"rid": np.arange(n, n + REFRESH_INSERT, dtype=np.int32),
+              **{c: rng.integers(0, db.stats[d].rows,
+                                 REFRESH_INSERT).astype(np.int32)
+                 for c, d in (("c_sk", "customer"), ("i_sk", "item"),
+                              ("p_sk", "promotion"),
+                              ("o_sk", "outlet_store"))}}
+    live = np.flatnonzero(t.valid.cpu().numpy())
+    mask = np.zeros(t.capacity, dtype=bool)
+    mask[rng.choice(live, REFRESH_DELETE, replace=False)] = True
+    return insert, mask
+
+
+def service_requests(svc, record):
+    """Phase 11's library requests: coalesced extracts, the tenant cache,
+    PageRank and discover through the service.  Returns epoch 0's first
+    extract payload."""
+    a, b = SERVICE_TENANTS
+    t0 = time.perf_counter()
+    pairs = [svc.submit_extract("fraud_store", tenant=(a, b)[i % 2])
+             for i in range(SERVICE_COALESCE)]
+    payloads = [f.result(600) for f, _ in pairs]
+    record["extract_s_cold"] = time.perf_counter() - t0
+    assert all(p is payloads[0] for p in payloads), "payloads not shared"
+    assert [m["coalesced"] for _, m in pairs] == \
+        [False] + [True] * (SERVICE_COALESCE - 1)
+    st = svc.stats()
+    assert st["scheduler"]["executed"] == 1, st["scheduler"]
+    assert st["scheduler"]["coalesced"] == SERVICE_COALESCE - 1
+    assert st["engine"]["requests"]["extracts"] == 1, st["engine"]
+    wait_until(lambda: svc.stats()["tenants"][a]["cache_entries"] == 1)
+    again, record["extract_s_warm"] = timed(
+        lambda: svc.extract("fraud_store", tenant=a))
+    assert again["source"] == "tenant-cache"
+    assert payload_view(again) == payload_view(payloads[0])
+
+    pr, record["analyze_s_cold"] = timed(lambda: svc.analyze(
+        "fraud_store", algorithm="pagerank", tenant=a, label="Buy",
+        iters=PR_ITERS))
+    values = pr["values"]
+    assert pr["fingerprint"] == payloads[0]["fingerprint"]
+    assert values["shape"] == [sum(payloads[0]["vertices"].values())]
+    assert values["dtype"] == "float32" and 0 < values["min"] <= \
+        values["max"] < 1, values
+    wait_until(lambda: svc.stats()["tenants"][a]["cache_entries"] == 2)
+    pr2, record["analyze_s_warm"] = timed(lambda: svc.analyze(
+        "fraud_store", algorithm="pagerank", tenant=a, label="Buy",
+        iters=PR_ITERS))
+    assert pr2["source"] == "tenant-cache"
+
+    disc, record["discover_s_cold"] = timed(
+        lambda: svc.discover(use_name_hints=False, top=5, tenant=b))
+    assert disc["stats"]["all_compiled"] and len(disc["edges"]) == 5
+    wait_until(lambda: svc.stats()["tenants"][b]["cache_entries"] == 2)
+    disc2, record["discover_s_warm"] = timed(
+        lambda: svc.discover(use_name_hints=False, top=5, tenant=b))
+    assert disc2["source"] == "tenant-cache"
+    record["discover"] = {k: disc["stats"][k] for k in (
+        "candidates", "accepted_fks", "edge_candidates")}
+    return payloads[0]
+
+
+def pinned_reads(svc, first):
+    """Epoch-0 extracts past the tenant cache: each must be ``first``."""
+    b = SERVICE_TENANTS[1]
+    for _ in range(SERVICE_PINNED_READS):
+        svc._quotas.invalidate(b)
+        got = svc.extract("fraud_store", tenant=b, epoch=0)
+        assert got["source"] == "computed"
+        assert payload_view(got) == payload_view(first), \
+            "a reader pinned to epoch 0 saw another graph"
+
+
+def service_publish(torch, ExtractionEngine, svc, model, first, record):
+    """Phase 11's write side: phase 9's round-1 churn through ``mutate``
+    (its delete and its insert are two epochs), then ``refresh`` publishes
+    the next epoch while readers pinned to epoch 0 read; the published
+    graph against a plain-path fresh extraction.  Returns its
+    fingerprint."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.database import Database
+
+    insert, mask = churn_request(svc._db, np.random.default_rng(OJ_SEED))
+    out, record["mutate_s"] = timed(lambda: svc.mutate(
+        "store_sales", insert=insert, delete_mask=mask))
+    assert out["live_epoch"] == 2 and out["served_epoch"] == 0, out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    result, errors = {}, []
+
+    def refresh():
+        try:
+            result.update(svc.refresh())
+        except BaseException as e:      # raised below, in the phase
+            errors.append(e)
+
+    writer = threading.Thread(target=refresh)
+    writer.start()
+    pinned_reads(svc, first)
+    writer.join(1200)
+    assert not errors, errors
+    pinned_reads(svc, first)            # after the swap too
+    torch.cuda.synchronize()
+    assert result["path"] == "published" and result["epoch"] == 2, result
+    record["refresh"] = {k: result[k] for k in ("models", "build_s")}
+    record["peak_gib_two_snapshots"] = torch.cuda.max_memory_allocated() \
+        / 2**30
+    record["allocated_gib_two_snapshots"] = torch.cuda.memory_allocated() \
+        / 2**30
+    assert svc.stats()["snapshots"]["epochs"] == [0, 2]
+    _, fresh = fresh_graph(ExtractionEngine, Database, svc._db, model)
+    with svc._store.pin(2) as snap:
+        got = snap.engine.extract(model, auto_refresh=True)
+        assert graph_digests(got.graph) == graph_digests(fresh.graph), \
+            "the published epoch != a plain-path fresh extraction"
+    return fresh.graph.fingerprint()
+
+
+def service_http(svc, record):
+    """Phase 11's front end: ``make_server(svc, port=0)`` answers every
+    route once, and a 429 under a tight quota.  Returns the fingerprint
+    its refresh published."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.serving import TenantQuota
+    from serve_graphs_torch import make_server
+
+    a, b = SERVICE_TENANTS
+    server = make_server(svc, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+    url, times = f"http://{host}:{port}", []
+
+    def call(route, payload=None, tenant=a, want=200):
+        (status, headers, body), seconds = timed(
+            lambda: http(f"{url}{route}", payload, tenant))
+        assert status == want, f"{route}: {status} {body}"
+        times.append([route, status, seconds])
+        return headers, body
+
+    try:
+        assert call("/healthz")[1]["ok"]
+        ext = call("/v1/extract", {"model": "fraud_store"})[1]
+        assert ext["epoch"] == svc.stats()["served_epoch"]
+        pr = call("/v1/analyze", {"model": "fraud_store",
+                                  "algorithm": "pagerank", "params": {
+                                      "label": "Buy", "iters": PR_ITERS}})[1]
+        assert pr["fingerprint"] == ext["fingerprint"]
+        disc = call("/v1/discover", {"use_name_hints": False, "top": 5},
+                    tenant=b)[1]
+        assert disc["stats"]["all_compiled"] and len(disc["edges"]) == 5
+        n = int(svc._db.tables["item"]["rid"].max()) + 1
+        ids = list(range(n, n + ITEM_INSERT))
+        prices = np.random.default_rng(OJ_SEED).integers(1, 100, ITEM_INSERT)
+        out = call("/v1/mutate", {"table": "item", "insert": {
+            "rid": ids, "i_id": ids, "i_price": prices.tolist()}})[1]
+        assert out["live_epoch"] > out["served_epoch"]
+        pub = call("/v1/refresh", {})[1]
+        assert pub["path"] == "published", pub
+        svc._quotas.set_quota(b, TenantQuota(max_inflight=0))
+        headers, body = call("/v1/extract", {"model": "fraud_store"},
+                             tenant=b, want=429)
+        assert body["retryable"] and float(headers["Retry-After"]) > 0
+        svc._quotas.set_quota(b, TenantQuota())
+        last = call("/v1/extract", {"model": "fraud_store"})[1]
+        assert last["epoch"] == pub["epoch"]
+        assert last["fingerprint"] != ext["fingerprint"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+    record["http_s"] = times
+    return last["fingerprint"]
+
+
+def service_phase(torch, kops, ExtractionEngine):
+    """Phase 11: ``GraphService`` over a fresh JS-OJ database with a
+    ``durable_dir``: coalescing, the tenant cache, PageRank and discover,
+    a churn published while pinned readers read, the HTTP front end, and a
+    reopen that recovers the published graph.  Returns (launches,
+    record)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.database import Database
+    from repro_torch.data import fraud_model, make_tpcds
+    from repro_torch.serving import GraphService
+
+    model = fraud_model("store")
+    durable = Path(tempfile.mkdtemp(prefix="chip_smoke_service_"))
+    record = {}
+    try:
+        db = make_tpcds(sf=TPCDS_SF)
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        svc, record["open_s"] = timed(lambda: GraphService(
+            db, {"fraud_store": model}, max_workers=4,
+            durable_dir=str(durable)))
+        del db
+        try:
+            first = service_requests(svc, record)
+            published = service_publish(torch, ExtractionEngine, svc, model,
+                                        first, record)
+            assert svc.extract("fraud_store")["fingerprint"] == published
+            published = service_http(svc, record)
+        finally:
+            svc.close()
+        torch.cuda.synchronize()
+        counts = kops.launch_counts()
+        missing = [k for k in JOIN_KERNELS + ("segment_counts", "edge_spmv")
+                   if counts[k] == 0]
+        assert not missing, f"graph service: kernels never launched: " \
+            f"{missing}"
+        svc = None
+        torch.cuda.empty_cache()
+        svc, record["recovery_s"] = timed(lambda: GraphService(
+            Database(), {"fraud_store": model}, max_workers=4,
+            durable_dir=str(durable)))
+        try:
+            report = svc.recovery
+            assert report.path == "checkpoint", report.summary()
+            assert report.verified["fraud_store"] == published
+            got, record["recovered_extract_s"] = timed(
+                lambda: svc.extract("fraud_store"))
+            assert got["fingerprint"] == published
+            record["recovery"] = report.summary()
+        finally:
+            svc.close()
+        record["durable_dir_bytes"] = sum(
+            f.stat().st_size for f in durable.rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(durable, ignore_errors=True)
+    record["launches"] = {k: v for k, v in counts.items() if v}
+    log(f"graph service: {json.dumps(record)}")
+    log("  8 identical extracts ran once; tenant-cache repeats; epoch-0 "
+        "reads bit-identical during and after the publish; the published "
+        "graph == a plain-path fresh extraction; HTTP routes and a 429; "
+        "the reopen recovered the published fingerprint")
+    return counts, record
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1896,6 +2363,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "examples"))
     import numpy as np
 
     from repro_torch.api import ExtractionEngine
@@ -2030,6 +2498,14 @@ def main(argv=None) -> int:
     counts_oj_ref, counts_mv_ref, delta_counts = refresh_and_recovery(
         torch, kops, ref, ExtractionEngine)
 
+    # 10. discovery on anonymized JS-OJ and JS-MV data, cold then warm,
+    # against the plain path and the JAX package's constants
+    counts_disc, _ = discovery_phase(torch, kops, ExtractionEngine)
+
+    # 11. the graph service over a durable JS-OJ database, its HTTP front
+    # end, and a reopen that recovers what it published
+    counts_svc, _ = service_phase(torch, kops, ExtractionEngine)
+
     # the kernel phase: the kernel cases of 4-7 on untimed replays of the
     # paths, then every case's device time (a profiler session slows the
     # host's later launches, so it comes after every CUDA-event timing)
@@ -2070,13 +2546,23 @@ def main(argv=None) -> int:
     segment_cases += record_segment_calls(torch, kops, ref, graph_rows,
                                           "JS-MV", calls["segment_counts"])
     del calls
-    # phase 9's delta refreshes: every launch against its plain version,
-    # the largest and most frequent operands timed
+    # phase 9's delta refreshes and phase 10's discoveries: every launch
+    # against its plain version, the largest and most frequent operands
+    # timed
     refresh_cases = collections.defaultdict(list)
-    for path, calls in replay_refresh(torch, kops, ExtractionEngine,
-                                      delta_counts, counts_mv_ref).items():
-        where = (f"{path} delta refresh"
-                 + (f"es 1-{len(delta_counts)}" if path == "JS-OJ" else ""))
+
+    def replays():        # one path's recorded operands alive at a time
+        for path, calls in replay_refresh(torch, kops, ExtractionEngine,
+                                          delta_counts,
+                                          counts_mv_ref).items():
+            yield (f"{path} delta refresh"
+                   + (f"es 1-{len(delta_counts)}" if path == "JS-OJ"
+                      else ""), calls)
+        for path, calls in replay_discovery(torch, kops, ExtractionEngine,
+                                            counts_disc).items():
+            yield f"{path} discovery", calls
+
+    for where, calls in replays():
         check_every_call(torch, kops, ref, calls, where)
         refresh_cases["sorted_probe"] += record_sorted_probe_calls(
             torch, kops, ref, kernel_rows, calls["sorted_probe"], where)
@@ -2113,7 +2599,8 @@ def main(argv=None) -> int:
     by_path = {"js_oj": counts_oj, "js_mv": counts_mv,
                "js_oj_analytics": counts_oja, "js_mv_analytics": counts_mva,
                "lm_serve": counts_lm, "js_oj_refresh": counts_oj_ref,
-               "js_mv_refresh": counts_mv_ref}
+               "js_mv_refresh": counts_mv_ref, **counts_disc,
+               "graph_service": counts_svc}
     kernel_rows += graph_rows + flash_rows
     untimed = [(row["name"], case["shape"]) for row in kernel_rows
                for case in row["cases"] if case["device_ms"] is None]

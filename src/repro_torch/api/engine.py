@@ -43,6 +43,10 @@ content-addressed CSR cache, and runs one of
 :data:`repro_torch.graph.ALGORITHMS` over it; on the card the CSR build and
 the algorithms run on the ``segment_counts`` / ``edge_spmv`` /
 ``edge_min_label`` / ``frontier_expand`` CUDA kernels.
+
+**Discovery** — :meth:`ExtractionEngine.discover` profiles the database
+and proposes ranked graph models (:mod:`repro_torch.discovery`), with
+per-table profiles and whole results cached.
 """
 from __future__ import annotations
 
@@ -445,6 +449,13 @@ class ExtractionEngine:
     through :meth:`refresh`; ``refresh_threshold`` is the churn (touched
     rows over live rows of the model's query tables) above which a refresh
     re-extracts in full instead of propagating deltas.
+
+    ``persistent_cache`` (or the ``REPRO_COMPILATION_CACHE`` environment
+    variable) names the directory where the CUDA kernels are built and
+    found, so a restarted process loads them without ``nvcc``
+    (:func:`repro_torch.core.pipeline.enable_persistent_compilation_cache`);
+    with neither set, nothing changes and they build under
+    ``build/kernels/``.
     """
 
     def __init__(self, db: Database, max_plans: int = 128,
@@ -454,7 +465,14 @@ class ExtractionEngine:
                  auto_refresh: bool = False,
                  refresh_threshold: float = 0.1,
                  max_results: int = 16,
+                 persistent_cache: Optional[str] = None,
                  cache_byte_budgets: Optional[Dict[str, int]] = None):
+        # opt-in on-disk kernel cache: an explicit path, or (when None) the
+        # REPRO_COMPILATION_CACHE env var; absent both this is a no-op
+        from repro_torch.core.pipeline import (
+            enable_persistent_compilation_cache,
+        )
+        enable_persistent_compilation_cache(persistent_cache)
         self.db = db
         self.max_plans = max_plans
         self.max_views = max_views
@@ -485,6 +503,11 @@ class ExtractionEngine:
         self._csrs: "_LRUCache" = _cache(max_csrs, "csrs")
         # last materialized result per (model signature, method)
         self._results: "_LRUCache" = _cache(max_results, "results")
+        # schema discovery state: per-table column profiles keyed by stats
+        # fingerprint (survive unrelated churn), and whole discovery
+        # results keyed by (tables, their fingerprints, knobs)
+        self._profiles: "_LRUCache" = _LRUCache(64, name="profiles")
+        self._discoveries: "_LRUCache" = _LRUCache(8, name="discoveries")
         # request counters (cache_info "requests")
         self.request_stats: Dict[str, int] = collections.defaultdict(int)
 
@@ -508,6 +531,8 @@ class ExtractionEngine:
             self._views.clear()
             self._csrs.clear()
             self._results.clear()
+            self._profiles.clear()
+            self._discoveries.clear()
             if self._owns_compiler:
                 self.compiler.clear()
 
@@ -537,7 +562,9 @@ class ExtractionEngine:
                     "caches": {"plans": self._plans.info(),
                                "views": self._views.info(),
                                "csrs": self._csrs.info(),
-                               "results": self._results.info()},
+                               "results": self._results.info(),
+                               "profiles": self._profiles.info(),
+                               "discoveries": self._discoveries.info()},
                     "cache_bytes": {"plans": self._plans.bytes,
                                     "views": self._views.bytes,
                                     "csrs": self._csrs.bytes,
@@ -570,6 +597,8 @@ class ExtractionEngine:
             clone._views.seed(self._views)
             clone._csrs.seed(self._csrs)
             clone._results.seed(self._results)
+            clone._profiles.seed(self._profiles)
+            clone._discoveries.seed(self._discoveries)
             return clone
 
     def _table_fingerprint(self, table: str) -> Optional[Fingerprint]:
@@ -1232,6 +1261,64 @@ class ExtractionEngine:
                 rows_changed=rows_changed,
                 views_maintained=tuple(maintained),
                 csr_patched=csr_patched))
+
+    # -- schema discovery ----------------------------------------------------
+    def discover(self, tables: Optional[List[str]] = None, *,
+                 sample: int = 512, sketch_k: Optional[int] = None,
+                 key_threshold: float = 0.9, accept_threshold: float = 0.5,
+                 use_name_hints: bool = True, max_joins: int = 5,
+                 seed: int = 0):
+        """Profile the database and propose ranked :class:`GraphModel`
+        candidates (see :mod:`repro_torch.discovery`).
+
+        Two caches make a warm session cheap: per-table column profiles
+        are keyed by the table's stats fingerprint (so churn in one table
+        never re-sketches the others), and whole
+        :class:`~repro_torch.discovery.DiscoveryResult`\\ s are keyed by the
+        profiled tables' joint fingerprint plus every knob — a repeated
+        ``discover()`` on an unchanged catalog is a dictionary lookup, no
+        containment pipelines run.  Containment checks go through this
+        engine's :class:`PipelineCompiler` (on the card, the join kernels;
+        ``compiled=False`` falls back to the eager reference path).
+        """
+        from repro_torch.discovery import discover as run_discovery
+        from repro_torch.discovery.profile import SKETCH_K, profile_table
+        k = SKETCH_K if sketch_k is None else int(sketch_k)
+        with self._lock, obs.span("engine.discover") as sp:
+            self._count_request("discovers")
+            names = tuple(sorted(self.db.tables) if tables is None
+                          else sorted(set(tables)))
+            sp.set(tables=len(names))
+            dkey = (names, self.db.fingerprint(names), int(sample), k,
+                    float(key_threshold), float(accept_threshold),
+                    bool(use_name_hints), int(max_joins), int(seed))
+            cached = self._discoveries.get(dkey)
+            if cached is not None:
+                sp.set(cache_hit=True)
+                return cached
+            sp.set(cache_hit=False)
+
+            def profile_fn(name: str):
+                pkey = (name, self._table_fingerprint(name), k)
+                prof = self._profiles.get(pkey)
+                if prof is None:
+                    prof = profile_table(name, self.db.tables[name],
+                                         self.db.stats[name], k=k)
+                    self._profiles.put(pkey, prof)
+                return prof
+
+            with obs.span("profile", category="plan"):
+                profiles = {n: profile_fn(n) for n in names}
+            with obs.span("search", category="execute"):
+                result = run_discovery(
+                    self.db, names,
+                    compiler=self.compiler if self.compiled else None,
+                    sample=sample, sketch_k=k, key_threshold=key_threshold,
+                    accept_threshold=accept_threshold,
+                    use_name_hints=use_name_hints, max_joins=max_joins,
+                    seed=seed, profile_fn=profiles.__getitem__)
+            self._discoveries.put(dkey, result)
+            return result
 
     # -- analytics -----------------------------------------------------------
     def _csr_for(self, result: ExtractionResult, use_kernel: bool = False

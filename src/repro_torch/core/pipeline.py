@@ -28,9 +28,10 @@ operator-at-a-time extraction.  This module removes it:
   ``bloom`` semi-join prefilter kernels before the capacity expansion; on
   the CPU the wrappers take the plain versions.
 
-XLA's tiered compilation and persistent compilation cache have no
-counterpart here; their ``stats`` keys (``tiered``, ``reoptimized``) stay
-at 0.
+XLA's tiered compilation has no counterpart here; its ``stats`` keys
+(``tiered``, ``reoptimized``) stay at 0.  The counterpart of the JAX
+package's persistent compilation cache is the directory of the built
+kernel libraries (:func:`enable_persistent_compilation_cache`).
 
 Bag semantics are identical to the eager path: capacities only change
 padding, never the set of valid rows.
@@ -39,6 +40,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -52,6 +54,7 @@ from repro_torch.core.database import Database
 from repro_torch.core.executor import edge_output, qualified_cond, scan_table
 from repro_torch.core.jsoj import MergedQuery, shared_query
 from repro_torch.core.model import JoinQuery, join_schedule, query_signature
+from repro_torch.kernels import _build
 from repro_torch.kernels.ops import bloom_bits_for, resolve_use_kernel
 from repro_torch.relational import Table, dedup
 from repro_torch.relational.join import (
@@ -74,6 +77,49 @@ def clear_executable_cache() -> None:
     """Drop every built unit function (process-wide store)."""
     with _CACHE_LOCK:
         _EXECUTABLE_CACHE.clear()
+
+
+# Opt-in on-disk cache of what a cold start builds.  Unit functions are
+# Python closures and are rebuilt in microseconds; what a restarted process
+# would compile again is the CUDA kernels (``nvcc``, seconds each), so the
+# directory is where :mod:`repro_torch.kernels._build` writes and loads the
+# built ``.so`` files.  Enabled via the REPRO_COMPILATION_CACHE env var or
+# an explicit path (engine kwarg / GraphService), as in the JAX package.
+# Process-global because the kernel libraries are.
+PERSISTENT_CACHE_ENV = "REPRO_COMPILATION_CACHE"
+_PERSISTENT_CACHE_DIR: Optional[str] = None
+_PERSISTENT_CACHE_LOCK = threading.Lock()
+
+
+def enable_persistent_compilation_cache(
+        path: Optional[str] = None) -> Optional[str]:
+    """Point the kernel build directory at ``path`` (opt-in).
+
+    ``path`` defaults to the ``REPRO_COMPILATION_CACHE`` environment
+    variable; when neither is set this is a no-op returning ``None`` and
+    the kernels build under ``build/kernels/`` at the repository root.
+    Libraries already loaded stay loaded; the next one to load is built
+    into (or found in) ``path``.  Idempotent, and a later call with another
+    path re-points it; returns the directory in effect.
+    """
+    global _PERSISTENT_CACHE_DIR
+    path = path or os.environ.get(PERSISTENT_CACHE_ENV)
+    if not path:
+        return None
+    path = os.path.abspath(os.path.expanduser(path))
+    with _PERSISTENT_CACHE_LOCK:
+        if _PERSISTENT_CACHE_DIR == path:
+            return path
+        os.makedirs(path, exist_ok=True)
+        _build.set_build_dir(path)
+        _PERSISTENT_CACHE_DIR = path
+    return path
+
+
+def persistent_compilation_cache_dir() -> Optional[str]:
+    """The directory enabled via :func:`enable_persistent_compilation_cache`
+    (``None`` when the feature is off)."""
+    return _PERSISTENT_CACHE_DIR
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,10 +13,11 @@ Sites threaded through this package::
     wal.fsync            fsync failure after a fully-written record
     wal.rename           segment-seal / atomic-commit rename failure
     engine.cache_fill    engine-cache insert failure after a build
+    snapshot.publish     epoch publish failure (before the store moves)
+    scheduler.worker     a serving worker failing as it picks up a request
+    refresh.midflight    a refresh failing after its build, before publish
 
-The JAX package's serving layer adds ``snapshot.publish``,
-``scheduler.worker`` and ``refresh.midflight``; a plan naming them is
-accepted here and never fires.  Plans are the same JSON in both packages.
+Plans are the same JSON in both packages.
 
 Usage::
 

@@ -2,8 +2,10 @@
 
 Each source compiles on first use with ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface, under
-``build/kernels/`` at the repository root (listed in ``.gitignore``), and
-is loaded with :mod:`ctypes`.  The library name carries a hash of the
+``build/kernels/`` at the repository root (listed in ``.gitignore``) or
+the directory :func:`set_build_dir` names (the persistent compilation
+cache, ``repro_torch.core.pipeline.enable_persistent_compilation_cache``),
+and is loaded with :mod:`ctypes`.  The library name carries a hash of the
 source and the flags, so an edited source rebuilds and a stale library is
 never loaded.  :func:`build_all` starts one ``nvcc`` per source at once.
 
@@ -59,6 +61,22 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# guards the wrappers' launch counters (``fn.launches``): the serving layer
+# launches from several threads at once
+_COUNT_LOCK = threading.Lock()
+
+
+def set_build_dir(path) -> None:
+    """Build and load the libraries not yet loaded in ``path``."""
+    global BUILD_DIR
+    with _LOCK:
+        BUILD_DIR = Path(path)
+
+
+def count_launch(fn) -> None:
+    """Add one to wrapper ``fn``'s launch counter (thread-safe)."""
+    with _COUNT_LOCK:
+        fn.launches += 1
 
 
 def nvcc_path() -> str:

@@ -10,6 +10,7 @@ count as ``bloom_probe``'s.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -29,6 +30,7 @@ PROBE_BLOCKS_PER_SM = 2
 NULL_KEY = 2**31 - 1
 
 _SCRATCH: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_SCRATCH_LOCK = threading.Lock()
 
 
 def build_scratch(device, stream: int) -> torch.Tensor:
@@ -38,17 +40,21 @@ def build_scratch(device, stream: int) -> torch.Tensor:
     It is zeroed once, on that stream, when it is allocated, and every
     build leaves it zero, so a call needs no memset.  One per (device,
     stream): two builds in flight at once on two streams would OR into the
-    same words and share one ticket counter (``csrc/bloom.cu``).
+    same words and share one ticket counter (``csrc/bloom.cu``).  Made
+    under a lock: threads launching on one stream share its scratch (their
+    launches queue on that stream one after another), and none may drop
+    another's while a kernel of it may be in flight.
     """
     if not isinstance(device, torch.device):
         device = torch.device(device)
     if device.type == "cpu":
         raise ValueError("bloom_build: the scratch is for a card, not the CPU")
     key = (device, stream)
-    scratch = _SCRATCH.get(key)
-    if scratch is None:
-        scratch = _SCRATCH[key] = torch.zeros(
-            (SCRATCH_WORDS,), dtype=torch.int32, device=device)
+    with _SCRATCH_LOCK:
+        scratch = _SCRATCH.get(key)
+        if scratch is None:
+            scratch = _SCRATCH[key] = torch.zeros(
+                (SCRATCH_WORDS,), dtype=torch.int32, device=device)
     return scratch
 
 
@@ -88,7 +94,7 @@ def bloom_build(keys: torch.Tensor, valid: torch.Tensor, num_bits: int,
         scratch + 4 * (SCRATCH_WORDS - 1), bits.data_ptr(), n, num_bits,
         num_hashes, blocks, stream)
     _build.check(err, "bloom_build")
-    bloom_build.launches += 1
+    _build.count_launch(bloom_build)
     return bits
 
 
@@ -109,7 +115,7 @@ def _probe(bits: torch.Tensor, keys: torch.Tensor, num_hashes: int,
         bits.data_ptr(), keys.data_ptr(), out.data_ptr(), n, bits.shape[0],
         num_hashes, blocks, int(prune), _build.stream_ptr(dev))
     _build.check(err, what)
-    bloom_probe.launches += 1
+    _build.count_launch(bloom_probe)
     return out
 
 

@@ -110,7 +110,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ctypes.c_int64(0 if window is None else int(window)),
         ctypes.c_void_p(_build.stream_ptr(dev)))
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

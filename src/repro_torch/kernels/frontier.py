@@ -47,7 +47,7 @@ def frontier_expand(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
         visited.data_ptr(), out.data_ptr(), n_edges, n_front, num_vertices,
         blocks, _build.stream_ptr(dev))
     _build.check(err, "frontier_expand")
-    frontier_expand.launches += 1
+    _build.count_launch(frontier_expand)
     return out
 
 

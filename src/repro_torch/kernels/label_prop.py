@@ -48,7 +48,7 @@ def edge_min_label(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
         ctypes.c_int64(blocks), ctypes.c_int64(per_block),
         ctypes.c_void_p(_build.stream_ptr(dev)))
     _build.check(err, "edge_min_label")
-    edge_min_label.launches += 1
+    _build.count_launch(edge_min_label)
     return out
 
 

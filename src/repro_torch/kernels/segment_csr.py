@@ -43,7 +43,7 @@ def segment_counts(values: torch.Tensor, valid: torch.Tensor,
         values.data_ptr(), valid.data_ptr(), counts.data_ptr(), n,
         num_segments, blocks, _build.stream_ptr(dev))
     _build.check(err, "segment_counts")
-    segment_counts.launches += 1
+    _build.count_launch(segment_counts)
     return counts
 
 

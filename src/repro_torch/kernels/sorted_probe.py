@@ -65,7 +65,7 @@ def sorted_probe(sorted_keys: torch.Tensor, probe_keys: torch.Tensor):
         ctypes.c_int64(stride),
         ctypes.c_void_p(_build.stream_ptr(dev)))
     _build.check(err, "sorted_probe")
-    sorted_probe.launches += 1
+    _build.count_launch(sorted_probe)
     return lo, hi
 
 

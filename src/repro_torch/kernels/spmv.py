@@ -45,7 +45,7 @@ def edge_spmv(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
         ctypes.c_int64(blocks), ctypes.c_int64(per_block),
         ctypes.c_void_p(_build.stream_ptr(dev)))
     _build.check(err, "edge_spmv")
-    edge_spmv.launches += 1
+    _build.count_launch(edge_spmv)
     return y
 
 

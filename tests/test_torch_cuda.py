@@ -689,3 +689,66 @@ def test_cuda_lm_kernel_path_matches_plain_path(cuda, arch):
                                    atol=2.5e-2)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
     assert int(cache["pos"]) == 44
+
+
+THREADS, THREAD_CALLS = 8, 24
+
+
+def _join_kernels_in_thread(cuda, seed, scratches):
+    """One worker of the threaded test: THREAD_CALLS rounds of the join
+    kernels, each against its plain version, exact."""
+    from repro_torch.kernels import bloom as kbloom
+
+    rng = np.random.default_rng(seed)
+    dev = torch.empty(0, device=cuda).device     # with its index, as keys'
+    scratches.append(kbloom.build_scratch(dev, _build.stream_ptr(dev)))
+    for _ in range(THREAD_CALLS):
+        n = int(rng.integers(1, 60_000))
+        keys = _t(rng.integers(0, 1 << 18, n).astype(np.int32), cuda)
+        valid = _t(rng.random(n) < 0.8, cuda)
+        probe = _t(rng.integers(0, 1 << 18, n).astype(np.int32), cuda)
+        bits = kops.bloom_build(keys, valid, 4096)
+        assert torch.equal(bits, tref.bloom_build(keys, valid, 4096))
+        hit = tref.bloom_probe(bits, probe)
+        assert torch.equal(kops.bloom_probe(bits, probe), hit)
+        assert torch.equal(kops.bloom_prune_keys(bits, probe),
+                           torch.where(hit, probe,
+                                       torch.full_like(probe, NULL32)))
+        sk = torch.sort(keys).values
+        for got, want in zip(kops.sorted_probe(sk, probe),
+                             tref.sorted_probe(sk, probe)):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_join_kernels_from_eight_threads(cuda):
+    """Eight threads launch ``bloom_build``, ``bloom_probe`` (and its prune
+    mode) and ``sorted_probe`` at once on the current stream, as the graph
+    service's workers do: every call equals its plain version, all share
+    the stream's one Bloom-build scratch, and after the threads join each
+    wrapper's launch count is exactly the calls made."""
+    import threading
+
+    kops.reset_launch_counts()
+    errors, scratches = [], []
+
+    def worker(i):
+        try:
+            _join_kernels_in_thread(cuda, 100 + i, scratches)
+        except BaseException as e:       # re-raised below, in the test
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    torch.cuda.synchronize()
+    if errors:
+        raise errors[0]
+    assert len({s.data_ptr() for s in scratches}) == 1
+    counts = kops.launch_counts()
+    calls = THREADS * THREAD_CALLS
+    assert (counts["bloom_build"], counts["bloom_probe"],
+            counts["sorted_probe"]) == (calls, 2 * calls, calls)

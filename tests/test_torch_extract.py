@@ -197,11 +197,12 @@ def test_engine_cold_warm_matches_jax(dbs):
 
 def test_engine_rejects_unported_modes(dbs):
     td = dbs["tpcds"][1]
-    # auto_refresh is ported (tests/test_torch_incremental.py); schema
-    # discovery is not, and the engine has no stand-in for it
+    # auto_refresh and schema discovery are ported
+    # (tests/test_torch_incremental.py, tests/test_torch_discovery.py);
+    # methods the planner does not know are still refused
     engine = tapi.ExtractionEngine(td, auto_refresh=True)
     assert engine.auto_refresh
-    assert not hasattr(engine, "discover")
+    assert callable(engine.discover)
     with pytest.raises(ValueError, match="unknown method"):
         engine.extract(tdata.fraud_model("store"), method="sqlgraph")
     with pytest.raises(ValueError, match="planned methods"):

@@ -282,8 +282,9 @@ def test_cpu_tensors_never_launch():
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Every repro_torch module (the LM's models, configs and flash kernel
-    included) imports without jax and without repro."""
+    """Every repro_torch module (the LM's models, configs and flash kernel,
+    discovery and serving included) imports without jax and without
+    repro."""
     code = (
         "import pkgutil, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
@@ -293,7 +294,13 @@ def test_port_imports_no_jax_and_no_reference():
         "assert not bad, bad\n"
         "need = ['repro_torch.models.decode', 'repro_torch.models.layers',"
         " 'repro_torch.configs.registry', 'repro_torch.configs.qwen2_5_3b',"
-        " 'repro_torch.kernels.flash_attention']\n"
+        " 'repro_torch.kernels.flash_attention',"
+        " 'repro_torch.discovery.profile', 'repro_torch.discovery.infer',"
+        " 'repro_torch.discovery.synthesize',"
+        " 'repro_torch.discovery.evaluate',"
+        " 'repro_torch.discovery.orchestrate',"
+        " 'repro_torch.serving.quotas', 'repro_torch.serving.scheduler',"
+        " 'repro_torch.serving.snapshots', 'repro_torch.serving.service']\n"
         "assert all(n in sys.modules for n in need), need\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
