@@ -78,7 +78,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    in bf16 at the main path's shapes (qwen2.5-3b prefill B 4 x S 2048,
    16/2 heads, Dh 128, causal; gemma-2b Dh 256; h2o-danube-3-4b S 8192,
    Dh 120, window 4096) and at the edge cases (S 4096 wraps the K/V ring
-   of shared memory many times), to the reference test's
+   of shared memory many times), and at phase 8c's shapes (seamless's
+   encoder, B 4 x S 1,536, 16/16 heads, Dh 64, non-causal, and its
+   cross-attention, Sq 256 over Sk 1,536; recurrentgemma's MQA 16/1 at
+   Dh 256 under a 2,048 window; qwen3-moe's 64/4 and llama4-scout's 40/8
+   GQA, B 4 x S 2,048, causal), to the reference test's
    rtol = atol = 2e-2: the kernel rounds the probabilities to bf16 before
    P V, the plain version does not, and both round the output to bf16 once,
    so they may sit a bf16 ulp or two apart.  Timed like phase 3; its bound
@@ -90,7 +94,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
    greedy ``decode_step``s, with the flash kernel launched once per layer
    of the prefill.  Then the same prefill and first decode step on the
    plain attention path: the last logits and the first step's logits must
-   agree to ``LM_REL_TOL`` x std(logits) (see there).
+   agree to ``LM_REL_TOL`` x std(logits) (see there).  (c) The other
+   families at full width, one model at a time (freed before the next;
+   ``LM_FAMILIES``): recurrentgemma-9b whole (38 layers, 26 RG-LRU, 12
+   windowed MQA), qwen3-moe-235b-a22b cut to 4 of 94 layers (128
+   experts, top 8), llama4-scout-17b-a16e cut to 2 of 48 (16 experts,
+   top 1, a shared expert), xlstm-1.3b whole (42 mLSTM, 6 sLSTM layers)
+   and seamless-m4t-medium whole (12 encoder layers over frames (4, 1,536,
+   1,024) from numpy's seed, 12 decoder layers with cross-attention, a
+   256-token prompt): prefill of 4 prompts, 32 greedy decode steps, a
+   warm prefill, with every full-sequence attention (self, windowed, the
+   encoder's, cross) through the flash kernel: its launches must equal
+   the prefill's attentions (0 for xlstm) and none in the decode steps.
+   Logged per model: parameters, cold and warm prefill s, decode ms a
+   step and tokens/s, the decode step's weight-read bound (the bytes of
+   the parameters it must read over 3.35 TB/s; MoE: the experts this
+   run's tokens chose), peak memory.  Then the plain attention path as
+   in (b); for the MoE models the (token, k) routing choices that differ
+   between the paths are counted per layer, and the gate holds the rows
+   whose routing agreed in every layer (a near tie flips with the bf16
+   rounding of the attention, and that token's output moves by O(1)).
 
 9. Refresh and recovery.  (a) JS-OJ: ``fraud_model("store")`` on a fresh
    ``make_tpcds(sf=1000)``, extracted cold and warm, PageRank analysed so a
@@ -171,9 +194,10 @@ case's device time (``torch.profiler``, on operands rebuilt alike).  So no profi
 during a path's timed run, nor a profiler session before a CUDA-event
 timing: after one, the host's launches are slower.
 
-Launch counters are set to 0 just before each of phases 4–7 and 8b,
-before each refresh of phase 9, each discovery of phase 10 and phase 11,
-and read just after; every kernel of a path must have launched inside it.  The last
+Launch counters are set to 0 just before each of phases 4–7, 8b, each
+model of 8c, each refresh of phase 9, each discovery of phase 10 and
+phase 11, and read just after; every kernel of a path must have launched
+inside it.  The last
 lines are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
@@ -268,6 +292,15 @@ LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 32
 # on one side: 0.08, the max over 16k logits; over 4 x 151,936 it sits a
 # little further out.  A mask or indexing fault moves logits by O(1) x std.
 LM_REL_TOL = 0.25
+# phase 8c: (arch, num_layers after a depth cut or None, prompt length).
+# qwen3-moe (94 layers, ~470 GB of bf16) and llama4-scout (48, ~216 GB) do
+# not fit one 80 GB card: cut in depth, full width.  seamless's decoder
+# prompt is 256 tokens over 1,536 encoder frames.
+LM_FAMILIES = (("recurrentgemma-9b", None, 2048),
+               ("qwen3-moe-235b-a22b", 4, 2048),
+               ("llama4-scout-17b-a16e", 2, 2048),
+               ("xlstm-1.3b", None, 2048),
+               ("seamless-m4t-medium", None, 256))
 
 
 def log(*parts) -> None:
@@ -1438,8 +1471,9 @@ def flash_cases(torch, kops, ref):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
 
-    def case(label, b, s, hq, hkv, dh, window):
-        q, k, v = flash_qkv(torch, gen, b, s, s, hq, hkv, dh)
+    def case(label, b, s, hq, hkv, dh, window, sq=None, causal=True):
+        sq = s if sq is None else sq           # s is Sk
+        q, k, v = flash_qkv(torch, gen, b, sq, s, hq, hkv, dh)
         # the library yardstick: (B, H, S, Dh) copies with K/V expanded to
         # Hq heads, prepared outside the timing; a window needs a mask
         qt, kt, vt = (x.transpose(1, 2).repeat_interleave(hq // x.shape[2],
@@ -1454,14 +1488,16 @@ def flash_cases(torch, kops, ref):
         def library():
             if mask is None:
                 return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True)
+                                                      is_causal=causal)
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
-        pairs = attended_pairs(s, s, True, window)
+        pairs = attended_pairs(sq, s, causal, window)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         return (label,
-                lambda: kops.flash_attention(q, k, v, window=window),
-                lambda: ref.flash_attention(q, k, v, window=window),
+                lambda: kops.flash_attention(q, k, v, causal=causal,
+                                             window=window),
+                lambda: ref.flash_attention(q, k, v, causal=causal,
+                                            window=window),
                 library, nbytes, 4 * b * hq * dh * pairs, BF16_FLOPS_PER_S)
 
     return [case(f"{LM_ARCH} prefill B 4 S 2048 16/2 Dh 128 causal",
@@ -1469,7 +1505,19 @@ def flash_cases(torch, kops, ref):
             case("gemma-2b B 1 S 2048 8/1 Dh 256 causal",
                  1, 2048, 8, 1, 256, None),
             case("h2o-danube-3-4b B 1 S 8192 32/8 Dh 120 window 4096",
-                 1, 8192, 32, 8, 120, 4096)]
+                 1, 8192, 32, 8, 120, 4096),
+            # phase 8c's shapes (the MoE, recurrent and enc-dec families)
+            case("seamless encoder B 4 S 1536 16/16 Dh 64 non-causal",
+                 4, 1536, 16, 16, 64, None, causal=False),
+            case("seamless cross-attention B 4 Sq 256 Sk 1536 16/16 Dh 64 "
+                 "non-causal", 4, 1536, 16, 16, 64, None, sq=256,
+                 causal=False),
+            case("recurrentgemma B 4 S 2048 16/1 Dh 256 window 2048",
+                 4, 2048, 16, 1, 256, 2048),
+            case("qwen3-moe B 4 S 2048 64/4 Dh 128 causal",
+                 4, 2048, 64, 4, 128, None),
+            case("llama4-scout B 4 S 2048 40/8 Dh 128 causal",
+                 4, 2048, 40, 8, 128, None)]
 
 
 def serve_lm(torch, kops):
@@ -1561,6 +1609,214 @@ def serve_lm(torch, kops):
         "kernel_vs_plain": agree, "launches": counts}
     log(f"LM serve: {json.dumps(timing)}")
     return counts, timing
+
+
+def named_leaves(tree, prefix=""):
+    """(path, tensor) of every leaf, paths joined with '/'."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def decode_weight_bytes(params, cfg, routes):
+    """(bound bytes, bytes the step's code reads) of the parameters one
+    decode step must read: every decoder weight once, the head (the tied
+    embedding in full, else the head and B embedding rows); not the
+    encoder, nor cross-attention's wk/wv (their keys and values are
+    cached).  MoE experts: the bound counts the distinct experts this run's
+    tokens chose in each layer and step (``routes``: the (B, k) choices of
+    every MoE call, step by step), averaged over the steps; the static
+    capacity dispatch reads all of them."""
+    tied = "head" not in params
+    bound = reads = 0
+    for path, t in named_leaves(params):
+        nbytes = t.numel() * t.element_size()
+        name = path.rsplit("/", 1)[-1]
+        if path.startswith(("encoder/", "patch_proj")) or \
+                path.endswith(("xattn/wk", "xattn/wv")):
+            continue
+        if path == "embed" and not tied:
+            nbytes = LM_BATCH * t.shape[1] * t.element_size()
+        if cfg.moe is not None and "/ffn/" in path and \
+                name in ("w_gate", "w_up", "w_down"):
+            reads += nbytes
+            continue
+        bound += nbytes
+        reads += nbytes
+    if cfg.moe is not None:
+        per_expert = 3 * cfg.d_model * cfg.moe.d_expert * 2      # bf16
+        chosen = sum(int(r.unique().numel()) for r in routes)
+        bound += per_expert * chosen / LM_STEPS
+    return bound, reads
+
+
+def serve_family(torch, kops, arch, layers, prompt):
+    """Phase 8c, one model: ``prefill`` of LM_BATCH prompts through the
+    flash kernel, LM_STEPS greedy decode steps, a warm prefill; then the
+    prefill and the first (teacher-forced) decode step on the plain
+    attention path, held to LM_REL_TOL x std(logits)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.moe import recording_routes, route_changes
+
+    dev = torch.device("cuda")
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(
+        full, num_layers=layers)
+    t_start = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"LM family: {cfg.name} layers {cfg.num_layers} "
+        f"{cfg.layer_kinds()[:3]}... d_model {cfg.d_model} heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} Dh {cfg.head_dim} vocab "
+        f"{cfg.vocab_size}: {n_params} parameters in "
+        f"{time.perf_counter() - t_start:.2f} s")
+    if layers is not None:
+        log(f"  depth cut: num_layers {full.num_layers} -> {layers} "
+            f"(the whole model's ~{full.n_params() * 2 / 1e9:.0f} GB of "
+            f"bf16 does not fit one 80 GB card; widths unchanged)")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, prompt)).astype(np.int32)).to(dev)}
+    if cfg.frontend == "frames":
+        batch["frames"] = torch.from_numpy(rng.normal(size=(
+            LM_BATCH, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+        ).to(dev)
+    max_len = prompt + LM_STEPS
+    n_attn = sum(k in ("attn", "swa") for k in cfg.layer_kinds())
+    n_enc = cfg.encoder.num_layers if cfg.encoder is not None else 0
+    flash_calls = n_attn + n_enc + (n_attn if n_enc else 0)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    with recording_routes() as prefill_routes:
+        (logits, cache), prefill_s = timed(
+            lambda: prefill(params, cfg, batch, max_len))
+    prefill_launches = kops.launch_counts()["flash_attention"]
+    first_logits = logits
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    step_logits = []
+
+    def decode():
+        nonlocal cache, tok
+        for _ in range(LM_STEPS):
+            out, cache = decode_step(params, cfg, cache, tok)
+            step_logits.append(out)
+            tok = torch.argmax(out, dim=-1).to(torch.int32)
+
+    with recording_routes() as decode_routes:
+        _, decode_s = timed(decode)
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert prefill_launches == flash_calls, \
+        f"{cfg.name}: flash_attention launched {prefill_launches} times in " \
+        f"the prefill, want {flash_calls}"
+    assert counts["flash_attention"] == flash_calls, \
+        f"{cfg.name}: decode steps launched the flash kernel"
+    for out in [first_logits] + step_logits:
+        assert out.shape == (LM_BATCH, cfg.vocab_size)
+        assert out.dtype == torch.float32
+        assert bool(torch.isfinite(out).all()), f"{cfg.name}: non-finite"
+    assert int(cache["pos"]) == prompt + LM_STEPS
+    first_tok = torch.argmax(first_logits, dim=-1).to(torch.int32)
+    first_step = step_logits[0]
+    del cache
+    out, warm_prefill_s = timed(lambda: prefill(params, cfg, batch,
+                                                max_len))
+    del out
+    bound_bytes, read_bytes = decode_weight_bytes(params, cfg,
+                                                  decode_routes)
+    timing = {
+        "arch": cfg.name, "layers": cfg.num_layers,
+        "full_layers": full.num_layers, "parameters": n_params,
+        "batch": LM_BATCH, "prompt": prompt, "decode_steps": LM_STEPS,
+        "prefill_s": prefill_s, "prefill_s_warm": warm_prefill_s,
+        "prefill_tokens_per_s": LM_BATCH * prompt / warm_prefill_s,
+        "decode_ms_per_step": decode_s / LM_STEPS * 1e3,
+        "decode_tokens_per_s": LM_BATCH * LM_STEPS / decode_s,
+        "decode_weight_bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
+        "decode_weight_bound_bytes": bound_bytes,
+        "decode_weight_read_bytes": read_bytes,
+        "max_memory_allocated_gib": peak / 2**30,
+        "flash_launches": counts["flash_attention"]}
+    if flash_calls:
+        # the same prefill and first decode step on the plain attention
+        with recording_routes() as plain_routes:
+            (plain_logits, plain_cache), plain_prefill_s = timed(
+                lambda: prefill(params, cfg, batch, max_len,
+                                use_kernel=False))
+        with recording_routes() as plain_step_routes:
+            plain_step, _ = decode_step(params, cfg, plain_cache, first_tok)
+        del plain_cache
+        timing["plain_prefill_s"] = plain_prefill_s
+        rows = {w: torch.ones(LM_BATCH, dtype=torch.bool, device=dev)
+                for w in ("prefill", "step 1")}
+        if cfg.moe is not None:
+            # bf16 differences in the attention output move the fp32
+            # router logits; at a near tie a token takes another expert and
+            # its output moves by O(1), so the gate holds the positions
+            # whose routing agreed in every layer (the prefill's last, the
+            # teacher-forced step's)
+            changed, agree = route_changes(prefill_routes, plain_routes)
+            n_moe = len(plain_step_routes)
+            step_changed, step_agree = route_changes(
+                decode_routes[:n_moe], plain_step_routes)
+            rows["prefill"] = agree.reshape(LM_BATCH, prompt)[:, -1]
+            rows["step 1"] = step_agree
+            timing["routing_changes"] = {
+                "prefill_per_layer": changed, "step_1_per_layer":
+                step_changed, "choices_per_layer": agree.numel()
+                * cfg.moe.top_k,
+                "gated_rows": {w: int(r.sum()) for w, r in rows.items()}}
+        agree_out = {}
+        for what, got, want in (("prefill", first_logits, plain_logits),
+                                ("step 1", first_step, plain_step)):
+            r = rows[what]
+            assert bool(r.any()), f"{cfg.name} {what}: no row to compare"
+            rel_all = float((got - want).abs().max() / want.std())
+            rel = float((got[r] - want[r]).abs().max() / want.std())
+            same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            agree_out[what] = {"max_abs_over_std": rel,
+                               "max_abs_over_std_all_rows": rel_all,
+                               "argmax_agreement": same}
+            assert rel <= LM_REL_TOL, \
+                f"{cfg.name} {what}: kernel vs plain {rel:.4f} x std > " \
+                f"{LM_REL_TOL}"
+        timing["kernel_vs_plain"] = agree_out
+    else:
+        log(f"  {cfg.name} has no attention: no flash launch, no "
+            "kernel-vs-plain comparison")
+    timing["model_s"] = time.perf_counter() - t_start
+    log(f"LM family serve: {json.dumps(timing)}")
+    del params, first_logits, step_logits
+    return counts, timing
+
+
+def serve_families(torch, kops):
+    """Phase 8c: the MoE, recurrent and encoder-decoder families at full
+    width on one card, one after another (each freed before the next)."""
+    counts, timings = {}, []
+    for arch, layers, prompt in LM_FAMILIES:
+        c, t = serve_family(torch, kops, arch, layers, prompt)
+        counts[f"lm_serve_{arch}"] = c
+        timings.append(t)
+        torch.cuda.empty_cache()
+    return counts, timings
 
 
 @contextlib.contextmanager
@@ -2492,6 +2748,7 @@ def main(argv=None) -> int:
     flash_rows = check_flash_kernel(torch, kops, ref)
     counts_lm, _ = serve_lm(torch, kops)
     torch.cuda.empty_cache()
+    counts_families, _ = serve_families(torch, kops)
 
     # 9. refresh and recovery: JS-OJ rounds (delta, delta, full, noop) on a
     # durable database, JS-MV through its maintained view, then recovery
@@ -2598,7 +2855,8 @@ def main(argv=None) -> int:
 
     by_path = {"js_oj": counts_oj, "js_mv": counts_mv,
                "js_oj_analytics": counts_oja, "js_mv_analytics": counts_mva,
-               "lm_serve": counts_lm, "js_oj_refresh": counts_oj_ref,
+               "lm_serve": counts_lm, **counts_families,
+               "js_oj_refresh": counts_oj_ref,
                "js_mv_refresh": counts_mv_ref, **counts_disc,
                "graph_service": counts_svc}
     kernel_rows += graph_rows + flash_rows

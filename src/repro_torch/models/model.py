@@ -1,22 +1,24 @@
-"""The composable LM for the ``attn`` / ``swa`` layer kinds (dense, vlm).
+"""The composable LM: one builder for all 10 assigned architectures.
 
 The port of ``repro.models.model``.  ``num_layers`` is split into *cycles*
 of ``block_pattern`` (plus a tail if not divisible); per-cycle parameters
 are stacked along a leading axis, as in JAX, and a Python loop over that
 axis takes the place of ``lax.scan``.  The parameter tree has JAX's keys,
 dtypes and layouts, so :func:`params_from_jax` carries the JAX package's
-parameters across unchanged.
+parameters across unchanged.  Layer kinds: ``attn`` / ``swa``
+(attention), ``rglru``, ``mlstm``, ``slstm`` (``recurrent.py``); the FFN
+is a gated MLP or an MoE (``moe.py``); seamless-m4t's encoder
+(:func:`_encode`) feeds cross-attention in every decoder layer.
 
 Entry points:
   forward(params, cfg, batch)              full-sequence logits
   prefill(params, cfg, batch, max_len)     (in ``decode``) last logits, cache
   decode_step(params, cfg, cache, token)   (in ``decode``) one token
 
-On a CUDA tensor, self-attention over a whole sequence goes through the
+On a CUDA tensor every attention over a whole sequence (causal and
+windowed self-attention, the encoder's, cross-attention) goes through the
 hand-written flash kernel (``kernels.ops.flash_attention``); the CPU, and
-``use_kernel=False``, take the plain :func:`layers.attention`.  MoE
-(``moe.py``), the recurrent kinds (``recurrent.py``) and the encoder
-(``_encode``) are not ported yet and raise ``NotImplementedError``.
+``use_kernel=False``, take the plain :func:`layers.attention`.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models import moe
+from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     ACT_DTYPE,
@@ -43,31 +47,15 @@ from repro_torch.relational.table import resolve_device
 
 P = Dict[str, Any]
 
-_UNPORTED = ("{what} is not ported yet (ROADMAP.md §1, item 12: the LM "
-             "stack's moe.py, recurrent.py and the encoder); the port runs "
-             "the attn / swa layer kinds of the dense and vlm families")
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(_UNPORTED.format(what=f"{cfg.name}: MoE"))
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            _UNPORTED.format(what=f"{cfg.name}: the encoder"))
-    other = sorted({k for k in cfg.block_pattern if k not in ("attn", "swa")})
-    if other:
-        raise NotImplementedError(_UNPORTED.format(
-            what=f"{cfg.name}: layer kinds {other}"))
-
-
 @dataclasses.dataclass
 class ActSharding:
     """Activation sharding constraints of the JAX package (None = none).
 
     The port runs on one card, where every activation is whole; sharded
-    activations come with ``launch/`` (ROADMAP.md §1, item 12), and any
-    field set here raises ``NotImplementedError``.
+    activations and the expert-parallel MoE (``moe_mesh``) come with the
+    sharded slice (ROADMAP.md §1, item 13: ``launch/``,
+    ``moe_ffn_shard_map``), and any field set here raises
+    ``NotImplementedError``.
     """
 
     hidden: Any = None
@@ -83,8 +71,9 @@ class ActSharding:
 def check_unsharded(sh: Optional[ActSharding]) -> None:
     if sh is not None and any(dataclasses.astuple(sh)):
         raise NotImplementedError(
-            "sharded activations are not ported yet (ROADMAP.md §1, item "
-            "12: launch/); the port runs on one card")
+            "sharded activations and the expert-parallel MoE are not "
+            "ported yet (ROADMAP.md §1, item 13: launch/, "
+            "moe_ffn_shard_map); the port runs on one card")
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +95,8 @@ def _init_attn(gen, cfg: ArchConfig, device) -> P:
 
 
 def _init_ffn(gen, cfg: ArchConfig, device) -> P:
+    if cfg.moe is not None:
+        return moe.init_moe(gen, cfg.d_model, cfg.moe, device)
     if cfg.mlp == "none" or cfg.d_ff == 0:
         return {}
     return {
@@ -115,16 +106,35 @@ def _init_ffn(gen, cfg: ArchConfig, device) -> P:
     }
 
 
-def _init_layer(gen, kind: str, cfg: ArchConfig, device) -> P:
-    def norm():
-        return torch.zeros((cfg.d_model,), dtype=torch.float32,
-                           device=device)
+def _norm(cfg: ArchConfig, device) -> torch.Tensor:
+    return torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)
 
-    p: P = {"norm1": norm(), "attn": _init_attn(gen, cfg, device)}
+
+def _init_layer(gen, kind: str, cfg: ArchConfig, device) -> P:
+    p: P = {"norm1": _norm(cfg, device)}
+    if kind in ("attn", "swa"):
+        p["attn"] = _init_attn(gen, cfg, device)
+    elif kind == "rglru":
+        p["rglru"] = rec.init_rglru(gen, cfg.d_model, device)
+    elif kind == "mlstm":
+        p["mlstm"] = rec.init_mlstm(gen, cfg.d_model,
+                                    max(cfg.num_heads, 1), device)
+    elif kind == "slstm":
+        p["slstm"] = rec.init_slstm(gen, cfg.d_model, device)
+    else:
+        raise ValueError(kind)
     ffn = _init_ffn(gen, cfg, device)
     if ffn:
-        p["norm2"] = norm()
+        p["norm2"] = _norm(cfg, device)
         p["ffn"] = ffn
+    return p
+
+
+def _init_xlayer(gen, cfg: ArchConfig, device) -> P:
+    """Decoder layer with cross-attention (enc-dec archs)."""
+    p = _init_layer(gen, "attn", cfg, device)
+    p["norm_x"] = _norm(cfg, device)
+    p["xattn"] = _init_attn(gen, cfg, device)
     return p
 
 
@@ -156,34 +166,26 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     differ from ``jax.random``'s, so parity tests carry JAX's parameters
     across with :func:`params_from_jax`.  ``device="meta"`` allocates
     nothing and needs no generator (the counterpart of ``abstract_params``).
-    Cycles are written layer by layer into their stacked tensors, so the
-    peak is one layer above the parameters.
+    Stacked layers are written one by one into their stacked tensors, so
+    the peak is one layer above the parameters.
     """
-    check_supported(cfg)
     device = resolve_device(device)
     if generator is None and device.type != "meta":
         raise ValueError("init_params: a torch.Generator is required")
     pat = cfg.block_pattern
     n_cycles, tail = divmod(cfg.num_layers, len(pat))
 
-    def cycle():
-        return {f"s{j}_{kind}": _init_layer(generator, kind, cfg, device)
-                for j, kind in enumerate(pat)}
+    def layer(kind):
+        if cfg.encoder is not None and kind == "attn":
+            return _init_xlayer(generator, cfg, device)
+        return _init_layer(generator, kind, cfg, device)
 
-    cycles: P = {}
-    if n_cycles:
-        first = cycle()
-        cycles = _tree_map(lambda x: x.new_empty((n_cycles,) + x.shape),
-                           first)
-        for i in range(n_cycles):
-            _stack_into(cycles, i, first if i == 0 else cycle())
-        del first
-
+    cycles = _stacked(n_cycles, lambda: {
+        f"s{j}_{kind}": layer(kind) for j, kind in enumerate(pat)})
     params: P = {
         "embed": dense_init(generator, (cfg.vocab_size, cfg.d_model),
                             scale=0.02, device=device),
-        "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                  device=device),
+        "final_norm": _norm(cfg, device),
         "cycles": cycles,
     }
     for t in range(tail):
@@ -194,7 +196,25 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     if cfg.frontend == "patch":
         params["patch_proj"] = dense_init(
             generator, (cfg.d_model, cfg.d_model), device=device)
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "layers": _stacked(cfg.encoder.num_layers, lambda: _init_layer(
+                generator, "attn", cfg, device)),
+            "final_norm": _norm(cfg, device)}
     return params
+
+
+def _stacked(n: int, one: Callable[[], P]) -> P:
+    """``n`` trees from ``one()`` stacked on a new leading axis, written
+    one by one into their stacked tensors (the peak is one tree above
+    them); ``{}`` when ``n`` is 0."""
+    if not n:
+        return {}
+    first = one()
+    out = _tree_map(lambda x: x.new_empty((n,) + x.shape), first)
+    for i in range(n):
+        _stack_into(out, i, first if i == 0 else one())
+    return out
 
 
 def abstract_params(cfg: ArchConfig) -> P:
@@ -239,25 +259,45 @@ def _qkv(p: P, cfg: ArchConfig, x, positions):
             rope(k, positions, cfg.rope_theta), v)
 
 
-def _attn_apply(p: P, cfg: ArchConfig, x, positions, kind: str,
-                use_kernel: bool = False):
-    """Full-sequence causal self-attention block (cross-attention is the
-    encoder's, not ported).  Returns (out, (k, v)): the roped keys and the
-    values are what ``prefill`` writes into the cache.
+def _cross_kv(p: P, cfg: ArchConfig, src):
+    """Cross-attention keys and values of the encoder output (no bias, no
+    RoPE, as in JAX): (B, Sk, Hkv, Dh) each."""
+    b, sk, _ = src.shape
+    return ((src @ p["wk"]).reshape(b, sk, cfg.num_kv_heads, cfg.head_dim),
+            (src @ p["wv"]).reshape(b, sk, cfg.num_kv_heads, cfg.head_dim))
 
-    ``positions`` are ``arange(S)`` (``_embed``), which are exactly the
-    flash kernel's iota masks.
+
+def _attn_apply(p: P, cfg: ArchConfig, x, positions, kind: str,
+                use_kernel: bool = False, causal: bool = True, kv=None):
+    """Full-sequence attention block: self-attention, or cross-attention
+    (non-causal, no RoPE) over ``kv = (k, v)`` from :func:`_cross_kv`.
+    Returns (out, (k, v)): for self-attention the roped keys and the values
+    that ``prefill`` writes into the cache.
+
+    Query and key positions are ``arange`` (``_embed``, ``_encode``), which
+    are exactly the flash kernel's iota masks.
     """
     b, s, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, positions)
+    if kv is None:
+        q, k, v = _qkv(p, cfg, x, positions)
+        k_pos = positions
+    else:
+        q = x @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k, v = kv
+        causal = False
+        k_pos = torch.arange(k.shape[1], dtype=torch.int32,
+                             device=x.device).expand(b, k.shape[1])
     window = cfg.window if kind == "swa" else None
     if use_kernel:
-        out = kops.flash_attention(q, k, v, causal=True, window=window)
-    elif cfg.force_chunked_attn and s > 1:
-        out = chunked_attention(q, k, v, positions, positions, causal=True,
+        out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    elif cfg.force_chunked_attn and s > 1 and kv is None:
+        out = chunked_attention(q, k, v, positions, k_pos, causal=causal,
                                 window=window)
     else:
-        out = attention(q, k, v, positions, positions, causal=True,
+        out = attention(q, k, v, positions, k_pos, causal=causal,
                         window=window)
     return out.reshape(b, s, cfg.q_dim) @ p["wo"], (k, v)
 
@@ -265,19 +305,56 @@ def _attn_apply(p: P, cfg: ArchConfig, x, positions, kind: str,
 def _ffn_apply(p: P, cfg: ArchConfig, x):
     if "ffn" not in p:
         return None
-    return gated_mlp(rmsnorm(x, p["norm2"]), p["ffn"], cfg.mlp)
+    h = rmsnorm(x, p["norm2"])
+    if cfg.moe is not None:
+        lead = h.shape[:-1]
+        out = moe.moe_ffn(h.reshape(-1, h.shape[-1]), p["ffn"], cfg.moe)
+        return out.reshape(*lead, -1)
+    return gated_mlp(h, p["ffn"], cfg.mlp)
+
+
+def _mixer_seq(p: P, kind: str, cfg: ArchConfig, h, positions,
+               use_kernel: bool):
+    """A block's mixer over the normed sequence ``h``: (out, the layer's
+    cache entries at the end of the sequence).  The RG-LRU's conv state is
+    its last W - 1 inputs, ``h[:, -(W-1):] @ w_x`` (None for a shorter
+    sequence, whose cache the reference leaves malformed)."""
+    if kind in ("attn", "swa"):
+        out, (k, v) = _attn_apply(p["attn"], cfg, h, positions, kind,
+                                  use_kernel)
+        return out, {"k": k, "v": v}
+    if kind == "rglru":
+        out, h_last = rec.rglru_seq(p["rglru"], h)
+        w = rec.CONV_WIDTH - 1
+        conv = h[:, -w:] @ p["rglru"]["w_x"] if h.shape[1] >= w else None
+        return out, {"h": h_last, "conv": conv}
+    if kind == "mlstm":
+        out, (c, n) = rec.mlstm_seq(p["mlstm"], h, max(cfg.num_heads, 1))
+        return out, {"c": c, "n": n}
+    if kind == "slstm":
+        out, (c, n, m) = rec.slstm_seq(p["slstm"], h)
+        return out, {"c": c, "n": n, "m": m}
+    raise ValueError(kind)
 
 
 def _layer_seq(p: P, kind: str, cfg: ArchConfig, x, positions,
-               use_kernel: bool = False):
-    """One block, full sequence.  Returns (x, (k, v) of its attention)."""
+               use_kernel: bool = False, enc_out=None):
+    """One block, full sequence.  Returns (x, the layer's cache entries:
+    see :func:`_mixer_seq`, plus ``xk``/``xv`` with cross-attention)."""
     h = rmsnorm(x, p["norm1"])
-    mixed, kv = _attn_apply(p["attn"], cfg, h, positions, kind, use_kernel)
+    mixed, state = _mixer_seq(p, kind, cfg, h, positions, use_kernel)
     x = x + mixed
+    if "xattn" in p:                 # cross-attention (decoder of enc-dec)
+        xk, xv = _cross_kv(p["xattn"], cfg, enc_out)
+        hx = rmsnorm(x, p["norm_x"])
+        out, _ = _attn_apply(p["xattn"], cfg, hx, positions, "attn",
+                             use_kernel, kv=(xk, xv))
+        x = x + out
+        state.update(xk=xk, xv=xv)
     ffn = _ffn_apply(p, cfg, x)
     if ffn is not None:
         x = x + ffn
-    return x, kv
+    return x, state
 
 
 def _embed(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
@@ -325,19 +402,43 @@ def layers_of(params: P, cfg: ArchConfig):
         t += 1
 
 
+def _encode(params: P, cfg: ArchConfig, frames: torch.Tensor,
+            use_kernel: bool = False) -> torch.Tensor:
+    """Encoder stack over precomputed frame embeddings (B, S_src, D): the
+    audio frontend is a stub, as in JAX.  Non-causal self-attention."""
+    x = frames.to(ACT_DTYPE)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    enc = params["encoder"]
+    for i in range(enc["layers"]["norm1"].shape[0]):
+        lp = _take(enc["layers"], i)
+        h = rmsnorm(x, lp["norm1"])
+        out, _ = _attn_apply(lp["attn"], cfg, h, positions, "attn",
+                             use_kernel, causal=False)
+        x = x + out
+        ffn = _ffn_apply(lp, cfg, x)
+        if ffn is not None:
+            x = x + ffn
+    return rmsnorm(x, enc["final_norm"])
+
+
 def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             sh: Optional[ActSharding] = None,
             use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Full-sequence float32 logits (B, S, V).
 
-    ``use_kernel=None`` takes the flash kernel on a CUDA device and the
-    plain attention on the CPU (``kernels.ops.resolve_use_kernel``).  JAX's
-    ``remat`` is a training option and comes with training.
+    ``batch``: ``tokens`` (B, S) int, plus ``embeds`` (patch frontend) or
+    ``frames`` (B, S_src, D) (the encoder's input).  ``use_kernel=None``
+    takes the flash kernel on a CUDA device and the plain attention on the
+    CPU (``kernels.ops.resolve_use_kernel``).  JAX's ``remat`` is a
+    training option and comes with training.
     """
-    check_supported(cfg)
     check_unsharded(sh)
     x, positions = _embed(params, cfg, batch)
     use_kernel = kops.resolve_use_kernel(use_kernel, x.device)
+    enc_out = (_encode(params, cfg, batch["frames"], use_kernel)
+               if cfg.encoder is not None else None)
     for p, kind, _ in layers_of(params, cfg):
-        x, _ = _layer_seq(p, kind, cfg, x, positions, use_kernel)
+        x, _ = _layer_seq(p, kind, cfg, x, positions, use_kernel, enc_out)
     return logits_of(params, rmsnorm(x, params["final_norm"]))

@@ -1,0 +1,265 @@
+"""Recurrent mixers: RG-LRU (RecurrentGemma) and xLSTM (mLSTM / sLSTM).
+
+The port of ``repro.models.recurrent``, with its dtypes at every cast:
+bf16 projections, fp32 gates and states.  The linear RG-LRU recurrence
+runs as a log-depth doubling scan over the fp32 ``(a, b)`` pairs (JAX:
+``lax.associative_scan``, which combines them in another tree, so the two
+agree to fp32 rounding).  The nonlinear LSTM recurrences are Python loops
+over time with fp32 state (JAX: ``lax.scan``); everything that does not
+depend on the state (projections, gates) is computed for the whole
+sequence before the loop, and the loop body is the recurrence alone, in
+as few launches as its arithmetic allows.
+Every mixer also has a single-step form for decode with an O(1) state.
+The mLSTM step updates its ``(C, n)`` state tensors in place (a 16 MB
+``(B, H, 512, 512)`` matrix memory a layer at xlstm-1.3b's width).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init
+
+CONV_WIDTH = 4
+C_RGLRU = 8.0
+
+P = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU block (Griffin / RecurrentGemma)
+# ---------------------------------------------------------------------------
+
+def init_rglru(gen, d: int, device) -> P:
+    p = {name: dense_init(gen, (d, d), device=device)
+         for name in ("w_x", "w_y", "w_out")}
+    p["conv_w"] = dense_init(gen, (CONV_WIDTH, d), scale=0.5, device=device)
+    for name in ("w_input_gate", "w_rec_gate"):
+        p[name] = dense_init(gen, (d, d), device=device)
+    p["lam"] = uniform_init(gen, (d,), 1.0, 8.0, device)
+    return p
+
+
+def uniform_init(gen, shape, low: float, high: float, device):
+    """float32 U[low, high) from ``gen`` (nothing drawn on ``meta``)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    u = torch.rand(shape, generator=gen, dtype=torch.float32,
+                   device=gen.device)
+    return (low + (high - low) * u).to(device)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, width CONV_WIDTH.  x: (B,S,D), w: (W,D)."""
+    s = x.shape[1]
+    xp = F.pad(x, (0, 0, CONV_WIDTH - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(CONV_WIDTH):
+        out = out + xp[:, i: i + s].to(torch.float32) * w[i].to(
+            torch.float32)
+    return out.to(x.dtype)
+
+
+def _rglru_coeffs(p: P, xc: torch.Tensor):
+    """Per-step decay a_t and input b_t of h_t = a_t h_{t-1} + b_t."""
+    rg = torch.sigmoid((xc @ p["w_rec_gate"]).to(torch.float32))
+    ig = torch.sigmoid((xc @ p["w_input_gate"]).to(torch.float32))
+    log_a = -C_RGLRU * rg * F.softplus(p["lam"])
+    a = torch.exp(log_a)
+    gated_x = xc.to(torch.float32) * ig
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) \
+        * gated_x
+    return a, b
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along dim 1 from h_{-1} = 0: a doubling
+    (Hillis-Steele) scan of the pairs under (a1, b1) . (a2, b2) =
+    (a1 a2, a2 b1 + b2), in ceil(log2 S) steps."""
+    s = a.shape[1]
+    off = 1
+    while off < s:
+        b = torch.cat([b[:, :off], torch.addcmul(b[:, off:], a[:, off:],
+                                                 b[:, :-off])], dim=1)
+        if 2 * off < s:        # the last step needs no products of a
+            a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return b
+
+
+def rglru_seq(p: P, x: torch.Tensor, h0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence RG-LRU block.  x: (B,S,D) -> (out, h_last fp32)."""
+    y = F.gelu((x @ p["w_y"]).to(torch.float32), approximate="tanh")
+    xb = x @ p["w_x"]
+    xc = _causal_conv(xb, p["conv_w"])
+    a, b = _rglru_coeffs(p, xc)
+    if h0 is not None:
+        b = b.clone()
+        b[:, 0] += a[:, 0] * h0
+    h = linear_scan(a, b)
+    out = (h * y).to(x.dtype) @ p["w_out"]
+    return out, h[:, -1]
+
+
+def rglru_step(p: P, x: torch.Tensor, h: torch.Tensor,
+               conv_state: torch.Tensor):
+    """One decode step.  x: (B,D); h: (B,D) fp32; conv_state: (B,W-1,D).
+    Returns (out, h_new, new conv_state)."""
+    y = F.gelu((x @ p["w_y"]).to(torch.float32), approximate="tanh")
+    xb = x @ p["w_x"]
+    window = torch.cat([conv_state, xb[:, None, :]], dim=1)     # (B,W,D)
+    xc = torch.einsum("bwd,wd->bd", window.to(torch.float32),
+                      p["conv_w"].to(torch.float32)).to(x.dtype)
+    a, b = _rglru_coeffs(p, xc)
+    h_new = a * h + b
+    out = (h_new * y).to(x.dtype) @ p["w_out"]
+    return out, h_new, window[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (matrix-memory LSTM, xLSTM)
+# ---------------------------------------------------------------------------
+
+def init_mlstm(gen, d: int, num_heads: int, device) -> P:
+    p = {name: dense_init(gen, (d, d), device=device)
+         for name in ("w_q", "w_k", "w_v", "w_o")}
+    for name in ("w_i", "w_f"):
+        p[name] = dense_init(gen, (d, num_heads), dtype=torch.float32,
+                             device=device)
+    return p
+
+
+def _mlstm_gates(p: P, x: torch.Tensor, h: int):
+    """fp32 q, k / sqrt(Dh), v split into heads, and the input and forget
+    gates (B, [S,] H).  x: (B, [S,] D)."""
+    lead = x.shape[:-1]
+
+    def split(u):
+        return u.reshape(*lead, h, -1).to(torch.float32)
+
+    q, k, v = (split(x @ p[w]) for w in ("w_q", "w_k", "w_v"))
+    k = k / math.sqrt(k.shape[-1])
+    i = x.to(torch.float32) @ p["w_i"]
+    f = x.to(torch.float32) @ p["w_f"]
+    ig = torch.exp(i - F.softplus(i))             # stabilized exp gate
+    fg = torch.sigmoid(f)
+    return q, k, v, ig, fg
+
+
+def _mlstm_out(p: P, num, qn, x):
+    """num / max(|q . n|, 1), heads merged, through w_o."""
+    out = num / torch.clamp(torch.abs(qn), min=1.0)[..., None]
+    return out.reshape(*x.shape[:-1], -1).to(x.dtype) @ p["w_o"]
+
+
+def mlstm_seq(p: P, x: torch.Tensor, num_heads: int, state0=None):
+    """x: (B,S,D) -> (out, (C, n)).  C: (B,H,Dh,Dh), n: (B,H,Dh), fp32.
+
+    The memory carries n as one more column: with v' = [v, 1], one update
+    C' = f C' + (i k) v'^T is JAX's ``f C + i k v^T`` and ``f n + i k``
+    (the products i k and i k 1 are the same), and ``q^T C'`` gives both
+    ``q^T C`` and ``q . n``: three launches a step.  The denominators and
+    the output projection follow the loop.
+    """
+    bsz, s, d = x.shape
+    dh = d // num_heads
+    q, k, v, ig, fg = _mlstm_gates(p, x, num_heads)
+    mem = torch.zeros((bsz, num_heads, dh, dh + 1), dtype=torch.float32,
+                      device=x.device)
+    if state0 is not None:
+        mem[..., :dh] = state0[0]
+        mem[..., dh] = state0[1]
+
+    def time_major(u):
+        return u.transpose(0, 1).contiguous()
+
+    qt = time_major(q)[..., None, :]                      # (S,B,H,1,Dh)
+    vt = time_major(torch.cat([v, torch.ones_like(v[..., :1])], -1))
+    vt = vt[..., None, :]                                 # (S,B,H,1,Dh+1)
+    ikt = time_major(ig[..., None] * k)[..., None]        # (S,B,H,Dh,1)
+    ft = time_major(fg)[..., None, None]                  # (S,B,H,1,1)
+    outs = torch.empty((s, bsz, num_heads, 1, dh + 1), dtype=torch.float32,
+                       device=x.device)
+    for t in range(s):
+        mem.mul_(ft[t])
+        mem.addcmul_(ikt[t], vt[t])
+        torch.matmul(qt[t], mem, out=outs[t])
+    outs = outs[..., 0, :].transpose(0, 1)                # (B,S,H,Dh+1)
+    out = _mlstm_out(p, outs[..., :dh], outs[..., dh], x)
+    return out, (mem[..., :dh].contiguous(), mem[..., dh].contiguous())
+
+
+def mlstm_step(p: P, x: torch.Tensor, state, num_heads: int):
+    """One decode step.  x: (B,D); state (C, n) is updated in place and
+    returned."""
+    c, n = state
+    q, k, v, ig, fg = _mlstm_gates(p, x, num_heads)
+    ig, fg = ig[..., None], fg[..., None]
+    c.mul_(fg[..., None]).addcmul_((ig * k)[..., :, None], v[..., None, :])
+    n.mul_(fg).addcmul_(ig, k)
+    num = torch.matmul(q[..., None, :], c)[..., 0, :]
+    return _mlstm_out(p, num, (n * q).sum(-1), x), (c, n)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar-memory LSTM with stabilized exponential gating)
+# ---------------------------------------------------------------------------
+
+def init_slstm(gen, d: int, device) -> P:
+    p = {"w_z": dense_init(gen, (d, d), device=device)}
+    for name in ("w_i", "w_f", "w_o_gate"):
+        p[name] = dense_init(gen, (d, d), dtype=torch.float32, device=device)
+    p["w_out"] = dense_init(gen, (d, d), device=device)
+    return p
+
+
+def _slstm_inputs(p: P, x: torch.Tensor):
+    """z, i, f, o of every step (none depends on the state)."""
+    xf = x.to(torch.float32)
+    z = torch.tanh((x @ p["w_z"]).to(torch.float32))
+    o = torch.sigmoid(xf @ p["w_o_gate"])
+    return z, xf @ p["w_i"], xf @ p["w_f"], o
+
+
+def _slstm_update(zs, i_t, f_t, m, cn, out=None):
+    """One step of the stabilized recurrence on ``cn`` = stack(c, n), with
+    ``zs`` = stack(z, 1): ``f_s cn + i_s zs`` is JAX's ``f_s c + i_s z``
+    and ``f_s n + i_s``.  Returns (cn, m)."""
+    fm = f_t + m
+    m_new = torch.maximum(fm, i_t)                 # log-space stabilizer
+    i_s = torch.exp(i_t - m_new)
+    f_s = torch.exp(fm - m_new)
+    return torch.addcmul(f_s * cn, i_s, zs, out=out), m_new
+
+
+def slstm_seq(p: P, x: torch.Tensor, state0=None):
+    """x: (B,S,D) -> (out, (c, n, m)), fp32 states (B,D).  Eight launches
+    a step; h = o c / max(n, 1) follows the loop."""
+    bsz, s, d = x.shape
+    z, i, f, o = _slstm_inputs(p, x)
+    if state0 is None:
+        zero = torch.zeros((bsz, d), dtype=torch.float32, device=x.device)
+        state0 = (zero, zero, zero)
+    zs = torch.stack([z, torch.ones_like(z)]).permute(2, 0, 1, 3)
+    zs = zs.contiguous()                                  # (S,2,B,D)
+    i, f = (u.transpose(0, 1).contiguous() for u in (i, f))
+    cns = torch.empty((s, 2, bsz, d), dtype=torch.float32, device=x.device)
+    cn, m = torch.stack(state0[:2]), state0[2]
+    for t in range(s):
+        cn, m = _slstm_update(zs[t], i[t], f[t], m, cn, out=cns[t])
+    c, n = cns[:, 0].transpose(0, 1), cns[:, 1].transpose(0, 1)
+    out = (o * c / torch.clamp(n, min=1.0)).to(x.dtype) @ p["w_out"]
+    return out, (cn[0].clone(), cn[1].clone(), m)
+
+
+def slstm_step(p: P, x: torch.Tensor, state):
+    z, i, f, o = _slstm_inputs(p, x)
+    c, n, m = state
+    cn, m = _slstm_update(torch.stack([z, torch.ones_like(z)]), i, f, m,
+                          torch.stack([c, n]))
+    h = o * cn[0] / torch.clamp(cn[1], min=1.0)
+    return h.to(x.dtype) @ p["w_out"], (cn[0], cn[1], m)

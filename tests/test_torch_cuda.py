@@ -619,6 +619,17 @@ FLASH_SHAPES = [
     pytest.param(1, 100, 400, 2, 1, 128, True, None, id="sk>sq-causal"),
     # 32 key tiles: the K/V ring wraps many times
     pytest.param(1, 4096, 4096, 2, 1, 128, True, None, id="s4096-ring"),
+    # the MoE, recurrent and encoder-decoder families' prefill shapes
+    pytest.param(4, 1536, 1536, 16, 16, 64, False, None,
+                 id="seamless-encoder"),
+    pytest.param(4, 256, 1536, 16, 16, 64, False, None,
+                 id="seamless-cross"),
+    pytest.param(4, 2048, 2048, 16, 1, 256, True, 2048,
+                 id="recurrentgemma-window2048"),
+    pytest.param(4, 2048, 2048, 64, 4, 128, True, None, id="qwen3-moe"),
+    pytest.param(4, 2048, 2048, 40, 8, 128, True, None, id="llama4-scout"),
+    # cross-attention over a source shorter than the prompt
+    pytest.param(2, 300, 100, 4, 4, 64, False, None, id="sq>sk-non-causal"),
 ]
 
 
@@ -689,6 +700,92 @@ def test_cuda_lm_kernel_path_matches_plain_path(cuda, arch):
                                    atol=2.5e-2)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
     assert int(cache["pos"]) == 44
+
+
+FAMILIES = ["recurrentgemma-9b", "xlstm-1.3b", "seamless-m4t-medium",
+            "qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cuda_lm_family_kernel_path_matches_plain_path(cuda, arch):
+    """Each family's smoke model on the card: forward and prefill with
+    every full-sequence attention through the flash kernel (windowed MQA,
+    the encoder's, cross-attention), against the plain attention path,
+    then 4 teacher-forced decode steps on both caches.  An MoE token whose
+    routing differs between the paths (a near tie of its router logits,
+    moved by the bf16 rounding of the probabilities) is left out of the
+    comparison, and so are the later tokens of its row when the change
+    was in a layer before the last; at least 80% of the tokens remain."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.models.moe import recording_routes, route_changes
+
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    b, s = 2, 40
+    batch = {"tokens": _t(rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32), cuda)}
+    if cfg.frontend == "frames":
+        batch["frames"] = _t(rng.normal(size=(
+            b, cfg.frontend_len, cfg.d_model)).astype(np.float32), cuda)
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in ("attn", "swa") for k in kinds)
+    enc = cfg.encoder.num_layers if cfg.encoder else 0
+    calls = n_attn + enc + (n_attn if cfg.encoder else 0)
+
+    def routed_alike(fast_r, plain_r, shape):
+        """Positions (``shape``, row-major) to compare: their routing agreed
+        in every layer; and with ``shape`` (B, S), no earlier position of
+        the row changed its routing in a layer before the last, which moves
+        its keys and values in the later layers."""
+        if cfg.moe is None:
+            return torch.ones(shape, dtype=torch.bool, device=cuda), \
+                torch.zeros(shape[0], dtype=torch.bool, device=cuda)
+        each = [route_changes([f], [p])[1].reshape(shape)
+                for f, p in zip(fast_r, plain_r)]
+        ok = torch.stack(each).all(0)
+        early = ~torch.stack(each[:-1]).all(0)
+        if len(shape) == 2:
+            ok &= torch.cumsum(early.int(), dim=1) == 0
+            early = early.any(1)
+        return ok, early
+
+    before = kops.launch_counts()["flash_attention"]
+    with recording_routes() as fast_r:
+        fast = forward(params, cfg, batch)
+    assert kops.launch_counts()["flash_attention"] == before + calls
+    with recording_routes() as plain_r:
+        plain = forward(params, cfg, batch, use_kernel=False)
+    ok, _ = routed_alike(fast_r, plain_r, (b, s))
+    assert float(ok.float().mean()) >= 0.8
+    torch.testing.assert_close(fast[ok], plain[ok], rtol=2.5e-2,
+                               atol=2.5e-2)
+    with recording_routes() as fast_r:
+        logits, cache = prefill(params, cfg, batch, 48)
+    with recording_routes() as plain_r:
+        plain_logits, plain_cache = prefill(params, cfg, batch, 48,
+                                            use_kernel=False)
+    rows = routed_alike(fast_r, plain_r, (b, s))[0][:, -1]
+    assert bool(rows.any())
+    torch.testing.assert_close(logits[rows], plain_logits[rows],
+                               rtol=2.5e-2, atol=2.5e-2)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    for _ in range(4):
+        with recording_routes() as fast_r:
+            logits, cache = decode_step(params, cfg, cache, tok)
+        with recording_routes() as plain_r:
+            plain_logits, plain_cache = decode_step(params, cfg,
+                                                    plain_cache, tok)
+        same, early = routed_alike(fast_r, plain_r, (b,))
+        assert torch.isfinite(logits).all()
+        torch.testing.assert_close(logits[rows & same],
+                                   plain_logits[rows & same], rtol=2.5e-2,
+                                   atol=2.5e-2)
+        rows &= ~early
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    assert int(cache["pos"]) == s + 4
 
 
 THREADS, THREAD_CALLS = 8, 24

@@ -282,9 +282,9 @@ def test_cpu_tensors_never_launch():
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Every repro_torch module (the LM's models, configs and flash kernel,
-    discovery and serving included) imports without jax and without
-    repro."""
+    """Every repro_torch module (the LM's models with MoE and the recurrent
+    mixers, configs and flash kernel, discovery and serving included)
+    imports without jax and without repro."""
     code = (
         "import pkgutil, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
@@ -293,6 +293,7 @@ def test_port_imports_no_jax_and_no_reference():
         " or n == 'repro' or n.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "need = ['repro_torch.models.decode', 'repro_torch.models.layers',"
+        " 'repro_torch.models.moe', 'repro_torch.models.recurrent',"
         " 'repro_torch.configs.registry', 'repro_torch.configs.qwen2_5_3b',"
         " 'repro_torch.kernels.flash_attention',"
         " 'repro_torch.discovery.profile', 'repro_torch.discovery.infer',"
