@@ -179,6 +179,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and the peak device memory with two live snapshots.  Its worker
    threads overlap, so the phase only requires every join kernel,
    ``segment_counts`` and ``edge_spmv`` to launch.
+12. Training.  (a) The data plane: ``make_dblp(scale=36)`` extracted and
+   its CSR built on the card (the join kernels and ``segment_counts``):
+   151,200 vertices, within qwen2.5-3b's vocabulary.  (b)
+   ``GraphWalkPipeline`` over Co-auth feeds qwen2.5-3b at its published
+   width (3.09 B parameters), B 2 x S 2,048, ``remat``, AdamW, the plain
+   attention (no flash launch): a warm-up step, two steps on fresh
+   batches, three timed steps on one batch, whose loss must fall; every
+   loss finite; step ms, tokens/s, the share of the model-FLOP bound and
+   the peak memory are logged; the same step from the same parameters
+   and batch twice must give the same loss (``TRAIN_REPEAT_RTOL``).  (c)
+   ``run_with_recovery`` at qwen2.5-3b smoke size with a failure at step
+   9 of 12 (checkpoints every 4, in a directory that is removed): the
+   losses after the restart and the final parameters equal a clean run's
+   (rtol 1e-4).  (d) The trained parameters serve a prompt from the
+   pipeline: ``prefill`` through the flash kernel (one launch a layer)
+   and 8 greedy ``decode_step``s, every logit finite.  (e) Last of all,
+   after every other timing, one more step under ``torch.profiler``: its
+   device time by kernel name and its busy share.
 
 The phases run in their order, each kernel case checked and timed with
 CUDA events where it stands.  Then a kernel phase: the kernel cases of 4-7
@@ -195,9 +213,9 @@ during a path's timed run, nor a profiler session before a CUDA-event
 timing: after one, the host's launches are slower.
 
 Launch counters are set to 0 just before each of phases 4–7, 8b, each
-model of 8c, each refresh of phase 9, each discovery of phase 10 and
-phase 11, and read just after; every kernel of a path must have launched
-inside it.  The last
+model of 8c, each refresh of phase 9, each discovery of phase 10,
+phase 11 and 12's data plane, training and serving, and read just after;
+every kernel of a path must have launched inside it.  The last
 lines are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
@@ -301,6 +319,22 @@ LM_FAMILIES = (("recurrentgemma-9b", None, 2048),
                ("llama4-scout-17b-a16e", 2, 2048),
                ("xlstm-1.3b", None, 2048),
                ("seamless-m4t-medium", None, 256))
+# phase 12: train qwen2.5-3b at its published width on random walks over
+# the port's own extraction of make_dblp(scale=36), Co-auth: 4,200 x 36 =
+# 151,200 vertices, within the vocabulary (151,936), so no walk starts
+# outside it (ROADMAP.md §3: a first token past the vocabulary embeds as
+# NaN in both packages).
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_DBLP_SCALE = 36
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_FRESH, TRAIN_TIMED = 2, 2048, 2, 3
+# The same step from the same parameters and batch twice: the forward runs
+# the same kernels on the same operands in the same order, and cuBLAS's
+# GEMMs repeat bit for bit on one card; a float32 sum that split its work
+# otherwise would move the loss (~12) by a few ulps, far below this.
+TRAIN_REPEAT_RTOL = 1e-6
+TRAIN_SERVE_STEPS = 8
+# the recovery drill at smoke size (tests/test_fault_tolerance.py's)
+RECOVERY_STEPS, RECOVERY_EVERY, RECOVERY_FAIL = 12, 4, 9
 
 
 def log(*parts) -> None:
@@ -1819,6 +1853,315 @@ def serve_families(torch, kops):
     return counts, timings
 
 
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step (forward and backward, the
+    recompute not counted): 6 N T for the weights, and 6 L S Hq Dh T for
+    causal attention's two products (half the S x S pairs, times 2 FLOPs
+    a multiply-add, times 3 for forward and backward)."""
+    tokens = batch * seq
+    return 6.0 * n_params * tokens + 6.0 * cfg.num_layers * seq * \
+        cfg.num_heads * cfg.head_dim * tokens
+
+
+def train_lm(torch, kops):
+    """Phase 12: the data plane feeds the compute plane.  The port extracts
+    make_dblp(scale=TRAIN_DBLP_SCALE) and builds its CSR on the card (the
+    join kernels and ``segment_counts``), ``GraphWalkPipeline`` turns the
+    Co-auth CSR into token batches, and qwen2.5-3b at its published width
+    takes AdamW steps with ``remat`` (the plain attention, as the JAX
+    package's ``forward``: no flash kernel launches).  One warm-up step on
+    the pipeline's batch 0, TRAIN_FRESH steps on fresh batches (their
+    losses and the share of their labels that earlier batches held are
+    printed: a fresh batch of walks hardly repeats the tokens of the
+    batches before it, so a few steps need not lower its loss), then
+    TRAIN_TIMED timed steps (host clock, each ending in a synchronize),
+    each on the pipeline's batch 1: the loss must fall over them, which
+    shows that the step learns.  Every step is timed and printed.
+    Then the same step twice from the same parameters and batch; then the
+    trained parameters serve a prompt from the pipeline through the flash
+    kernel.  Returns ({path: launch counts}, a record)."""
+    import numpy as np
+
+    from repro_torch.api import ExtractionEngine
+    from repro_torch.configs import get_config
+    from repro_torch.data import dblp_model, make_dblp
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.training.data import GraphWalkPipeline
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import (TrainStepConfig,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves
+
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    counts = {}
+
+    # the data plane: extraction and the CSR on the card
+    t0 = time.perf_counter()
+    db = make_dblp(scale=TRAIN_DBLP_SCALE)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    csr = ExtractionEngine(db).extract(dblp_model()).graph_view(
+        use_kernel=True)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    counts["lm_train_data"] = kops.launch_counts()
+    missing = [k for k in JOIN_KERNELS + ("segment_counts",)
+               if counts["lm_train_data"][k] == 0]
+    assert not missing, f"train data plane: never launched {missing}"
+    assert csr.num_vertices <= cfg.vocab_size, \
+        f"{csr.num_vertices} vertices > vocabulary {cfg.vocab_size}"
+    pipe = GraphWalkPipeline(csr=csr, label="Co-auth", batch=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ, vocab_size=cfg.vocab_size)
+    log(f"LM train data: make_dblp(scale={TRAIN_DBLP_SCALE}) {make_s:.2f} s;"
+        f" extract + CSR {data_s:.2f} s: {csr.num_vertices} vertices "
+        f"(vocabulary {cfg.vocab_size}), {csr.edge_counts}; launches "
+        f"{counts['lm_train_data']}")
+    del db, csr
+    torch.cuda.empty_cache()
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch_at(i).items()}
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    opt = AdamW()
+    state = opt.init(params)
+    n_params = sum(p.numel() for p in leaves(params))
+    step_fn = make_train_step(cfg, opt, TrainStepConfig(microbatches=1,
+                                                        remat=True))
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    # batch 0 warms up, batches 2.. are fresh, batch 1 is taken
+    # TRAIN_TIMED times
+    order = [0] + list(range(2, 2 + TRAIN_FRESH)) + [1] * TRAIN_TIMED
+    seen, losses, step_ms, fresh = set(), [], [], []
+    for n, i in enumerate(order):
+        host_batch = pipe.batch_at(i)
+        labels = host_batch["labels"].ravel()
+        repeats = float(np.isin(labels, list(seen)).mean()) if seen else 0.0
+        seen.update(labels.tolist())
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        what = ("warm-up" if n == 0 else "fresh" if n <= TRAIN_FRESH
+                else "timed")
+        if what == "fresh":
+            fresh.append({"batch": i, "loss": loss,
+                          "labels_seen_before": repeats})
+        log(f"  train step {n} ({what}, batch {i}): loss {loss:.6f}, "
+            f"{step_ms[-1]:.1f} ms; labels seen in earlier batches "
+            f"{repeats:.4f}")
+    peak = torch.cuda.max_memory_allocated()
+    counts["lm_train"] = kops.launch_counts()
+    assert all(np.isfinite(losses)), f"non-finite loss: {losses}"
+    timed_losses = losses[-TRAIN_TIMED:]
+    assert timed_losses[-1] < timed_losses[0], \
+        f"loss did not fall over the timed steps: {timed_losses}"
+    assert counts["lm_train"]["flash_attention"] == 0, \
+        "the train step launched the flash kernel"
+
+    # the same step twice from the same parameters and batch
+    batch = batch_at(2 + TRAIN_FRESH)
+    saved = [p.clone() for p in leaves(params)]
+    params, state, metrics = step_fn(params, state, batch)
+    first = float(metrics["loss"])
+    for p, s in zip(leaves(params), saved):
+        p.copy_(s)
+    del saved
+    params, state, metrics = step_fn(params, state, batch)
+    again = float(metrics["loss"])
+    assert np.isfinite(first) and abs(again - first) <= \
+        TRAIN_REPEAT_RTOL * abs(first), \
+        f"the same step gave losses {first!r} and {again!r}"
+    timed = step_ms[-TRAIN_TIMED:]
+    mean_ms = sum(timed) / len(timed)
+    record = {
+        "arch": cfg.name, "params": n_params, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "remat": True, "optimizer": "AdamW",
+        "losses": losses, "warmup_ms": step_ms[0],
+        "fresh_ms": step_ms[1:1 + TRAIN_FRESH], "fresh": fresh,
+        "step_ms": timed,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (mean_ms / 1e3),
+        "model_flops": flops, "bound_ms": bound_ms,
+        "share_of_bound": bound_ms / mean_ms,
+        "max_memory_allocated_gib": peak / 2**30,
+        "repeat_losses": [first, again]}
+    log(f"LM train: {cfg.name} {n_params} parameters, B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ}, remat, AdamW: steps {[round(t, 1) for t in timed]} "
+        f"ms (mean {mean_ms:.1f}), {record['tokens_per_s']:.0f} tokens/s, "
+        f"bound {bound_ms:.1f} ms ({flops:.3e} model FLOPs at 989 TFLOP/s):"
+        f" {record['share_of_bound']:.3f} of it; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; losses {losses}; the same step twice "
+        f"{first!r} {again!r}")
+    del state
+    torch.cuda.empty_cache()
+
+    # serve what was trained: a prompt from the pipeline, flash kernel on
+    prompt = batch_at(3 + TRAIN_FRESH)
+    kops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, {"tokens": prompt["tokens"]},
+                            TRAIN_SEQ + TRAIN_SERVE_STEPS)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    outs = [logits]
+    for _ in range(TRAIN_SERVE_STEPS):
+        logits, cache = decode_step(params, cfg, cache, tok)
+        outs.append(logits)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts["lm_train_serve"] = kops.launch_counts()
+    assert counts["lm_train_serve"]["flash_attention"] == cfg.num_layers, \
+        f"the prefill launched {counts['lm_train_serve']} kernels"
+    for out in outs:
+        assert out.shape == (TRAIN_BATCH, cfg.vocab_size)
+        assert bool(torch.isfinite(out).all()), "non-finite served logits"
+    assert int(cache["pos"]) == TRAIN_SEQ + TRAIN_SERVE_STEPS
+    record["serve_s"] = serve_s
+    log(f"LM train -> serve: prefill {TRAIN_BATCH} x {TRAIN_SEQ} + "
+        f"{TRAIN_SERVE_STEPS} decode steps of the trained parameters in "
+        f"{serve_s:.3f} s; launches {counts['lm_train_serve']}")
+    del params, cache, outs
+    torch.cuda.empty_cache()
+    return counts, record
+
+
+TRACE_BUCKETS = (("float32 GEMM (the plain attention's einsums)",
+                  ("gemm_f32f32",)),
+                 ("bf16 GEMM", ("gemm", "xmma", "nvjet", "cutlass")),
+                 ("softmax", ("softmax",)),
+                 ("reductions", ("reduce",)),
+                 ("elementwise and copies", ("elementwise", "vectorized",
+                                             "copy", "fill", "memcpy",
+                                             "memset", "cat", "index",
+                                             "gather", "scatter")))
+
+
+def profile_train_step(torch):
+    """Phase 12's step once more, under ``torch.profiler``, after every
+    other timing (a profiler session slows the host's later launches):
+    qwen2.5-3b, B 2 x S 2,048 of seeded tokens, remat, AdamW, after one
+    warm-up step.  Logs the step's wall ms, the device time the profiler
+    records (busy share = device ms / wall ms), the device time in buckets
+    by kernel name, and the ten kernels that take the most."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import (TrainStepConfig,
+                                                 make_train_step)
+
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    opt = AdamW()
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, TrainStepConfig(remat=True))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = {k: torch.from_numpy(v.astype(np.int32)).to(dev)
+             for k, v in batch.items()}
+    params, state, _ = step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    assert np.isfinite(float(metrics["loss"]))
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(ms for _, ms, _ in kernels)
+    assert device_ms > 0, "the profiler recorded no device time"
+    buckets = collections.Counter()
+    for key, ms, _ in kernels:
+        name = key.lower()
+        bucket = next((b for b, pats in TRACE_BUCKETS
+                       if any(p in name for p in pats)), "other")
+        buckets[bucket] += ms
+    record = {"wall_ms": wall_ms, "device_ms": device_ms,
+              "busy_share": device_ms / wall_ms,
+              "buckets_ms": dict(buckets.most_common()),
+              "top": [(key[:80], ms, n) for key, ms, n in
+                      sorted(kernels, key=lambda k: -k[1])[:10]]}
+    log(f"LM train step traced: {json.dumps(record)}")
+    del params, state
+    torch.cuda.empty_cache()
+    return record
+
+
+def recovery_drill(torch):
+    """Phase 12, smoke size: ``run_with_recovery`` with a failure at step
+    RECOVERY_FAIL, checkpoints every RECOVERY_EVERY steps, against a clean
+    run: losses after the restart and the final parameters to rtol 1e-4
+    (``tests/test_fault_tolerance.py``).  Checkpoints go to a temporary
+    directory that is removed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.training.data import TokenPipeline
+    from repro_torch.training.trainer import (FailureInjector,
+                                              TrainerConfig, run_training,
+                                              run_with_recovery)
+    from repro_torch.training.tree import leaves
+
+    cfg = get_smoke_config(TRAIN_ARCH)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=2, seq_len=16,
+                         seed=3)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        clean = run_training(cfg, TrainerConfig(
+            steps=RECOVERY_STEPS, ckpt_every=RECOVERY_EVERY,
+            ckpt_dir=f"{tmp}/clean"), pipe)
+        rec = run_with_recovery(cfg, TrainerConfig(
+            steps=RECOVERY_STEPS, ckpt_every=RECOVERY_EVERY,
+            ckpt_dir=f"{tmp}/failed"), pipe,
+            FailureInjector(fail_at_step=RECOVERY_FAIL))
+        drill_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert rec["restarts"] == 1
+    resumed = RECOVERY_FAIL - RECOVERY_FAIL % RECOVERY_EVERY
+    for step in range(resumed, RECOVERY_STEPS):
+        np.testing.assert_allclose(rec["losses_by_step"][step],
+                                   clean["losses"][step], rtol=1e-4,
+                                   err_msg=f"step {step} after recovery")
+    for a, b in zip(leaves(clean["final_params"]),
+                    leaves(rec["final_params"])):
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   b.float().cpu().numpy(), rtol=1e-4)
+    log(f"LM train recovery ({cfg.name}): failure at step {RECOVERY_FAIL}, "
+        f"restart from step {resumed}; losses after it and final "
+        f"parameters == the clean run's (rtol 1e-4); {drill_s:.2f} s for "
+        f"both runs")
+    return {"drill_s": drill_s, "restarts": rec["restarts"]}
+
+
 @contextlib.contextmanager
 def fold_timer():
     """Sums the seconds of the engine's host fold (``apply_table_delta``,
@@ -2763,6 +3106,11 @@ def main(argv=None) -> int:
     # end, and a reopen that recovers what it published
     counts_svc, _ = service_phase(torch, kops, ExtractionEngine)
 
+    # 12. training: qwen2.5-3b at full width on DBLP walks, the recovery
+    # drill at smoke size, then serving the trained parameters
+    counts_train, _ = train_lm(torch, kops)
+    recovery_drill(torch)
+
     # the kernel phase: the kernel cases of 4-7 on untimed replays of the
     # paths, then every case's device time (a profiler session slows the
     # host's later launches, so it comes after every CUDA-event timing)
@@ -2852,13 +3200,14 @@ def main(argv=None) -> int:
     del bloom_cases, probe_cases, probe_pairs, segment_cases, \
         frontier_cases, refresh_cases, tpcds, dblp, oj_csr, mv_csr
     torch.cuda.empty_cache()
+    profile_train_step(torch)
 
     by_path = {"js_oj": counts_oj, "js_mv": counts_mv,
                "js_oj_analytics": counts_oja, "js_mv_analytics": counts_mva,
                "lm_serve": counts_lm, **counts_families,
                "js_oj_refresh": counts_oj_ref,
                "js_mv_refresh": counts_mv_ref, **counts_disc,
-               "graph_service": counts_svc}
+               "graph_service": counts_svc, **counts_train}
     kernel_rows += graph_rows + flash_rows
     untimed = [(row["name"], case["shape"]) for row in kernel_rows
                for case in row["cases"] if case["device_ms"] is None]

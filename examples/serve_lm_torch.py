@@ -1,7 +1,8 @@
 """Serving example on the PyTorch/CUDA port: prefill + batched greedy decode.
 
 The port's counterpart of ``serve_lm.py``: random weights from a seeded
-``torch.Generator`` (no checkpoint restore yet), a batch of prompts from
+``torch.Generator``, or with ``--ckpt DIR`` the parameters of the latest
+checkpoint that ``train_lm_torch.py`` wrote there, a batch of prompts from
 numpy's seed, ``prefill`` through the hand-written flash-attention kernel on
 the card, then greedy ``decode_step``s against the cache.  Every ``--arch``
 of ``repro_torch.configs.ARCH_IDS`` serves; an encoder-decoder one
@@ -15,6 +16,8 @@ frontend_len, d_model), from numpy's seed as well.
         --prompt-len 2048 --tokens 32          # qwen2.5-3b at full width
     PYTHONPATH=src python examples/serve_lm_torch.py --full \\
         --arch qwen3-moe-235b-a22b --layers 4  # full width, depth cut
+    PYTHONPATH=src python examples/serve_lm_torch.py --device cpu \
+        --arch qwen2.5-3b --ckpt DIR            # trained parameters
 
 ``--device`` defaults to the CUDA card (and fails without one); ``--full``
 serves the full configuration instead of the reduced smoke one, and
@@ -37,6 +40,7 @@ from repro_torch.configs import (ARCH_IDS, get_config,          # noqa: E402
                                  get_smoke_config)
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.relational.table import resolve_device         # noqa: E402
+from repro_torch.training.checkpoint import CheckpointManager   # noqa: E402
 
 
 def main():
@@ -51,14 +55,26 @@ def main():
                     help="the full configuration, not the smoke one")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the configuration to this many layers")
+    ap.add_argument("--ckpt", default=None,
+                    help="serve the parameters of the latest checkpoint in "
+                         "this directory (train_lm_torch.py's)")
     args = ap.parse_args()
 
     dev = resolve_device(args.device)
     cfg = (get_config if args.full else get_smoke_config)(args.arch)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_params(cfg, gen, device=dev)
+    if args.ckpt:
+        mgr = CheckpointManager(args.ckpt)
+        step = mgr.latest_step()
+        if step is None:
+            raise SystemExit(f"no checkpoint in {args.ckpt}")
+        like = {"p": init_params(cfg, device="meta")}
+        params = mgr.restore(step, like, device=dev)["p"]
+        print(f"restored the parameters of step {step} from {args.ckpt}")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(cfg, gen, device=dev)
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)

@@ -348,10 +348,15 @@ class Database:
 
     def delete_where(self, name: str, col: str, op: str,
                      value) -> "TableDelta":
-        """Delete valid rows matching ``col op value`` (predicate CDC)."""
+        """Delete valid rows matching ``col op value`` (predicate CDC).
+
+        Compared on a host copy in numpy, as the reference does: a Python
+        int outside the column's type compares exactly (torch would wrap
+        it to int32)."""
         from repro_torch.relational.ops import _OPS
 
-        return self.delete_rows(name, _OPS[op](self.tables[name][col], value))
+        arr = host(self.tables[name][col])
+        return self.delete_rows(name, np.asarray(_OPS[op](arr, value)))
 
     def deltas_since(self, name: str, epoch: int):
         """Changelog entries for ``name`` strictly after ``epoch``."""

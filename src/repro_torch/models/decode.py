@@ -39,6 +39,7 @@ from repro_torch.models.model import (
     _qkv,
     _take,
     check_unsharded,
+    embed_rows,
     embed_scale,
     layers_of,
     logits_of,
@@ -197,7 +198,7 @@ def decode_step(params: P, cfg: ArchConfig, cache: Dict[str, Any],
     """
     check_unsharded(sh)
     pos = cache["pos"]
-    x = params["embed"][token.to(torch.int64)[:, None]].to(ACT_DTYPE)
+    x = embed_rows(params["embed"], token[:, None]).to(ACT_DTYPE)
     if cfg.name.startswith(("gemma", "recurrentgemma")):
         x = x * embed_scale(cfg)
     for p, kind, where in layers_of(params, cfg):

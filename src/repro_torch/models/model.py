@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import moe
@@ -357,10 +358,22 @@ def _layer_seq(p: P, kind: str, cfg: ArchConfig, x, positions,
     return x, state
 
 
+def embed_rows(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``, as ``jnp.take(embed, tokens,
+    axis=0)`` gives them: an id in ``[-V, 0)`` counts from the end, and an
+    id outside ``[-V, V)`` gives a row of NaN (``take``'s fill mode), where
+    plain indexing would raise (a device assert on the card).  No host
+    sync."""
+    v = embed.shape[0]
+    ids = tokens.to(torch.int64)
+    rows = embed[torch.remainder(ids, v)]
+    inside = (ids >= -v) & (ids < v)
+    return torch.where(inside[..., None], rows, float("nan"))
+
+
 def _embed(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     """Token (+ patch frontend) embedding -> (x, positions)."""
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.to(torch.int64)].to(ACT_DTYPE)
+    x = embed_rows(params["embed"], batch["tokens"]).to(ACT_DTYPE)
     if cfg.family in ("dense", "moe", "vlm", "hybrid", "ssm") and \
             cfg.frontend == "patch" and "embeds" in batch:
         pe = batch["embeds"].to(ACT_DTYPE) @ params["patch_proj"]
@@ -387,13 +400,31 @@ def logits_of(params: P, x) -> torch.Tensor:
     return logits.to(torch.float32)
 
 
+def _unstacked(tree) -> list:
+    """The per-cycle trees of a tree stacked on its leading axis, as views
+    (``unbind``: under autograd one ``stack`` gathers the stacked
+    gradient, where indexing each cycle would add a zero-filled gradient
+    of the whole stack for every cycle)."""
+    if not tree:
+        return []
+    unbound = _tree_map(lambda x: x.unbind(0), tree)
+    n = len(next(iter(_leaves(unbound))))
+    return [_tree_map(lambda u: u[i], unbound) for i in range(n)]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def layers_of(params: P, cfg: ArchConfig):
     """(parameters, kind, cycle index or tail name) of every layer, in
     order; cycle parameters are views into the stacked tensors."""
     pat = cfg.block_pattern
-    n_cycles = cfg.num_layers // len(pat)
-    for i in range(n_cycles if params["cycles"] else 0):
-        cp = _take(params["cycles"], i)
+    for i, cp in enumerate(_unstacked(params["cycles"])):
         for j, kind in enumerate(pat):
             yield cp[f"s{j}_{kind}"], kind, (i, f"s{j}_{kind}")
     t = 0
@@ -411,8 +442,7 @@ def _encode(params: P, cfg: ArchConfig, frames: torch.Tensor,
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     enc = params["encoder"]
-    for i in range(enc["layers"]["norm1"].shape[0]):
-        lp = _take(enc["layers"], i)
+    for lp in _unstacked(enc["layers"]):
         h = rmsnorm(x, lp["norm1"])
         out, _ = _attn_apply(lp["attn"], cfg, h, positions, "attn",
                              use_kernel, causal=False)
@@ -425,20 +455,42 @@ def _encode(params: P, cfg: ArchConfig, frames: torch.Tensor,
 
 def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             sh: Optional[ActSharding] = None,
-            use_kernel: Optional[bool] = None) -> torch.Tensor:
+            use_kernel: Optional[bool] = None,
+            remat: bool = False) -> torch.Tensor:
     """Full-sequence float32 logits (B, S, V).
 
     ``batch``: ``tokens`` (B, S) int, plus ``embeds`` (patch frontend) or
     ``frames`` (B, S_src, D) (the encoder's input).  ``use_kernel=None``
     takes the flash kernel on a CUDA device and the plain attention on the
-    CPU (``kernels.ops.resolve_use_kernel``).  JAX's ``remat`` is a
-    training option and comes with training.
+    CPU (``kernels.ops.resolve_use_kernel``).
+
+    ``remat`` (training): each cycle of ``block_pattern`` is
+    rematerialized in the backward pass (``torch.utils.checkpoint``,
+    non-reentrant), which keeps only its input, as the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``; tail layers are not.
     """
     check_unsharded(sh)
     x, positions = _embed(params, cfg, batch)
     use_kernel = kops.resolve_use_kernel(use_kernel, x.device)
     enc_out = (_encode(params, cfg, batch["frames"], use_kernel)
                if cfg.encoder is not None else None)
-    for p, kind, _ in layers_of(params, cfg):
-        x, _ = _layer_seq(p, kind, cfg, x, positions, use_kernel, enc_out)
+    pat = cfg.block_pattern
+
+    def cycle(x, cp):
+        for j, kind in enumerate(pat):
+            x, _ = _layer_seq(cp[f"s{j}_{kind}"], kind, cfg, x, positions,
+                              use_kernel, enc_out)
+        return x
+
+    for cp in _unstacked(params["cycles"]):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(cycle, x, cp,
+                                                  use_reentrant=False)
+        else:
+            x = cycle(x, cp)
+    t = 0
+    while f"tail_{t}" in params:
+        x, _ = _layer_seq(params[f"tail_{t}"], pat[t], cfg, x, positions,
+                          use_kernel, enc_out)
+        t += 1
     return logits_of(params, rmsnorm(x, params["final_norm"]))

@@ -91,9 +91,15 @@ def route(x: torch.Tensor, w_router: torch.Tensor, k: int):
     """fp32 router: the top-k experts of each token (largest first) and
     their softmax gates.  ``torch.topk`` does not promise ``lax.top_k``'s
     lowest-index order among equal logits; fp32 logits of real inputs do
-    not tie."""
+    not tie.  A token whose hidden state is NaN (an embedding of an id out
+    of range) has NaN logits for every expert: ``lax.top_k`` ranks NaN
+    above every number, lowest index first, so such a token takes experts
+    0..k-1 (and their capacity), as here."""
     logits = x.to(torch.float32) @ w_router                  # (T, E)
     top_vals, top_idx = torch.topk(logits, k, dim=-1)        # (T, K)
+    nan_row = torch.isnan(logits).all(-1, keepdim=True)
+    top_idx = torch.where(nan_row, torch.arange(k, device=x.device),
+                          top_idx)
     return top_idx, torch.softmax(top_vals, dim=-1)
 
 

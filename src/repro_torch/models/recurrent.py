@@ -11,7 +11,9 @@ sequence before the loop, and the loop body is the recurrence alone, in
 as few launches as its arithmetic allows.
 Every mixer also has a single-step form for decode with an O(1) state.
 The mLSTM step updates its ``(C, n)`` state tensors in place (a 16 MB
-``(B, H, 512, 512)`` matrix memory a layer at xlstm-1.3b's width).
+``(B, H, 512, 512)`` matrix memory a layer at xlstm-1.3b's width), as do
+the LSTM sequence loops; when autograd records (training), the sequence
+loops take out-of-place forms of the same operations.
 """
 from __future__ import annotations
 
@@ -156,6 +158,15 @@ def _mlstm_out(p: P, num, qn, x):
     return out.reshape(*x.shape[:-1], -1).to(x.dtype) @ p["w_o"]
 
 
+def _autograd_records(x: torch.Tensor, p: P) -> bool:
+    """Whether autograd records this call (a gradient is wanted of ``x``
+    or of a parameter): the LSTM loops then take out-of-place forms of
+    their in-place serving loops, the same operations in the same order
+    (bit-equal results), which autograd can differentiate."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(w.requires_grad for w in p.values()))
+
+
 def mlstm_seq(p: P, x: torch.Tensor, num_heads: int, state0=None):
     """x: (B,S,D) -> (out, (C, n)).  C: (B,H,Dh,Dh), n: (B,H,Dh), fp32.
 
@@ -182,12 +193,20 @@ def mlstm_seq(p: P, x: torch.Tensor, num_heads: int, state0=None):
     vt = vt[..., None, :]                                 # (S,B,H,1,Dh+1)
     ikt = time_major(ig[..., None] * k)[..., None]        # (S,B,H,Dh,1)
     ft = time_major(fg)[..., None, None]                  # (S,B,H,1,1)
-    outs = torch.empty((s, bsz, num_heads, 1, dh + 1), dtype=torch.float32,
-                       device=x.device)
-    for t in range(s):
-        mem.mul_(ft[t])
-        mem.addcmul_(ikt[t], vt[t])
-        torch.matmul(qt[t], mem, out=outs[t])
+    if _autograd_records(x, p):
+        # the same operations out of place, for autograd to record
+        steps = []
+        for t in range(s):
+            mem = torch.addcmul(mem * ft[t], ikt[t], vt[t])
+            steps.append(torch.matmul(qt[t], mem))
+        outs = torch.stack(steps)
+    else:
+        outs = torch.empty((s, bsz, num_heads, 1, dh + 1),
+                           dtype=torch.float32, device=x.device)
+        for t in range(s):
+            mem.mul_(ft[t])
+            mem.addcmul_(ikt[t], vt[t])
+            torch.matmul(qt[t], mem, out=outs[t])
     outs = outs[..., 0, :].transpose(0, 1)                # (B,S,H,Dh+1)
     out = _mlstm_out(p, outs[..., :dh], outs[..., dh], x)
     return out, (mem[..., :dh].contiguous(), mem[..., dh].contiguous())
@@ -247,10 +266,19 @@ def slstm_seq(p: P, x: torch.Tensor, state0=None):
     zs = torch.stack([z, torch.ones_like(z)]).permute(2, 0, 1, 3)
     zs = zs.contiguous()                                  # (S,2,B,D)
     i, f = (u.transpose(0, 1).contiguous() for u in (i, f))
-    cns = torch.empty((s, 2, bsz, d), dtype=torch.float32, device=x.device)
     cn, m = torch.stack(state0[:2]), state0[2]
-    for t in range(s):
-        cn, m = _slstm_update(zs[t], i[t], f[t], m, cn, out=cns[t])
+    if _autograd_records(x, p):
+        # the same operations out of place, for autograd to record
+        steps = []
+        for t in range(s):
+            cn, m = _slstm_update(zs[t], i[t], f[t], m, cn)
+            steps.append(cn)
+        cns = torch.stack(steps)
+    else:
+        cns = torch.empty((s, 2, bsz, d), dtype=torch.float32,
+                          device=x.device)
+        for t in range(s):
+            cn, m = _slstm_update(zs[t], i[t], f[t], m, cn, out=cns[t])
     c, n = cns[:, 0].transpose(0, 1), cns[:, 1].transpose(0, 1)
     out = (o * c / torch.clamp(n, min=1.0)).to(x.dtype) @ p["w_out"]
     return out, (cn[0].clone(), cn[1].clone(), m)

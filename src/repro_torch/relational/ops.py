@@ -7,7 +7,7 @@ import numpy as np
 import torch
 
 from repro_torch.relational.join import composite_key
-from repro_torch.relational.table import Table, host
+from repro_torch.relational.table import Table, check_int32_scalar, host
 
 _OPS = {
     "==": lambda a, b: a == b,
@@ -20,7 +20,11 @@ _OPS = {
 
 
 def filter_table(table: Table, col: str, op: str, value) -> Table:
-    """sigma_{col op value}(table); mask-only, shape preserved."""
+    """sigma_{col op value}(table); mask-only, shape preserved.
+
+    A Python int outside int32 raises ``OverflowError``, as ``jnp`` does
+    with x64 off (for any column dtype), where torch would wrap it."""
+    check_int32_scalar(value)
     return table.mask(_OPS[op](table[col], value))
 
 

@@ -60,15 +60,33 @@ _NARROW = {np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32,
            np.dtype(np.float64): np.float32}
 
 
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+
+
+def check_int32_scalar(value) -> None:
+    """Raise ``OverflowError`` for a Python int outside int32, which
+    ``jnp`` refuses with x64 off and torch would wrap silently."""
+    if isinstance(value, int) and not INT32_MIN <= value <= INT32_MAX:
+        raise OverflowError(
+            f"Python int {value} is out of bounds for int32")
+
+
 def _as_tensor(v, device: torch.device) -> torch.Tensor:
     """A column from a tensor (dtype kept) or from numpy / Python values,
     canonicalised as ``jnp.asarray`` does: int64 -> int32, uint64 ->
-    uint32, float64 -> float32."""
+    uint32, float64 -> float32.  Python ints that make an integer column
+    and lie outside int32 raise ``OverflowError``, as in ``jnp.asarray``
+    (numpy arrays wrap in both)."""
     if isinstance(v, torch.Tensor):
         return v.to(device)
     # np.array copies: read-only views (e.g. of another framework's
     # buffers) cannot back a tensor
     a = np.array(v)
+    if not isinstance(v, np.ndarray) and a.dtype.kind in "iu" and a.size \
+            and (a.min() < INT32_MIN or a.max() > INT32_MAX):
+        raise OverflowError(
+            f"Python int {a.max() if a.max() > INT32_MAX else a.min()} is "
+            "out of bounds for int32")
     a = a.astype(_NARROW.get(a.dtype, a.dtype), copy=False)
     return torch.from_numpy(a).to(device)
 

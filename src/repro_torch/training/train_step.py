@@ -1,0 +1,107 @@
+"""Training step: microbatch gradient accumulation + remat + chunked xent
+(the port of ``repro.training.train_step``).
+
+  * ``remat`` rematerializes each layer cycle in the backward pass
+    (``forward(..., remat=True)``: only cycle boundaries persist);
+  * microbatches run one after another, their gradients accumulated in
+    fp32 buffers, then loss and gradients are divided by their number;
+  * the cross-entropy's log-softmax runs in sequence chunks of
+    ``XENT_CHUNK`` positions (plus a remainder chunk), as the reference.
+
+Attention: the step calls ``forward(..., use_kernel=False)``, the plain
+attention, on every device.  The JAX package's ``forward`` never calls its
+Pallas flash kernel (its attention is plain ``jnp``), and neither package
+has a flash backward: the port's kernel refuses a tensor that requires a
+gradient.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.model import ActSharding, forward
+from repro_torch.training.optim import AdamW
+from repro_torch.training.tree import leaves, unflatten
+
+XENT_CHUNK = 512
+F32 = torch.float32
+
+
+def _chunk_nll(lg: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
+    """Summed negative log-likelihood of one chunk of positions."""
+    logp = torch.log_softmax(lg.to(F32), dim=-1)
+    return -torch.gather(logp, -1, lb[..., None].to(torch.int64)).sum()
+
+
+def _chunked_xent(params, cfg: ArchConfig, batch, sh, remat: bool,
+                  chunk: int = XENT_CHUNK) -> torch.Tensor:
+    """Mean next-token loss, the log-softmax taken chunk by chunk."""
+    logits = forward(params, cfg, batch, sh=sh, use_kernel=False,
+                     remat=remat)
+    labels = batch["labels"]
+    s_tok = labels.shape[1]
+    logits = logits[:, -s_tok:, :]  # frontends prepend positions
+    n_chunks = max(1, s_tok // chunk)
+    c = s_tok // n_chunks
+    total = torch.stack([
+        _chunk_nll(logits[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c])
+        for i in range(n_chunks)]).sum()
+    rem = s_tok - n_chunks * c
+    if rem:
+        total = total + _chunk_nll(logits[:, -rem:], labels[:, -rem:])
+    return total / (labels.shape[0] * s_tok)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    microbatches: int = 1
+    remat: bool = True
+    accum_dtype: Any = F32
+
+
+def make_train_step(cfg: ArchConfig, opt: AdamW,
+                    ts: TrainStepConfig = TrainStepConfig(),
+                    sh: Optional[ActSharding] = None):
+    """Returns train_step(params, opt_state, batch) -> (params, state,
+    metrics).
+
+    ``batch`` holds tensors whose leading dim is the global batch; with
+    microbatching the step takes ``microbatches`` equal slices of it in
+    turn.  The optimizer writes the new parameters and state into the
+    given tensors (see ``optim``); ``metrics["loss"]`` is a 0-d float32
+    tensor on the parameters' device (reading it waits for the step).
+    """
+
+    def value_and_grad(params, mb):
+        ps = leaves(params)
+        diff = [p.detach().requires_grad_(True) for p in ps]
+        loss = _chunked_xent(unflatten(params, diff), cfg, mb, sh, ts.remat)
+        grads = torch.autograd.grad(loss, diff)
+        return loss.detach(), grads
+
+    def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
+        n_mb = ts.microbatches
+        if n_mb == 1:
+            loss, grads = value_and_grad(params, batch)
+        else:
+            acc = [torch.zeros(p.shape, dtype=ts.accum_dtype,
+                               device=p.device) for p in leaves(params)]
+            loss = torch.zeros((), dtype=F32, device=acc[0].device)
+            for i in range(n_mb):
+                mb = {k: v[i * (v.shape[0] // n_mb):
+                           (i + 1) * (v.shape[0] // n_mb)]
+                      for k, v in batch.items()}
+                mb_loss, mb_grads = value_and_grad(params, mb)
+                for a, g in zip(acc, mb_grads):
+                    a.add_(g.to(ts.accum_dtype))
+                loss = loss + mb_loss
+            grads = [a / n_mb for a in acc]
+            loss = loss / n_mb
+        new_params, new_state = opt.update(unflatten(params, list(grads)),
+                                           opt_state, params)
+        return new_params, new_state, {"loss": loss, "step": new_state.step}
+
+    return train_step

@@ -849,3 +849,96 @@ def test_cuda_join_kernels_from_eight_threads(cuda):
     calls = THREADS * THREAD_CALLS
     assert (counts["bloom_build"], counts["bloom_probe"],
             counts["sorted_probe"]) == (calls, 2 * calls, calls)
+
+
+def _train_inputs(device):
+    """qwen2.5-3b smoke parameters (drawn on the CPU), fresh AdamW state and
+    a token batch, on ``device``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.training.data import TokenPipeline
+    from repro_torch.training.optim import AdamW
+
+    cfg = get_smoke_config("qwen2.5-3b")
+    params = _to_device(init_params(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu"), device)
+    batch = TokenPipeline(vocab_size=cfg.vocab_size, batch=4, seq_len=32,
+                          seed=1).batch_at(0)
+    batch = {k: _t(v, device) for k, v in batch.items()}
+    return cfg, params, AdamW().init(params), batch
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_cuda_train_step_matches_cpu(cuda, remat):
+    """One AdamW train step of qwen2.5-3b smoke on the card against the
+    same step on the CPU, from the same parameters, state and batch.  The
+    tolerances are those of ``tests/test_torch_training.py`` (JAX against
+    the port), with the loss to 1e-3: the card's bf16 GEMMs may reduce
+    split sums in bf16 (``allow_bf16_reduced_precision_reduction``, on by
+    default), a partial sum rounded to 2**-8, where the CPU's keep float32.
+    The new bf16 parameters agree to one bf16 ulp where the gradient's
+    sign is certain (|m| above 2**-5 of its leaf's largest), to 2 lr plus
+    an ulp elsewhere; the step launches no flash kernel."""
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import (TrainStepConfig,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves
+
+    grad_tol, ulp = 2.0**-5, 2.0**-7
+    out = {}
+    for dev in ("cpu", cuda):
+        cfg, params, state, batch = _train_inputs(dev)
+        step = make_train_step(cfg, AdamW(), TrainStepConfig(remat=remat))
+        before = kops.launch_counts()["flash_attention"]
+        params, state, metrics = step(params, state, batch)
+        assert kops.launch_counts()["flash_attention"] == before
+        out[str(dev)] = (float(metrics["loss"]), leaves(params),
+                         leaves(state.m), leaves(state.v))
+    (lc, pc, mc, vc), (lg, pg, mg, vg) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-3, atol=1e-3)
+    for got, want, tol in [(g, w, grad_tol) for g, w in zip(mg, mc)] + \
+            [(g, w, 2 * grad_tol) for g, w in zip(vg, vc)]:
+        want = _np(want)
+        np.testing.assert_allclose(_np(got), want, rtol=tol,
+                                   atol=tol * np.abs(want).max())
+    for g, w, m in zip(pg, pc, mc):
+        got, want = _np(g.float()), _np(w.float())
+        m = np.abs(_np(m))
+        sure = m > grad_tol * m.max()
+        np.testing.assert_allclose(got[sure], want[sure], rtol=ulp, atol=0)
+        np.testing.assert_allclose(got, want, rtol=ulp,
+                                   atol=2 * AdamW().lr)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_saved_on_card_restores_on_cpu(cuda, tmp_path):
+    """Parameters and AdamW state after a step on the card, saved by the
+    port's CheckpointManager and restored onto the CPU (``like`` on the
+    ``meta`` device): bit-equal to the card's tensors."""
+    from repro_torch.models import init_params
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.tree import leaves
+
+    cfg, params, state, batch = _train_inputs(cuda)
+    params, state, _ = make_train_step(cfg, AdamW())(params, state, batch)
+    tree = {"p": params, "o": state}
+    CheckpointManager(str(tmp_path)).save(1, tree, blocking=True)
+    meta = init_params(cfg, device="meta")
+    like = {"p": meta, "o": AdamW().init(meta)}
+    got = CheckpointManager(str(tmp_path)).restore(1, like, device="cpu")
+    for g, w in zip(leaves(got), leaves(tree)):
+        assert g.device.type == "cpu" and g.dtype == w.dtype
+        assert torch.equal(_bits(g), _bits(w.cpu()))
+
+
+def _bits(t):
+    return t.contiguous().reshape(-1).view(torch.uint8)

@@ -705,3 +705,28 @@ def test_patched_csr_nets_edges_inserted_and_deleted_in_one_window(bases):
         assert warm.csr.edge_counts[label] == fresh.csr.edge_counts[label]
     for k in ("out_degree", "in_degree"):
         assert np.array_equal(_np(warm.values[k]), _np(fresh.values[k]))
+
+
+@pytest.mark.parametrize("value", [2**40, 2**32 + 2, -2**40])
+@pytest.mark.parametrize("op", ["==", "!=", "<", "<=", ">", ">="])
+def test_delete_where_compares_python_ints_exactly(op, value):
+    """``delete_where`` with a Python int outside int32 compares exactly,
+    as the reference's host numpy does: ``x > 2**40`` deletes nothing and
+    ``x < 2**32 + 2`` deletes every row of ``[1, 2, 3, -5]`` (torch used
+    to wrap the int to int32 and delete other rows).  Same deleted rows,
+    delta counts and epochs as JAX's ``Database``."""
+    col = np.array([1, 2, 3, -5], np.int32)
+    rid = np.arange(4, dtype=np.int32)
+    jd = jdbm.Database({"t": jrel.Table.from_arrays(rid=rid, x=col)})
+    td = tdbm.Database({"t": trel.Table.from_arrays(device="cpu", rid=rid,
+                                                    x=col)})
+    jentry = jd.delete_where("t", "x", op, value)
+    tentry = td.delete_where("t", "x", op, value)
+    assert (tentry.plus_count, tentry.minus_count, td.epoch) == \
+        (jentry.plus_count, jentry.minus_count, jd.epoch)
+    np.testing.assert_array_equal(td.tables["t"].valid.numpy(),
+                                  np.asarray(jd.tables["t"].valid))
+    want = {"==": 0, "!=": 4, "<": 4, "<=": 4, ">": 0, ">=": 0}[op]
+    if value < 0:
+        want = {"==": 0, "!=": 4, "<": 0, "<=": 0, ">": 4, ">=": 4}[op]
+    assert tentry.minus_count == want

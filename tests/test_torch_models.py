@@ -9,10 +9,14 @@ across with ``params_from_jax``.  Tolerances, each with its reason:
   compute in float32; they differ only in the order of the sums and in the
   online softmax's rescaling, a few ulps of values below ~5 (measured
   < 1e-6), where the reference test allows 2e-2 for its bf16-capable path.
-* Layers in float32: rtol = atol = 1e-5 (sum order only), except RoPE at
-  positions up to 32k: 2e-4, because XLA's float32 sin/cos reduce their
-  argument with an error that grows with it (measured 1.1e-4 at 32768
-  radians, 2.4e-7 below 64).  In bf16:
+* Layers in float32: rtol = atol = 1e-5 (sum order only), except RoPE.
+  RoPE adds to its atol the move of one float32 ulp in each frequency
+  (``_rope_freq_bound``): the two packages' float32 ``exp`` may round a
+  frequency to a neighbouring float, depending on the host's vector
+  units.  At positions up to 32k its tolerance is 2e-4 before that
+  bound, because XLA's float32 sin/cos reduce their argument with an
+  error that grows with it (measured 1.1e-4 at 32768 radians, 2.4e-7
+  below 64).  In bf16:
   rtol = atol = 2**-6, two bf16 ulps: both round the same float32 values to
   bf16, and a float32 result a few ulps apart may round one bf16 ulp apart.
 * The whole model in bf16 (the JAX package's fixed ``ACT_DTYPE``): logits
@@ -214,12 +218,42 @@ def test_rmsnorm_and_rope_match_jax(dtype, tol):
     jx, tx = _both(rng.normal(size=(2, 7, 4, 32)), dtype)
     js, ts = _both(rng.normal(size=(32,)) * 0.1, "float32")
     _close(tlayers.rmsnorm(tx, ts), jlayers.rmsnorm(jx, js), tol)
-    for high, rope_tol in ((512, tol), (32768, max(tol, ROPE_FAR_TOL))):
+    for high in (512, 32768):
         pos = rng.integers(0, high, (2, 7)).astype(np.int32)
         for theta in (10_000.0, 1_000_000.0):
             got = tlayers.rope(tx, torch.from_numpy(pos), theta)
             assert got.dtype == tx.dtype
-            _close(got, jlayers.rope(jx, jnp.asarray(pos), theta), rope_tol)
+            want = jlayers.rope(jx, jnp.asarray(pos), theta)
+            _close_rope(got, want, tol if high == 512 else
+                        max(tol, ROPE_FAR_TOL),
+                        _rope_freq_bound(tx, pos, theta))
+
+
+def _rope_freq_bound(x, pos, theta):
+    """How far RoPE's output may move when each float32 frequency is one
+    ulp apart: XLA's and torch's float32 ``exp`` round some frequencies
+    to neighbouring floats on some hosts (on an AMD EPYC host 2 of 16 at
+    theta 1e4, 3 of 16 at 1e6).  Frequency k one ulp off moves the angle
+    by ``pos * ulp(freq_k)``, plus one ulp of the angle for the rounding
+    of the product; rotating the pair (x1, x2) by an angle that far off
+    moves each of its outputs by at most that angle times |(x1, x2)|."""
+    half = x.shape[-1] // 2
+    log_theta = float(torch.log(torch.tensor(theta, dtype=torch.float32)))
+    freqs = torch.exp(-log_theta * torch.arange(
+        0, half, dtype=torch.float32) / half).numpy()
+    angles = pos[..., None].astype(np.float32) * freqs      # (B, S, half)
+    dangle = pos[..., None] * np.spacing(freqs) + np.spacing(angles)
+    xf = _np(x)
+    radius = np.hypot(xf[..., :half], xf[..., half:])       # (B,S,H,half)
+    move = dangle[..., None, :] * radius
+    return np.concatenate([move, move], axis=-1)
+
+
+def _close_rope(got, want, tol, bound):
+    """``_close`` with ``bound`` (elementwise) added to its atol."""
+    got, want = _np(got), _np(want)
+    excess = np.abs(got - want) - (tol + tol * np.abs(want) + bound)
+    assert excess.max() <= 0, f"over the bound by {excess.max()}"
 
 
 def _attn_inputs(rng, b, sq, sk, hq, hkv, dh, dtype):
@@ -705,3 +739,93 @@ def test_serve_lm_torch_defaults_to_the_card(monkeypatch, capsys):
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         _run_example(monkeypatch, capsys, "--tokens", "2")
+
+
+# ---------------------------------------------------------------------------
+# token ids outside [-V, V): NaN rows, as jnp.take's fill mode gives them
+# ---------------------------------------------------------------------------
+
+def _recording_jax_routes(monkeypatch):
+    """Record, for every JAX ``moe_ffn`` call, each token's reached experts
+    (-1 for a choice dropped at capacity), from the reference's own
+    dispatch (``_local_dispatch`` is ``moe_ffn``'s routing, line for
+    line)."""
+    import repro.models.moe as jmoe
+    routes, real = [], jmodel.moe_ffn
+
+    def recording(x, p, spec, *args, **kwargs):
+        t, k = x.shape[0], spec.top_k
+        logits = x.astype(jnp.float32) @ p["w_router"]
+        cap = jmoe.capacity_for(t, spec)
+        _, st, slot, keep, _ = jmoe._local_dispatch(x, logits, spec, cap)
+        st, slot, keep = (np.asarray(a) for a in (st, slot, keep))
+        reached = [[] for _ in range(t)]
+        for tok, sl, kept in zip(st, slot, keep):
+            reached[tok].append(int(sl) // cap if kept else -1)
+        routes.append(np.sort(np.array(reached).reshape(t, k), axis=1))
+        return real(x, p, spec, *args, **kwargs)
+
+    monkeypatch.setattr(jmodel, "moe_ffn", recording)
+    return routes
+
+
+def _same_nan_and_close(got, want):
+    got, want = _np(got), _np(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("bad", ["V", "V+5", "-1", "-V-1"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-235b-a22b",
+                                  "llama4-scout-17b-a16e"])
+def test_token_ids_out_of_range_match_jax(arch, bad, monkeypatch):
+    """An id outside [-V, V) embeds as NaN in both packages (JAX:
+    ``jnp.take``'s fill mode; the port used to raise), an id in [-V, 0)
+    counts from the end.  Row 0 holds the id at position 3 and row 1 none,
+    through ``forward``, ``prefill`` and two ``decode_step`` calls, against
+    JAX run op by op.  A NaN row's keys and values reach every query of
+    that row (0 x NaN in the probabilities' product), so all of row 0 is
+    NaN in both.  In the MoE models NaN router logits decide which experts
+    those tokens take (``lax.top_k`` ranks NaN first, lowest index first):
+    each call's routes are recorded in both packages and must match, and
+    llama4-scout's capacity (16 slots for 40 choices) makes row 0's NaN
+    tokens push row 1's tokens out of expert 0 in both."""
+    jc, tc, jp, tp, *_ = _setup(arch)
+    v = jc.vocab_size
+    bad_id = {"V": v, "V+5": v + 5, "-1": -1, "-V-1": -v - 1}[bad]
+    toks = np.random.default_rng(9).integers(0, v, (B, S)).astype(np.int32)
+    toks[0, 3] = bad_id
+    jroutes = _recording_jax_routes(monkeypatch)
+    with tmoe.recording_routes() as troutes, jax.disable_jit():
+        jb, tb = {"tokens": jnp.asarray(toks)}, {
+            "tokens": torch.from_numpy(toks.copy())}
+        want = jmodels.forward(jp, jc, jb)
+        got = tmodels.forward(tp, tc, tb)
+        _same_nan_and_close(got, want)
+        assert np.isnan(_np(got)[0]).all() == (bad != "-1")
+        assert np.isfinite(_np(got)[1]).all()
+
+        jlog, jcache = jmodels.prefill(jp, jc, jb, max_len=S + 4)
+        tlog, tcache = tmodels.prefill(tp, tc, tb, S + 4)
+        _same_nan_and_close(tlog, jlog)
+        for first in (bad_id, 7):               # the NaN stays in the cache
+            tok = np.array([first, 5], np.int32)
+            jlog, jcache = jmodels.decode_step(jp, jc, jcache,
+                                               jnp.asarray(tok))
+            tlog, tcache = tmodels.decode_step(tp, tc, tcache,
+                                               torch.from_numpy(tok))
+            _same_nan_and_close(tlog, jlog)
+            assert np.isnan(_np(tlog)[0]).all() == (bad != "-1")
+    if jc.moe is None:
+        return
+    assert len(troutes) == len(jroutes) == 4 * jc.num_layers
+    for t, j in zip(troutes, jroutes):
+        np.testing.assert_array_equal(np.sort(t.numpy(), axis=1), j)
+    if bad != "-1":              # row 0's NaN tokens take experts 0..k-1
+        k = jc.moe.top_k
+        first = np.sort(troutes[0].numpy(), axis=1)[:S]
+        assert set(first[first >= 0].tolist()) <= set(range(k))
+        if arch.startswith("llama4"):
+            assert (troutes[0].numpy()[S:] == -1).any()

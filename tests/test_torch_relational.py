@@ -59,6 +59,55 @@ def test_from_arrays_canonicalises_dtypes_as_jax(column):
     _same(jt, tt)
 
 
+@pytest.mark.parametrize("column", [
+    pytest.param([1, 2**40], id="python-2**40"),
+    pytest.param([1, 2**31], id="python-2**31"),
+    pytest.param([-2**31 - 1, 0], id="python-below-int32"),
+    pytest.param(np.array([1, 2**40]), id="numpy-int64-wraps"),
+    pytest.param([1, 2**31 - 1], id="python-int32-max"),
+    pytest.param([1.5, 2**40], id="python-float-column"),
+])
+def test_from_arrays_python_ints_outside_int32_as_jax(column):
+    """A Python int outside int32 in an integer column raises
+    ``OverflowError`` in both packages (``jnp.asarray`` with x64 off; the
+    port used to wrap it); numpy int64 arrays wrap in both, and a Python
+    float column takes the int as a float."""
+    try:
+        jt = jr.Table.from_arrays(k=np.arange(2, dtype=np.int32), c=column)
+    except OverflowError:
+        with pytest.raises(OverflowError, match="int32"):
+            tr.Table.from_arrays(device="cpu", k=np.arange(2, dtype=np.int32),
+                                 c=column)
+        assert not isinstance(column, np.ndarray)
+        return
+    assert isinstance(column, np.ndarray) or column[1] in (2**31 - 1, 2**40)
+    _same(jt, tr.Table.from_arrays(device="cpu",
+                                   k=np.arange(2, dtype=np.int32), c=column))
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32", "bool"])
+@pytest.mark.parametrize("value", [2**40, 2**32 + 2, 2**31, -2**31 - 1,
+                                   2**31 - 1, -2**31])
+def test_filter_table_python_ints_outside_int32_as_jax(dtype, value):
+    """A filter value that is a Python int outside int32 raises
+    ``OverflowError`` in both packages, for every column dtype (torch
+    would wrap it: ``x > 2**40`` acting as ``x > 0``); inside int32 the
+    two filters agree."""
+    col = np.array([1, 2, 3, 5 if dtype == "bool" else -5])
+    col = col.astype(dtype)
+    jt = jr.Table.from_arrays(x=col)
+    tt = tr.Table.from_arrays(device="cpu", x=col)
+    for op in ("==", "!=", "<", "<=", ">", ">="):
+        if not -2**31 <= value < 2**31:
+            with pytest.raises(OverflowError):
+                jr.filter_table(jt, "x", op, value)
+            with pytest.raises(OverflowError):
+                tr.filter_table(tt, "x", op, value)
+        else:
+            _same(jr.filter_table(jt, "x", op, value),
+                  tr.filter_table(tt, "x", op, value))
+
+
 def test_from_arrays_keeps_torch_dtypes():
     t = tr.Table.from_arrays(device="cpu", a=torch.arange(4),
                              b=torch.ones(4, dtype=torch.float64))

@@ -1400,3 +1400,37 @@ def test_durable_dir_recovered_by_the_other_package(tmp_path, writer):
         assert rec.extract("social")["fingerprint"] == live
     finally:
         rec.close()
+
+
+def test_mutate_delete_where_outside_int32_matches_jax(tmp_path):
+    """``GraphService.mutate`` with a ``delete_where`` whose value is a
+    Python int outside int32 (``POST /v1/mutate`` passes it through)
+    deletes what JAX's service deletes, nothing here, where the port used
+    to wrap the int and delete rows; the live tables and the WAL's records
+    (kind, epoch, counts, payload) equal the JAX service's."""
+    from repro_torch.durability import wal as twal
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    jsvc = _jservice(durable_dir=str(jdir))
+    tsvc = _durable_service(tdir)
+    try:
+        for where in (("src_sk", ">", 2**40), ("src_sk", "==", 2**32 + 2),
+                      ("dst_sk", "<", -2**40)):
+            jout = jsvc.mutate("follows", delete_where=where)
+            tout = tsvc.mutate("follows", delete_where=where)
+            assert tout == jout
+        for name, jt in jsvc._db.tables.items():
+            tt = tsvc._db.tables[name]
+            np.testing.assert_array_equal(_np(tt.valid), _np(jt.valid))
+            assert int(tt.valid.sum()) == int(np.asarray(jt.valid).sum())
+        jrecs, _ = jdur.wal.read_all(jsvc._db.wal.path)
+        trecs, _ = twal.read_all(tsvc._db.wal.path)
+        assert len(trecs) == len(jrecs)
+        for t, j in zip(trecs, jrecs):
+            assert (t.table, t.kind, t.epoch, t.plus_count, t.minus_count) \
+                == (j.table, j.kind, j.epoch, j.plus_count, j.minus_count)
+            assert t.payload.keys() == j.payload.keys()
+            for key, arr in j.payload.items():
+                np.testing.assert_array_equal(t.payload[key], arr)
+    finally:
+        tsvc.close()
+        jsvc.close()
