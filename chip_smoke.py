@@ -197,6 +197,35 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and 8 greedy ``decode_step``s, every logit finite.  (e) Last of all,
    after every other timing, one more step under ``torch.profiler``: its
    device time by kernel name and its busy share.
+13. The sharded slice, on ``nccl`` at world size 1 (a ``FileStore``
+   under ``build/``; NCCL cannot put two ranks on one card, so each
+   exchange moves nothing while the code, the communicator and the
+   kernels run at full width; the group is destroyed after the phase).
+   (a) ``distributed_join`` on the JS-OJ extraction's inner equi-joins
+   (store_sales, 2.88M rows, on ``c_sk``, ``i_sk`` and ``o_sk`` against
+   their dimensions, TPC-DS SF1), directly and with the fact side
+   repartitioned first (``left_partitioned=True``): every repartition's
+   overflow must be 0 and every join's ``table_digest`` equal
+   ``sort_merge_join``'s on the same tables (the plain bisection probe);
+   its ``sorted_probe`` launches are the ``distributed_join`` path, each
+   recorded and held against the plain bisection on its own operands
+   (padded 5.76M-row probe sides), the largest and most frequent timed.
+   (b) ``moe_ffn_shard_map`` on a 1x1 mesh at full width, one layer, B 4
+   x S 2,048 tokens: qwen3-moe (D 4,096, 128 experts, top-8, F 1,536) and
+   llama4-scout must equal ``moe_ffn`` bit for bit, with equal routes
+   (llama4-scout adds its shared expert after the routed sum's cast, as
+   the reference, but with top-1 routing the gate is exactly 1 and the
+   routed sum one bf16 value, so the cast changes nothing).  Then phase
+   8c's 4-layer qwen3-moe
+   ``forward`` with ``ActSharding(moe_mesh=mesh)`` (the ``sharded_moe``
+   path, through the flash kernel) must give the logits of the forward
+   without it.  (c) the dry run's per-device argument bytes on the 1x1
+   mesh for qwen2.5-3b at phase 8b's serving shape (B 4, a cache of 2,080
+   positions) must be within ``DRYRUN_REL_TOL`` of the growth of
+   ``torch.cuda.memory_allocated()`` when the parameters, cache and token
+   are built on the card.  Each part's times (the distributed path beside
+   the single-device call, warm, CUDA events) are printed beside the
+   card's name and power limit.
 
 The phases run in their order, each kernel case checked and timed with
 CUDA events where it stands.  Then a kernel phase: the kernel cases of 4-7
@@ -214,7 +243,8 @@ timing: after one, the host's launches are slower.
 
 Launch counters are set to 0 just before each of phases 4–7, 8b, each
 model of 8c, each refresh of phase 9, each discovery of phase 10,
-phase 11 and 12's data plane, training and serving, and read just after;
+phase 11, 12's data plane, training and serving, and 13a's distributed
+joins and 13b's forward, and read just after;
 every kernel of a path must have launched inside it.  The last
 lines are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
@@ -335,6 +365,17 @@ TRAIN_REPEAT_RTOL = 1e-6
 TRAIN_SERVE_STEPS = 8
 # the recovery drill at smoke size (tests/test_fault_tolerance.py's)
 RECOVERY_STEPS, RECOVERY_EVERY, RECOVERY_FAIL = 12, 4, 9
+# phase 13: the sharded slice on a world of one rank (nccl, one card).
+# (a) the JS-OJ extraction's inner equi-joins, store_sales (2.88M rows) on
+# each dimension key: (fact key, dimension table, dimension key)
+SHARDED_JOINS = (("c_sk", "customer", "c_id"), ("i_sk", "item", "i_id"),
+                 ("o_sk", "outlet_store", "o_id"))
+# (b) the expert-parallel MoE at full width, one layer, on phase 8b/8c's
+# B 4 x S 2,048 tokens; then phase 8c's 4-layer qwen3-moe forward
+SHARDED_MOE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
+SHARDED_FORWARD = ("qwen3-moe-235b-a22b", 4)
+# (c) the dry run's argument bytes against the card's allocation
+DRYRUN_REL_TOL = 0.01
 
 
 def log(*parts) -> None:
@@ -438,7 +479,8 @@ def recording(kops, name: str):
     """Swap ``kops.<name>`` for a recorder while the block runs: each call
     appends (call site, args) to the yielded list and goes on to the
     wrapper, whose launch count counts it as before.  The list holds every
-    operand, so only untimed replays (``replay``) record."""
+    operand, so only untimed runs record (``replay``, phase 13a's counted
+    run)."""
     wrapper, calls = getattr(kops, name), []
 
     def record(*args, **kwargs):
@@ -2931,6 +2973,266 @@ def service_phase(torch, kops, ExtractionEngine):
     return counts, record
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded slice on a world of one rank
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def nccl_world(torch):
+    """``nccl`` at world size 1 through a ``FileStore`` under ``build/``,
+    its communicator made at once (``device_id``); destroyed, and the store
+    removed, on exit.  A failure to initialise raises: no fallback."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_", dir=ROOT / "build")
+    torch.cuda.set_device(0)          # the rank's card, before any mesh
+    try:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+            world_size=1, device_id=torch.device("cuda", 0))
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sharded_joins(torch, kops, ref, kernel_rows, smi):
+    """Phase 13a: ``distributed_join`` and ``repartition_by_key`` on the
+    JS-OJ extraction's inner equi-joins (store_sales on each dimension key,
+    TPC-DS SF1), on a 1x1 mesh: every repartition drops nothing, and every
+    join's digest equals ``sort_merge_join``'s (the plain probe) on the
+    same tables, the exchange skipped (``left_partitioned=True``) or not.
+    Launches of the distributed joins are counted and recorded: each is
+    held against the plain bisection on its own operands, and the largest
+    and most frequent are cases of the kernel's row.  Returns (counts,
+    timings, cases), the cases for ``add_device_times``."""
+    from repro_torch.data import make_tpcds
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.relational.distributed import (distributed_join,
+                                                    repartition_by_key)
+    from repro_torch.relational.join import (join_count, join_with_capacity,
+                                             round_capacity, sort_merge_join)
+    from repro_torch.relational.ops import table_digest
+
+    mesh = make_host_mesh()
+    db = make_tpcds(sf=TPCDS_SF)
+    fact = db.table("store_sales")
+    cases = []
+    for fkey, dim, dkey in SHARDED_JOINS:
+        left = fact.select([fkey, "rid"]).prefix("F")
+        right = db.table(dim).select([dkey, "rid"]).prefix("D")
+        on = [(f"F.{fkey}", f"D.{dkey}")]
+        cap = round_capacity(int(join_count(left, right, (on[0][0],),
+                                            (on[0][1],))))
+        cases.append((f"store_sales.{fkey} = {dim}.{dkey}", left, right, on,
+                      cap))
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    results = []
+    with recording(kops, "sorted_probe") as calls:
+        for label, left, right, on, cap in cases:
+            lpart, lover = repartition_by_key(left, on[0][0], mesh)
+            rpart, rover = repartition_by_key(right, on[0][1], mesh)
+            got = distributed_join(left, right, on, mesh,
+                                   capacity_per_shard=cap)
+            got_part = distributed_join(lpart, right, on, mesh,
+                                        capacity_per_shard=cap,
+                                        left_partitioned=True)
+            results.append((label, int(lover), int(rover), got, got_part))
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    assert counts["sorted_probe"] > 0, f"13a: no sorted_probe launch {counts}"
+    assert len(calls) == counts["sorted_probe"], \
+        f"13a: {len(calls)} sorted_probe calls recorded, {counts} launched"
+    check_every_call(torch, kops, ref, {"sorted_probe": calls},
+                     "distributed_join")
+    probe_cases = record_sorted_probe_calls(torch, kops, ref, kernel_rows,
+                                            calls, "distributed_join")
+    del calls
+    timings = []
+    for (label, left, right, on, cap), (_, lover, rover, got, got_part) in \
+            zip(cases, results):
+        assert lover == 0 and rover == 0, f"13a {label}: overflow " \
+            f"{lover} / {rover}"
+        want = sort_merge_join(left, right, on, capacity=cap)
+        rows = int(want.valid.sum())
+        assert rows == int(got.valid.sum()) == int(got_part.valid.sum())
+        digest = table_digest(want)
+        assert table_digest(got) == digest, f"13a {label}: digest"
+        assert table_digest(got_part) == digest, \
+            f"13a {label}: left_partitioned digest"
+        lp, _ = repartition_by_key(left, on[0][0], mesh)
+        t = {
+            "join": label, "left_rows": left.capacity,
+            "right_rows": right.capacity, "matches": rows,
+            "capacity": cap,
+            "distributed_ms": cuda_ms(torch, lambda: distributed_join(
+                left, right, on, mesh, capacity_per_shard=cap)),
+            "left_partitioned_ms": cuda_ms(torch, lambda: distributed_join(
+                lp, right, on, mesh, capacity_per_shard=cap,
+                left_partitioned=True)),
+            "repartition_left_ms": cuda_ms(torch, lambda: repartition_by_key(
+                left, on[0][0], mesh)),
+            "sort_merge_join_ms": cuda_ms(torch, lambda: join_with_capacity(
+                left, right, on, capacity=cap, use_kernel=True))}
+        timings.append(t)
+        log(f"13a distributed_join ({smi}): {json.dumps(t)}")
+    log(f"13a: overflow 0, digests == sort_merge_join's, launches {counts}")
+    del db, fact, cases, results
+    torch.cuda.empty_cache()
+    return counts, timings, probe_cases
+
+
+def sharded_moe(torch, kops, smi):
+    """Phase 13b: ``moe_ffn_shard_map`` on a 1x1 mesh at full width (one
+    layer, phase 8's B 4 x S 2,048 tokens) against ``moe_ffn``: bit for bit
+    (llama4-scout's shared expert too: top-1, see the module's docstring);
+    then phase 8c's
+    4-layer qwen3-moe ``forward`` with ``ActSharding(moe_mesh=mesh)``
+    (counted) against the same forward without: equal logits."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import local_shape, moe_param_specs
+    from repro_torch.models import ActSharding, forward, init_params
+    from repro_torch.models import moe
+    from repro_torch.models.layers import ACT_DTYPE
+
+    mesh = make_host_mesh()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    timings = []
+    for arch in SHARDED_MOE_ARCHS:
+        cfg = get_config(arch)
+        spec = cfg.moe
+        p = moe.init_moe(torch.Generator(device=dev).manual_seed(13),
+                         cfg.d_model, spec, dev)
+        x = torch.from_numpy(rng.normal(size=(
+            LM_BATCH * LM_PROMPT, cfg.d_model)).astype(np.float32)).to(
+            dev, ACT_DTYPE)
+        with moe.recording_routes() as routes_ep:
+            got = moe.moe_ffn_shard_map(x, p, spec, mesh, ("data",))
+        with moe.recording_routes() as routes:
+            want = moe.moe_ffn(x, p, spec)
+        changed, _ = moe.route_changes(routes_ep, routes)
+        assert changed == [0], f"13b {arch}: routes changed {changed}"
+        t = {"arch": arch, "tokens": x.shape[0], "d_model": cfg.d_model,
+             "experts": spec.num_experts, "top_k": spec.top_k,
+             "d_expert": spec.d_expert,
+             "shared_expert_dim": spec.shared_expert_dim}
+        assert torch.equal(got, want), f"13b {arch}: not bit-equal"
+        t.update(max_abs_err=0.0, bit_equal=True)
+        t.update(shard_map_ms=cuda_ms(torch, lambda: moe.moe_ffn_shard_map(
+            x, p, spec, mesh, ("data",)), iters=10),
+            moe_ffn_ms=cuda_ms(torch, lambda: moe.moe_ffn(x, p, spec),
+                               iters=10))
+        timings.append(t)
+        log(f"13b moe_ffn_shard_map ({smi}): {json.dumps(t)}")
+        del p, x, got, want
+        torch.cuda.empty_cache()
+
+    arch, layers = SHARDED_FORWARD
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    # on a 1x1 mesh every rank's block is the whole tensor: no copy
+    specs = moe_param_specs(params, mesh)
+    for path, t_ in named_leaves(params):
+        spec = functools.reduce(lambda d, k: d[k], path.split("/"), specs)
+        assert local_shape(tuple(t_.shape), spec, mesh) == tuple(t_.shape)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(dev)}
+    sh = ActSharding(moe_mesh=mesh, moe_dp_axes=("data",))
+    want = forward(params, cfg, batch)
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    with moe.recording_routes() as routes_ep:
+        got = forward(params, cfg, batch, sh=sh)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    assert counts["flash_attention"] == layers, \
+        f"13b forward: flash_attention launched {counts}"
+    assert len(routes_ep) == layers
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want), "13b forward: moe_mesh changed the logits"
+    del got, want
+    t = {"arch": arch, "layers": layers, "batch": LM_BATCH,
+         "prompt": LM_PROMPT,
+         "forward_moe_mesh_ms": cuda_ms(torch, lambda: forward(
+             params, cfg, batch, sh=sh), iters=3, warmup=1),
+         "forward_ms": cuda_ms(torch, lambda: forward(params, cfg, batch),
+                               iters=3, warmup=1),
+         "launches": counts}
+    timings.append(t)
+    log(f"13b forward with moe_mesh ({smi}): logits == without; "
+        f"{json.dumps(t)}")
+    del params, batch
+    torch.cuda.empty_cache()
+    return counts, timings
+
+
+def dryrun_memory(torch, smi):
+    """Phase 13c: the dry run's per-device argument bytes on a 1x1 mesh for
+    qwen2.5-3b at phase 8b's serving shape (a decode step: parameters, a
+    cache of LM_PROMPT + LM_STEPS positions for LM_BATCH rows, the token)
+    against the growth of ``torch.cuda.memory_allocated()`` when those are
+    built on the card: within DRYRUN_REL_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import ShapeConfig, init_cache, init_params
+
+    mesh = make_host_mesh()
+    cfg = get_config(LM_ARCH)
+    shape = ShapeConfig("serve_8b", LM_PROMPT + LM_STEPS, LM_BATCH, "decode")
+    want = dryrun.argument_bytes(cfg, shape, mesh)
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    cache = init_cache(cfg, shape.global_batch, shape.seq_len, device=dev)
+    token = torch.zeros((shape.global_batch,), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    rel = abs(grown - want) / want
+    t = {"arch": cfg.name, "batch": shape.global_batch,
+         "cache_positions": shape.seq_len, "dryrun_argument_bytes": want,
+         "memory_allocated_growth": grown, "rel_diff": rel}
+    log(f"13c dry run vs the card ({smi}): {json.dumps(t)}")
+    assert rel <= DRYRUN_REL_TOL, f"13c: {rel:.4f} > {DRYRUN_REL_TOL}"
+    del params, cache, token
+    torch.cuda.empty_cache()
+    return t
+
+
+def sharded_phase(torch, kops, ref, kernel_rows):
+    """Phase 13: the sharded slice in a world of one rank (one card: NCCL
+    cannot put two ranks on one GPU, so each exchange moves nothing, while
+    the code, the communicator and the kernels all run at full width)."""
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    with nccl_world(torch):
+        counts_dj, join_t, probe_cases = sharded_joins(
+            torch, kops, ref, kernel_rows, smi)
+        counts_ep, moe_t = sharded_moe(torch, kops, smi)
+        mem_t = dryrun_memory(torch, smi)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s ({smi})")
+    return counts_dj, counts_ep, probe_cases, {
+        "joins": join_t, "moe": moe_t, "dryrun": mem_t}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3111,6 +3413,12 @@ def main(argv=None) -> int:
     counts_train, _ = train_lm(torch, kops)
     recovery_drill(torch)
 
+    # 13. the sharded slice on nccl at world size 1: the distributed join
+    # (TPC-DS SF1), the expert-parallel MoE at full width, the dry run's
+    # accounting against the card's memory
+    counts_dj, counts_ep, dj_cases, _ = sharded_phase(torch, kops, ref,
+                                                      kernel_rows)
+
     # the kernel phase: the kernel cases of 4-7 on untimed replays of the
     # paths, then every case's device time (a profiler session slows the
     # host's later launches, so it comes after every CUDA-event timing)
@@ -3155,6 +3463,7 @@ def main(argv=None) -> int:
     # against its plain version, the largest and most frequent operands
     # timed
     refresh_cases = collections.defaultdict(list)
+    refresh_cases["sorted_probe"] += dj_cases
 
     def replays():        # one path's recorded operands alive at a time
         for path, calls in replay_refresh(torch, kops, ExtractionEngine,
@@ -3198,7 +3507,8 @@ def main(argv=None) -> int:
     add_device_times(torch, flash_rows, "flash_attention",
                      flash_cases(torch, kops, ref))
     del bloom_cases, probe_cases, probe_pairs, segment_cases, \
-        frontier_cases, refresh_cases, tpcds, dblp, oj_csr, mv_csr
+        frontier_cases, refresh_cases, dj_cases, tpcds, dblp, oj_csr, \
+        mv_csr
     torch.cuda.empty_cache()
     profile_train_step(torch)
 
@@ -3207,7 +3517,8 @@ def main(argv=None) -> int:
                "lm_serve": counts_lm, **counts_families,
                "js_oj_refresh": counts_oj_ref,
                "js_mv_refresh": counts_mv_ref, **counts_disc,
-               "graph_service": counts_svc, **counts_train}
+               "graph_service": counts_svc, **counts_train,
+               "distributed_join": counts_dj, "sharded_moe": counts_ep}
     kernel_rows += graph_rows + flash_rows
     untimed = [(row["name"], case["shape"]) for row in kernel_rows
                for case in row["cases"] if case["device_ms"] is None]

@@ -1,0 +1,404 @@
+"""Multi-pod dry run: every (arch x shape x mesh) cell's per-device
+accounting on a fake process group (the port of ``repro.launch.dryrun``).
+
+Run:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
+        [--shape S] [--multi-pod] [--both-meshes] [--out dryrun_results]
+
+A cell builds the production mesh (16x16 ``("data", "model")``, or
+2x16x16 with ``"pod"``) on a ``fake`` process group of 256 or 512 ranks,
+places every input by ``launch.sharding``'s rules, and runs the step once
+on ``meta`` tensors at the global shapes (no memory, no device).  Nothing
+here compiles, so each field of the JAX report
+(``repro/launch/dryrun.py``) is filled as follows, per device:
+
+  * ``argument_bytes``: the exact sum of the local blocks the placements
+    give the step's arguments: parameters (``params_shardings``, ZeRO-1 or
+    -3 by ``zero_policy``), the optimizer state (AdamW's step, and m and v
+    in float32 under the ZeRO-3 placements) and the batch for train;
+    parameters and batch for prefill; parameters, cache
+    (``cache_shardings``) and the token (whole on every rank) for decode.
+  * ``output_bytes``: the local blocks of the outputs: parameters and
+    optimizer state (train); the last logits (B, V) float32, whole, and the
+    cache (prefill, decode).
+  * ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the step
+    at the global shapes (matmul, bmm and convolution FLOPs, 2 M N K; no
+    elementwise FLOPs, as the reference's HLO count), divided by the chips.
+    The step is the single-program one: ``make_train_step`` (forward,
+    recompute, backward and the AdamW update over ``microbatches_for``
+    microbatches), or ``prefill``/``decode_step`` with the MoE as
+    ``moe_ffn`` at the global capacity.
+  * ``bytes_accessed``: every operation of that run reads each tensor
+    operand in full and writes each output in full (view operations move
+    nothing), summed and divided by the chips: the traffic of the unfused
+    eager program, an upper bound of what a fused one moves.
+  * ``temp_bytes``: null.  There is no compiler's buffer assignment to
+    read it from, and no reckoning of the live activations is made.
+  * ``collective_bytes`` (each collective's output bytes, as the
+    reference's HLO count), reckoned from the placements and the policy:
+      - ``all-gather``: each parameter sharded over the dp axes is gathered
+        over them (its block with the dp axes whole): per microbatch twice
+        in training (the forward, and the backward with remat's
+        recompute), once a prefill or decode step.  Under ZeRO-1 the
+        updated parameters are gathered once a step instead.
+      - ``reduce-scatter`` (train): each gradient, per microbatch, onto the
+        optimizer state's ZeRO-3 block, in float32 (the accumulation
+        type).
+      - ``all-to-all``: where the expert-parallel rule holds ((B S) divides
+        by the shards), each MoE layer's two exchanges of (E, cap, D) bf16
+        (cap from the tokens a shard routes), times 3 in training (the
+        forward, remat's recompute, the backward).
+      - not reckoned: tensor-parallel activation collectives, sequence
+        parallelism's K/V gathers, the EP combine's all-gather over
+        ``model``, and the MoE's collectives where the EP rule fails.
+      - ``total``: their sum.
+
+The run also records the activation placements the model makes
+(``layers.recording_placements``; the prefill and decode steps take
+``act_sharding``'s fields, the train step takes none yet) and reports the
+largest per-device block of each field under ``activations``.
+
+Nothing happens at import: no environment variable, no process group.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import time
+from typing import Any, Dict
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.launch.input_specs import (
+    batch_specs,
+    cache_specs,
+    cell_is_applicable,
+    token_spec,
+)
+from repro_torch.launch.mesh import (
+    PRODUCTION_SHAPE,
+    axes_size,
+    dp_axes,
+    make_production_mesh,
+)
+from repro_torch.launch.sharding import (
+    act_sharding,
+    batch_shardings,
+    cache_shardings,
+    local_bytes,
+    params_shardings,
+    zero_policy,
+)
+from repro_torch.models import SHAPES, abstract_params
+from repro_torch.models.config import ArchConfig, ShapeConfig
+from repro_torch.models.decode import decode_step, prefill
+from repro_torch.models.layers import recording_placements
+from repro_torch.training.optim import AdamW
+from repro_torch.training.train_step import TrainStepConfig, make_train_step
+
+
+def microbatches_for(arch: str) -> int:
+    # the JAX package's table: more microbatches = smaller activations but
+    # one more round of FSDP weight traffic per microbatch
+    return {"qwen3-moe-235b-a22b": 8, "llama4-scout-17b-a16e": 8,
+            "recurrentgemma-9b": 4, "seamless-m4t-medium": 4,
+            "h2o-danube-3-4b": 4, "qwen2.5-3b": 4,
+            "xlstm-1.3b": 8}.get(arch, 2)
+
+
+@contextlib.contextmanager
+def fake_world(ranks: int):
+    """A ``fake`` default process group of ``ranks`` ranks (collectives do
+    nothing), destroyed on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already "
+                           "initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=ranks)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _map2(fn, tree, specs):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _map2(fn, tree[k], specs[k])]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # AdamWState
+        return [x for f in tree._fields
+                for x in _map2(fn, getattr(tree, f), getattr(specs, f))]
+    return [fn(tree, specs)]
+
+
+def tree_local_bytes(tree, specs, mesh) -> int:
+    """Bytes of this rank's blocks of a tree of tensors under a tree of
+    placements of the same keys."""
+    return sum(_map2(lambda t, s: local_bytes(tuple(t.shape), t.dtype, s,
+                                              mesh), tree, specs))
+
+
+def _whole(tree):
+    """Placements that keep every tensor of ``tree`` whole."""
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_whole(v) for v in tree))
+    return (None,) * tree.dim()
+
+
+def cell_arguments(cfg: ArchConfig, shape: ShapeConfig, mesh) -> Dict:
+    """{role: (meta tree, placement tree)} of the step's arguments: what
+    ``argument_bytes`` sums."""
+    aparams = abstract_params(cfg)
+    out = {"params": (aparams, params_shardings(aparams, mesh, cfg))}
+    if shape.kind == "train":
+        aopt = AdamW().init(aparams)
+        z3 = params_shardings(aparams, mesh, cfg, policy="zero3")
+        out["opt_state"] = (aopt, type(aopt)(step=(), m=z3, v=z3))
+    if shape.kind in ("train", "prefill"):
+        out["batch"] = (batch_specs(cfg, shape, shape.kind == "train"),
+                        batch_shardings(cfg, mesh, shape.global_batch,
+                                        shape.kind))
+    else:
+        acache = cache_specs(cfg, shape)
+        out["cache"] = (acache, cache_shardings(acache, cfg, mesh,
+                                                shape.global_batch))
+        tok = token_spec(shape)
+        out["token"] = (tok, _whole(tok))
+    return out
+
+
+def argument_bytes(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                   args=None) -> int:
+    """Per-device bytes of the step's arguments (see the module
+    docstring)."""
+    args = args or cell_arguments(cfg, shape, mesh)
+    return sum(tree_local_bytes(t, s, mesh) for t, s in args.values())
+
+
+def output_bytes(cfg: ArchConfig, shape: ShapeConfig, mesh, args) -> int:
+    """Per-device bytes of the step's outputs (see the module docstring;
+    the prefill's cache takes the placements without the head_dim
+    fallback, as the reference's ``for_decode=False``)."""
+    if shape.kind == "train":
+        return sum(tree_local_bytes(*args[r], mesh)
+                   for r in ("params", "opt_state"))
+    cache = cache_specs(cfg, shape)
+    specs = cache_shardings(cache, cfg, mesh, shape.global_batch,
+                            for_decode=shape.kind == "decode")
+    return shape.global_batch * cfg.vocab_size * 4 + \
+        tree_local_bytes(cache, specs, mesh)
+
+
+def _dp_whole(spec, dp):
+    """A placement with the dp axes dropped (the block after gathering
+    over them)."""
+    def entry(e):
+        if e is None:
+            return None
+        axes = (e,) if isinstance(e, str) else tuple(e)
+        kept = tuple(a for a in axes if a not in dp)
+        return kept or None
+    return tuple(entry(e) for e in spec)
+
+
+def _ep_exchange_bytes(cfg: ArchConfig, tokens: int, mesh) -> int:
+    """Output bytes of one MoE layer's two all_to_alls on one rank, or 0
+    where the expert-parallel rule does not hold for ``tokens``."""
+    shards = axes_size(mesh, "model") * axes_size(mesh, dp_axes(mesh))
+    if cfg.moe is None or tokens % shards or tokens // shards < 1:
+        return 0
+    spec = cfg.moe
+    t_me = tokens // shards
+    cap = max(8, ((int(math.ceil(spec.capacity_factor * t_me * spec.top_k
+                                 / spec.num_experts)) + 7) // 8) * 8)
+    return 2 * spec.num_experts * cap * cfg.d_model * 2        # bf16
+
+
+def collective_bytes(cfg: ArchConfig, shape: ShapeConfig, mesh, args,
+                     microbatches: int) -> Dict[str, int]:
+    """The reckoning of the module docstring, per device."""
+    dp = dp_axes(mesh)
+    aparams, p_sh = args["params"]
+    train = shape.kind == "train"
+    policy = zero_policy(cfg)
+
+    def gather(t, spec):          # a dp-sharded leaf's gathered block
+        whole = _dp_whole(spec, dp)
+        return 0 if whole == tuple(spec) else local_bytes(
+            tuple(t.shape), t.dtype, whole, mesh)
+
+    fsdp = sum(_map2(gather, aparams, p_sh))
+    if train:
+        z3 = args["opt_state"][1].m
+        grads = sum(_map2(lambda t, s: local_bytes(
+            tuple(t.shape), torch.float32, s, mesh), aparams, z3))
+        if policy == "zero1":
+            all_gather = tree_local_bytes(aparams, p_sh, mesh)
+        else:
+            all_gather = 2 * microbatches * fsdp
+        reduce_scatter = microbatches * grads
+        tokens = shape.global_batch // microbatches * shape.seq_len
+        a2a = 3 * microbatches * cfg.num_layers * _ep_exchange_bytes(
+            cfg, tokens, mesh)
+    else:
+        all_gather, reduce_scatter = fsdp, 0
+        tokens = shape.global_batch * (
+            shape.seq_len if shape.kind == "prefill" else 1)
+        a2a = cfg.num_layers * _ep_exchange_bytes(cfg, tokens, mesh)
+    out = {"all-gather": all_gather, "reduce-scatter": reduce_scatter,
+           "all-to-all": a2a}
+    out["total"] = sum(out.values())
+    return out
+
+
+class _Traffic(TorchDispatchMode):
+    """Bytes every operation reads and writes (its tensor operands and
+    outputs in full; views move nothing)."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view:
+            for t in tree_flatten((args, kwargs, out))[0]:
+                if isinstance(t, torch.Tensor):
+                    self.bytes += t.numel() * t.element_size()
+        return out
+
+
+def run_step(cfg: ArchConfig, shape: ShapeConfig, args, sh,
+             microbatches: int):
+    """The step once on the ``meta`` arguments at the global shapes:
+    (FLOPs, bytes accessed, placement records)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter, traffic = FlopCounterMode(display=False), _Traffic()
+    with counter, traffic, recording_placements() as placed:
+        params = args["params"][0]
+        if shape.kind == "train":
+            step = make_train_step(
+                cfg, AdamW(), TrainStepConfig(microbatches=microbatches))
+            step(params, args["opt_state"][0], args["batch"][0])
+        elif shape.kind == "prefill":
+            prefill(params, cfg, args["batch"][0], max_len=shape.seq_len,
+                    sh=sh)
+        else:
+            decode_step(params, cfg, args["cache"][0], args["token"][0],
+                        sh=sh)
+    return counter.get_total_flops(), traffic.bytes, placed
+
+
+def account(cfg: ArchConfig, shape: ShapeConfig, mesh,
+            microbatches: int = 1) -> Dict[str, Any]:
+    """Every per-device field of a cell's report on ``mesh``."""
+    chips = math.prod(int(n) for n in mesh.shape)
+    args = cell_arguments(cfg, shape, mesh)
+    seq = shape.seq_len if shape.kind != "decode" else None
+    sh = act_sharding(cfg, mesh, shape.global_batch, seq=seq)
+    # the step runs at the global shapes: the MoE as moe_ffn on the whole
+    # batch (see the module docstring), the placements only recorded
+    flops, traffic, placed = run_step(
+        cfg, shape, args, dataclasses.replace(sh, moe_mesh=None),
+        microbatches)
+    activations: Dict[str, int] = {}
+    for field, spec, shp, dtype in placed:
+        n = local_bytes(shp, dtype, spec, mesh)
+        activations[field] = max(activations.get(field, 0), n)
+    return {
+        "argument_bytes": argument_bytes(cfg, shape, mesh, args),
+        "output_bytes": output_bytes(cfg, shape, mesh, args),
+        "temp_bytes": None,
+        "flops": flops / chips,
+        "bytes_accessed": traffic / chips,
+        "flops_raw_costanalysis": None,
+        "collective_bytes": collective_bytes(cfg, shape, mesh, args,
+                                             microbatches),
+        "activations": activations,
+    }
+
+
+def lower_cell(arch: str, shape_name: str, multi_pod: bool) -> Dict[str, Any]:
+    """One cell's report, in the JAX report's schema (``compile_s`` is the
+    seconds of the accounting, the meta run included)."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    ok, why = cell_is_applicable(cfg, shape)
+    if not ok:
+        return {"arch": arch, "shape": shape_name,
+                "multi_pod": multi_pod, "status": "skipped", "reason": why}
+    chips = math.prod(PRODUCTION_SHAPE[multi_pod][0])
+    t0 = time.time()
+    with fake_world(chips):
+        mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+        per_device = account(cfg, shape, mesh, microbatches_for(arch))
+    return {
+        "arch": arch,
+        "shape": shape_name,
+        "multi_pod": multi_pod,
+        "status": "ok",
+        "chips": chips,
+        "compile_s": round(time.time() - t0, 1),
+        "per_device": per_device,
+        "params": cfg.n_params(),
+        "active_params": cfg.n_active_params(),
+        "tokens": shape.tokens if shape.kind != "decode"
+        else shape.global_batch,
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, choices=ARCH_IDS + [None])
+    ap.add_argument("--shape", default=None,
+                    choices=list(SHAPES) + [None])
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--out", default="dryrun_results")
+    args = ap.parse_args(argv)
+
+    archs = [args.arch] if args.arch else ARCH_IDS
+    shapes = [args.shape] if args.shape else list(SHAPES)
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+
+    os.makedirs(args.out, exist_ok=True)
+    failures = 0
+    for arch in archs:
+        for shape in shapes:
+            for mp in meshes:
+                tag = f"{arch}__{shape}__{'pod2' if mp else 'pod1'}"
+                try:
+                    rep = lower_cell(arch, shape, mp)
+                except Exception as e:  # a dry-run failure is a bug
+                    rep = {"arch": arch, "shape": shape, "multi_pod": mp,
+                           "status": "FAILED", "error": repr(e)[:500]}
+                    failures += 1
+                with open(os.path.join(args.out, tag + ".json"), "w") as f:
+                    json.dump(rep, f, indent=2)
+                status = rep["status"]
+                extra = ""
+                if status == "ok":
+                    pd = rep["per_device"]
+                    extra = (f" args={pd['argument_bytes'] / 2**30:.2f}GiB"
+                             f" flops={pd['flops']:.3g}"
+                             f" coll={pd['collective_bytes']['total'] / 2**30:.3f}GiB"
+                             f" accounting={rep['compile_s']}s")
+                print(f"[{status:>7}] {tag}{extra}", flush=True)
+    if failures:
+        raise SystemExit(f"{failures} dry-run cells FAILED")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,361 @@
+"""Placement rules: FSDP over ``data`` x TP over ``model`` x DP over ``pod``
+(the port of ``repro.launch.sharding``).
+
+A placement is a plain tuple with a ``PartitionSpec``'s meaning: one entry
+per tensor dimension, each ``None`` (whole), an axis name, or a tuple of
+axis names (sharded over their product, the first the most major).
+:func:`placements` turns one into ``Shard``/``Replicate`` per mesh
+dimension for ``DTensor``; :func:`shard_params` cuts a whole tree into
+this rank's local blocks.
+
+The rules, name patterns and divisibility tests are the JAX package's
+(``repro/launch/sharding.py``): a dimension is sharded only when it
+divides evenly by the axis size, otherwise it stays whole (internvl2's 14
+heads and odd 151655 vocabulary replicate over ``model`` while its FFN
+shards).
+
+  * weights:     second/contract dim -> model (TP), other large dim -> data
+                 (FSDP)
+  * MoE experts: expert dim -> model (EP), the FFN-hidden dim -> data
+  * activations: batch -> (pod, data), heads/ffn/expert dims -> model
+  * KV caches:   batch -> (pod, data); kv-head dim -> model when divisible
+
+Every function reads only a mesh's axis names and sizes
+(``launch.mesh.axis_sizes``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.launch.mesh import axes_size, axis_index, axis_sizes, \
+    dp_axes
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.model import ActSharding
+from repro_torch.models.moe import ep_specs
+
+Spec = Tuple[Any, ...]
+
+
+def _fits(dim: int, mesh, axes) -> bool:
+    n = axes_size(mesh, axes)
+    return dim % n == 0 and dim >= n
+
+
+ATTN_Q = ("wq", "bq")
+ATTN_KV = ("wk", "wv", "bk", "bv")
+ATTN_O = ("wo",)
+
+
+def param_spec(path: str, shape: Tuple[int, ...], mesh,
+               cfg: Optional[ArchConfig] = None,
+               dp_override=None) -> Spec:
+    """The placement of one parameter, by name pattern + divisibility.
+
+    Attention projections are TP-sharded over ``model`` only when the head
+    count divides the axis; head-indivisible architectures replicate the
+    attention weights over ``model`` and keep TP for the FFN (the JAX
+    package's reason: a head_dim shard makes every score einsum reduce a
+    (B, H, Sq, Sk) float32 tensor across ranks).
+    """
+    dp = dp_axes(mesh) if dp_override is None else dp_override
+    dp = dp if dp else None
+    stacked = "cycles" in path or "layers" in path  # leading cycle dim
+    lead = (None,) if stacked else ()
+    core = shape[1:] if stacked else shape
+
+    def ok(i, axes):
+        return _fits(core[i], mesh, axes)
+
+    name = path.rsplit("/", 1)[-1]
+    model_n = axis_sizes(mesh)["model"]
+    heads_div = cfg is not None and cfg.num_heads % model_n == 0
+    kv_div = cfg is not None and cfg.num_kv_heads % model_n == 0
+
+    if len(core) == 1:
+        return (*lead, None)                        # norms, biases, lam
+
+    if name in ("embed", "head"):
+        v_dim, d_dim = (0, 1) if name == "embed" else (1, 0)
+        spec = [None, None]
+        if ok(v_dim, "model"):
+            spec[v_dim] = "model"
+        if ok(d_dim, dp):
+            spec[d_dim] = dp
+        return tuple(spec)
+
+    if name in ("w_router",):
+        return (*lead, dp if ok(0, dp) else None, None)
+
+    if len(core) == 3:                              # MoE experts
+        # EP over model on the expert dim; the second shard goes on the
+        # FFN-hidden dim over data, not on d_model (the JAX package's
+        # measured reason: gathering d_model-sharded experts every
+        # microbatch costs ~30x the traffic)
+        e = "model" if ok(0, "model") else None
+        f_dim = 2 if name in ("w_gate", "w_up") else 1   # w_down: (E, F, D)
+        spec = [e, None, None]
+        if ok(f_dim, dp):
+            spec[f_dim] = dp
+        return (*lead, *spec)
+
+    if len(core) == 2:
+        if name in ATTN_Q or name in ATTN_KV or name in ATTN_O:
+            head_ok = kv_div if name in ATTN_KV else heads_div
+            out_side = name in ATTN_O
+            i, j = (0, 1) if out_side else (1, 0)
+            spec = [None, None]
+            if head_ok and ok(i, "model"):
+                spec[i] = "model"
+            if ok(j, dp):
+                spec[j] = dp
+            return (*lead, *spec)
+        # contract-dim heuristic: output-side matrices have the
+        # model-parallel dim first, input-side ones last
+        out_side = name in ("w_down", "w_out", "w_shared_down")
+        i, j = (0, 1) if out_side else (1, 0)
+        spec = [None, None]
+        if ok(i, "model"):
+            spec[i] = "model"
+        if ok(j, dp):
+            spec[j] = dp
+        return (*lead, *spec)
+
+    return (*lead, *(None,) * len(core))
+
+
+ZERO1_MAX_PARAMS = 2e9   # replicate weights over dp below this size
+
+
+def zero_policy(cfg: Optional[ArchConfig]) -> str:
+    """ZeRO-1 (weights replicated over dp, optimizer states sharded) for
+    models of at most 2e9 parameters, ZeRO-3 above (the JAX package's
+    measured trade: re-gathering a 2.5B model's weights every microbatch
+    costs far more traffic than holding a replica)."""
+    if cfg is None:
+        return "zero3"
+    return "zero1" if cfg.n_params() <= ZERO1_MAX_PARAMS else "zero3"
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def params_shardings(abstract, mesh, cfg: Optional[ArchConfig] = None,
+                     policy: Optional[str] = None):
+    """The tree of placements of a parameter tree (any tree of tensors
+    with ``.shape``; ``abstract_params``' meta tensors need no memory).
+
+    ``policy``: "zero3" shards weights over dp (the default for big
+    models), "zero1" replicates them over dp (optimizer states take
+    "zero3" regardless).  Sequence-parallel architectures
+    (head-indivisible) under ZeRO-1 replicate everything but the
+    embedding and head, as in JAX.
+    """
+    policy = policy or zero_policy(cfg)
+    dp_override = () if policy == "zero1" else None
+    seq_par_z1 = (policy == "zero1" and cfg is not None
+                  and cfg.num_heads % axis_sizes(mesh)["model"] != 0)
+
+    def visit(path, leaf):
+        pstr = "/".join(path)
+        name = pstr.rsplit("/", 1)[-1]
+        if seq_par_z1 and name not in ("embed", "head"):
+            return (None,) * len(leaf.shape)
+        return param_spec(pstr, tuple(leaf.shape), mesh, cfg,
+                          dp_override=dp_override)
+
+    return _map_with_path(visit, abstract)
+
+
+def act_sharding(cfg: ArchConfig, mesh, batch: int,
+                 seq: Optional[int] = None) -> ActSharding:
+    """Activation placements: TP on heads when they divide ``model``;
+    otherwise sequence parallelism (the sequence over ``model``) for
+    dense-attention shapes that pass ``seq``; the expert-parallel MoE on
+    ``mesh`` for MoE configurations.  The rules are the JAX package's,
+    with its reasons there."""
+    dp = dp_axes(mesh)
+    model_n = axis_sizes(mesh)["model"]
+    bdim = dp if batch % axes_size(mesh, dp) == 0 else None
+    heads_div = cfg.num_heads % model_n == 0
+    attn_only = all(k in ("attn", "swa") for k in cfg.layer_kinds())
+    seq_par = ((not heads_div) and attn_only and seq is not None
+               and seq % model_n == 0)
+    sdim = "model" if seq_par else None
+    heads = "model" if heads_div else None
+    ffn_div = cfg.d_ff % model_n == 0 and cfg.d_ff > 0
+    vocab_div = cfg.vocab_size % model_n == 0
+    kv_div = cfg.num_kv_heads % model_n == 0
+    return ActSharding(
+        hidden=(bdim, sdim, None),
+        heads=(bdim, sdim, heads, None),
+        kv=(bdim, sdim, "model" if kv_div else None, None),
+        ffn=(bdim, sdim, "model" if (ffn_div and not seq_par) else None),
+        expert=("model", None, None) if cfg.moe else None,
+        logits=(bdim, sdim if not vocab_div else None,
+                "model" if vocab_div else None),
+        moe_mesh=mesh if cfg.moe else None,
+        moe_dp_axes=dp if cfg.moe else (),
+    )
+
+
+def batch_shardings(cfg: ArchConfig, mesh, batch: int,
+                    kind: str) -> Dict[str, Spec]:
+    """Placements of the input batch: its rows over the dp axes."""
+    dp = dp_axes(mesh)
+    bdim = dp if batch % axes_size(mesh, dp) == 0 else None
+    out: Dict[str, Spec] = {"tokens": (bdim, None)}
+    if kind == "train":
+        out["labels"] = (bdim, None)
+    if cfg.frontend == "patch":
+        out["embeds"] = (bdim, None, None)
+    if cfg.frontend == "frames":
+        out["frames"] = (bdim, None, None)
+    return out
+
+
+def cache_shardings(cache_abstract, cfg: ArchConfig, mesh, batch: int,
+                    for_decode: bool = True):
+    """Placements of a cache tree: the batch over dp, kv-head or state
+    dims over ``model`` when divisible.  K/V whose heads do not divide
+    shard their head_dim instead, for decode only (``for_decode=False``,
+    the prefill's output, keeps head_dim whole), as in JAX."""
+    dp = dp_axes(mesh)
+    bdim = dp if batch % axes_size(mesh, dp) == 0 else None
+    model_n = axis_sizes(mesh)["model"]
+
+    def visit(path, leaf):
+        name = path[-1]
+        shape = tuple(leaf.shape)
+        if name == "pos":
+            return ()
+        lead = (None,) if "cycles" in path else ()
+        core = shape[1:] if lead else shape
+        if name in ("k", "v", "xk", "xv"):
+            if core[2] % model_n == 0:
+                return (*lead, bdim, None, "model", None)
+            dh = "model" if (for_decode and core[3] % model_n == 0) else None
+            return (*lead, bdim, None, None, dh)
+        if name == "c" and len(core) == 4:          # mLSTM (B, H, Dh, Dh)
+            dh = "model" if core[2] % model_n == 0 else None
+            return (*lead, bdim, None, dh, None)
+        if name == "n" and len(core) == 3:          # (B, H, Dh)
+            dh = "model" if core[2] % model_n == 0 else None
+            return (*lead, bdim, None, dh)
+        if name == "enc_out":
+            return (bdim, None, None)
+        if len(core) >= 2 and core[-1] % model_n == 0:
+            return (*lead, bdim, *(None,) * (len(core) - 2), "model")
+        return (*lead, bdim, *(None,) * (len(core) - 1))
+
+    return _map_with_path(visit, cache_abstract)
+
+
+def moe_param_specs(params, mesh, model_axis: str = "model"):
+    """Placements for a forward with ``ActSharding(moe_mesh=mesh)``: the
+    expert weights in ``moe_ffn_shard_map``'s layout (experts over
+    ``model_axis``, the FFN-hidden dim over the dp axes), every other
+    parameter whole on each rank."""
+    specs = ep_specs(dp_axes(mesh), model_axis)
+
+    def visit(path, leaf):
+        lead = (None,) if "cycles" in path or "layers" in path else ()
+        if "ffn" in path and path[-1] in ("w_gate", "w_up", "w_down") \
+                and leaf.dim() == len(lead) + 3:
+            return (*lead, *specs[path[-1]])
+        return (None,) * leaf.dim()
+
+    return _map_with_path(visit, params)
+
+
+# ---------------------------------------------------------------------------
+# placements on a mesh: DTensor's form, local shapes and blocks
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """``spec`` as ``DTensor`` placements, one per mesh dimension:
+    ``Shard(i)`` where the dimension shards tensor dim ``i``, else
+    ``Replicate()``.  An entry of several axes must list them in the mesh's
+    order (``DTensor`` shards a dim over mesh dims major to minor)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for i, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"placement {spec}: axes {axes} are not in the "
+                             f"mesh's order {names}")
+        for j in idx:
+            if not isinstance(out[j], Replicate):
+                raise ValueError(f"placement {spec}: axis {names[j]} used "
+                                 "twice")
+            out[j] = Shard(i)
+    return tuple(out)
+
+
+def local_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a ``shape`` tensor under ``spec``;
+    a sharded dimension must divide evenly (as ``shard_map`` asks)."""
+    if len(spec) > len(shape):
+        raise ValueError(f"placement {spec} has more entries than {shape}")
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        n = axes_size(mesh, _entry_axes(entry))
+        if out[i] % n:
+            raise ValueError(f"dim {i} of {shape} does not divide over "
+                             f"{entry} ({n} ranks)")
+        out[i] //= n
+    return tuple(out)
+
+
+def local_bytes(shape: Tuple[int, ...], dtype: torch.dtype, spec: Spec,
+                mesh) -> int:
+    """Bytes of one rank's block."""
+    return math.prod(local_shape(shape, spec, mesh)) * \
+        torch.empty((), dtype=dtype).element_size()
+
+
+def local_block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of a whole tensor ``x`` under ``spec`` (a copy
+    that owns its memory)."""
+    block = x
+    for i, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if not axes:
+            continue
+        n = axes_size(mesh, axes)
+        if x.shape[i] % n:
+            raise ValueError(f"dim {i} of {tuple(x.shape)} does not divide "
+                             f"over {entry} ({n} ranks)")
+        size = x.shape[i] // n
+        block = block.narrow(i, axis_index(mesh, axes) * size, size)
+    return block.clone(memory_format=torch.contiguous_format)
+
+
+def shard_params(params, mesh, specs):
+    """This rank's local blocks of a whole parameter tree (for example
+    ``params_from_jax``'s output), cut by a tree of placements of the same
+    keys (``params_shardings``, ``moe_param_specs``)."""
+    if isinstance(params, dict):
+        return {k: shard_params(v, mesh, specs[k]) for k, v in params.items()}
+    return local_block(params, specs, mesh)
+
+
+__all__ = ["param_spec", "zero_policy", "params_shardings", "act_sharding",
+           "batch_shardings", "cache_shardings", "moe_param_specs",
+           "placements", "local_shape", "local_bytes", "local_block",
+           "shard_params", "ZERO1_MAX_PARAMS"]

@@ -38,11 +38,11 @@ from repro_torch.models.model import (
     _layer_seq,
     _qkv,
     _take,
-    check_unsharded,
     embed_rows,
     embed_scale,
     layers_of,
     logits_of,
+    shard,
 )
 from repro_torch.relational.table import resolve_device
 
@@ -146,7 +146,8 @@ def _attn_step(p: P, cfg: ArchConfig, x, cache_kv, pos, kind: str):
     return out.reshape(b, 1, cfg.q_dim) @ p["wo"]
 
 
-def _layer_step(p: P, kind: str, cfg: ArchConfig, x, lc, pos):
+def _layer_step(p: P, kind: str, cfg: ArchConfig, x, lc, pos,
+                sh: Optional[ActSharding] = None):
     """One block for one token, its cache ``lc`` written in place.
     x: (B,1,D)."""
     h = rmsnorm(x, p["norm1"])
@@ -181,7 +182,7 @@ def _layer_step(p: P, kind: str, cfg: ArchConfig, x, lc, pos):
         xo = attention(q, lc["xk"], lc["xv"], pos.reshape(1, 1).expand(b, 1),
                        src_pos, causal=False)
         x = x + xo.reshape(b, 1, cfg.q_dim) @ p["xattn"]["wo"]
-    ffn = _ffn_apply(p, cfg, x)
+    ffn = _ffn_apply(p, cfg, x, sh)
     if ffn is not None:
         x = x + ffn
     return x
@@ -194,15 +195,16 @@ def decode_step(params: P, cfg: ArchConfig, cache: Dict[str, Any],
     The cache's tensors are updated in place; the returned cache holds them
     with ``pos`` advanced by one (``enc_out`` passed through).  Past the end
     of an ``attn`` cache (``pos >= max_len``) each step overwrites its last
-    slot, as in the reference.
+    slot, as in the reference.  ``sh``: see ``ActSharding`` (with
+    ``moe_mesh``, ``token`` and the cache are this rank's blocks of the
+    batch).
     """
-    check_unsharded(sh)
     pos = cache["pos"]
     x = embed_rows(params["embed"], token[:, None]).to(ACT_DTYPE)
     if cfg.name.startswith(("gemma", "recurrentgemma")):
         x = x * embed_scale(cfg)
     for p, kind, where in layers_of(params, cfg):
-        x = _layer_step(p, kind, cfg, x, _layer_of(cache, where), pos)
+        x = _layer_step(p, kind, cfg, x, _layer_of(cache, where), pos, sh)
     logits = logits_of(params, rmsnorm(x, params["final_norm"]))
     return logits[:, 0, :], dict(cache, pos=pos + 1)
 
@@ -238,23 +240,24 @@ def prefill(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     the prompt (and the encoder's frames) on a CUDA device and the plain
     attention on the CPU.  A prompt shorter than the RG-LRU's conv tail
     (``CONV_WIDTH - 1`` tokens) raises ``ValueError``: the reference leaves
-    that conv cache short, and its next decode step fails.
+    that conv cache short, and its next decode step fails.  ``sh``: see
+    ``ActSharding``.
     """
-    check_unsharded(sh)
     x, positions = _embed(params, cfg, batch)
+    x = shard(x, sh, "hidden")
     b, s, _ = x.shape
     if "rglru" in cfg.block_pattern and s < rec.CONV_WIDTH - 1:
         raise ValueError(
             f"prefill: a {s}-token prompt is shorter than the RG-LRU conv "
             f"state ({rec.CONV_WIDTH - 1} tokens)")
     use_kernel = kops.resolve_use_kernel(use_kernel, x.device)
-    enc_out = (_encode(params, cfg, batch["frames"], use_kernel)
+    enc_out = (_encode(params, cfg, batch["frames"], use_kernel, sh)
                if cfg.encoder is not None else None)
     src_len = enc_out.shape[1] if enc_out is not None else 0
     cache = init_cache(cfg, b, max_len, src_len, device=x.device)
     for p, kind, where in layers_of(params, cfg):
         x, state = _layer_seq(p, kind, cfg, x, positions, use_kernel,
-                              enc_out)
+                              enc_out, sh)
         _fill(_layer_of(cache, where), kind, state)
     cache["pos"] = torch.full((), s, dtype=torch.int32, device=x.device)
     if enc_out is not None:

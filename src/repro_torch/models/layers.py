@@ -11,8 +11,10 @@ to the order of the fp32 sums.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional
+import threading
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +24,30 @@ Params = Dict[str, torch.Tensor]
 ACT_DTYPE = torch.bfloat16
 
 _NEG = -1e30
+
+_PLACED = threading.local()           # .records: the open recorder
+
+
+@contextlib.contextmanager
+def recording_placements():
+    """Collect (field, placement, shape, dtype) of every activation the
+    model places (``ActSharding``'s fields) while the block runs, in call
+    order: the dry run's accounting."""
+    outer = getattr(_PLACED, "records", None)
+    _PLACED.records = records = []
+    try:
+        yield records
+    finally:
+        _PLACED.records = outer
+
+
+def place(x: torch.Tensor, spec: Any, field: str) -> torch.Tensor:
+    """A sharding constraint's counterpart on one rank: ``x`` unchanged;
+    ``spec`` recorded under ``field`` when a recorder is open."""
+    records = getattr(_PLACED, "records", None)
+    if spec is not None and records is not None:
+        records.append((field, spec, tuple(x.shape), x.dtype))
+    return x
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,

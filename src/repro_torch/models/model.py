@@ -31,6 +31,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
+from repro_torch.mesh_axes import axes_size
 from repro_torch.models import moe
 from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ArchConfig
@@ -41,6 +42,7 @@ from repro_torch.models.layers import (
     chunked_attention,
     dense_init,
     gated_mlp,
+    place,
     rmsnorm,
     rope,
 )
@@ -50,13 +52,19 @@ P = Dict[str, Any]
 
 @dataclasses.dataclass
 class ActSharding:
-    """Activation sharding constraints of the JAX package (None = none).
+    """Activation placements of the JAX package (None = unconstrained).
 
-    The port runs on one card, where every activation is whole; sharded
-    activations and the expert-parallel MoE (``moe_mesh``) come with the
-    sharded slice (ROADMAP.md §1, item 13: ``launch/``,
-    ``moe_ffn_shard_map``), and any field set here raises
-    ``NotImplementedError``.
+    ``hidden`` (B, S, D), ``heads`` (B, S, H, Dh), ``kv``, ``ffn``,
+    ``expert`` (E, C, D) and ``logits`` (B, S, V) are placement tuples
+    (``launch.sharding``): in JAX they are ``with_sharding_constraint``s,
+    which change no value, and here they change none either; a rank's
+    activations stay whole, and ``layers.recording_placements`` lets the
+    dry run account for them.  ``moe_mesh`` (a ``DeviceMesh``) sends every MoE
+    layer through the expert-parallel ``moe_ffn_shard_map`` over its
+    ``model`` axis and ``moe_dp_axes``: each rank then runs the model on
+    its block of the batch, with its blocks of the experts
+    (``launch.sharding.moe_param_specs``).  The training step takes no
+    sharded ``ActSharding`` yet (:func:`check_unsharded`).
     """
 
     hidden: Any = None
@@ -70,11 +78,20 @@ class ActSharding:
 
 
 def check_unsharded(sh: Optional[ActSharding]) -> None:
+    """The training step's guard: it takes no placement and no ``moe_mesh``
+    until the sharded train step (FSDP/ZeRO over ``DTensor``, ROADMAP.md
+    §1) is ported."""
     if sh is not None and any(dataclasses.astuple(sh)):
         raise NotImplementedError(
-            "sharded activations and the expert-parallel MoE are not "
-            "ported yet (ROADMAP.md §1, item 13: launch/, "
-            "moe_ffn_shard_map); the port runs on one card")
+            "the sharded train step (FSDP/ZeRO over DTensor, ROADMAP.md §1) "
+            "is not ported yet: make_train_step takes no sharded "
+            "ActSharding; forward, prefill and decode_step do")
+
+
+def shard(x: torch.Tensor, sh: Optional[ActSharding], field: str):
+    """``with_sharding_constraint``'s counterpart: ``x`` unchanged, its
+    placement ``getattr(sh, field)`` recorded (``layers.place``)."""
+    return place(x, getattr(sh, field) if sh is not None else None, field)
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +286,8 @@ def _cross_kv(p: P, cfg: ArchConfig, src):
 
 
 def _attn_apply(p: P, cfg: ArchConfig, x, positions, kind: str,
-                use_kernel: bool = False, causal: bool = True, kv=None):
+                use_kernel: bool = False, causal: bool = True, kv=None,
+                sh: Optional[ActSharding] = None):
     """Full-sequence attention block: self-attention, or cross-attention
     (non-causal, no RoPE) over ``kv = (k, v)`` from :func:`_cross_kv`.
     Returns (out, (k, v)): for self-attention the roped keys and the values
@@ -291,6 +309,7 @@ def _attn_apply(p: P, cfg: ArchConfig, x, positions, kind: str,
         causal = False
         k_pos = torch.arange(k.shape[1], dtype=torch.int32,
                              device=x.device).expand(b, k.shape[1])
+    q = shard(q, sh, "heads")
     window = cfg.window if kind == "swa" else None
     if use_kernel:
         out = kops.flash_attention(q, k, v, causal=causal, window=window)
@@ -300,29 +319,49 @@ def _attn_apply(p: P, cfg: ArchConfig, x, positions, kind: str,
     else:
         out = attention(q, k, v, positions, k_pos, causal=causal,
                         window=window)
+    out = shard(out, sh, "heads")
     return out.reshape(b, s, cfg.q_dim) @ p["wo"], (k, v)
 
 
-def _ffn_apply(p: P, cfg: ArchConfig, x):
+def _ffn_apply(p: P, cfg: ArchConfig, x, sh: Optional[ActSharding] = None):
     if "ffn" not in p:
         return None
     h = rmsnorm(x, p["norm2"])
     if cfg.moe is not None:
         lead = h.shape[:-1]
-        out = moe.moe_ffn(h.reshape(-1, h.shape[-1]), p["ffn"], cfg.moe)
+        x2 = h.reshape(-1, h.shape[-1])
+        if sh is not None and sh.moe_mesh is not None:
+            out = _moe_on_mesh(x2, p["ffn"], cfg, sh)
+        else:
+            out = moe.moe_ffn(x2, p["ffn"], cfg.moe,
+                              expert_sharding=getattr(sh, "expert", None))
         return out.reshape(*lead, -1)
     return gated_mlp(h, p["ffn"], cfg.mlp)
 
 
+def _moe_on_mesh(x2, p: P, cfg: ArchConfig, sh: ActSharding):
+    """The reference's rule (``repro/models/model.py:_ffn_apply``): the
+    expert-parallel path when the global tokens split evenly over the
+    ``model`` x dp shards, else ``moe_ffn`` on the whole batch.  ``x2`` is
+    this rank's (T / ndata, D) block."""
+    mesh, dp = sh.moe_mesh, tuple(sh.moe_dp_axes)
+    ndata = axes_size(mesh, dp)
+    shards = axes_size(mesh, "model") * ndata
+    t = x2.shape[0] * ndata
+    if t % shards == 0 and t // shards >= 1:
+        return moe.moe_ffn_shard_map(x2, p, cfg.moe, mesh, dp)
+    return moe.moe_ffn_gathered(x2, p, cfg.moe, mesh, dp)
+
+
 def _mixer_seq(p: P, kind: str, cfg: ArchConfig, h, positions,
-               use_kernel: bool):
+               use_kernel: bool, sh: Optional[ActSharding] = None):
     """A block's mixer over the normed sequence ``h``: (out, the layer's
     cache entries at the end of the sequence).  The RG-LRU's conv state is
     its last W - 1 inputs, ``h[:, -(W-1):] @ w_x`` (None for a shorter
     sequence, whose cache the reference leaves malformed)."""
     if kind in ("attn", "swa"):
         out, (k, v) = _attn_apply(p["attn"], cfg, h, positions, kind,
-                                  use_kernel)
+                                  use_kernel, sh=sh)
         return out, {"k": k, "v": v}
     if kind == "rglru":
         out, h_last = rec.rglru_seq(p["rglru"], h)
@@ -339,22 +378,23 @@ def _mixer_seq(p: P, kind: str, cfg: ArchConfig, h, positions,
 
 
 def _layer_seq(p: P, kind: str, cfg: ArchConfig, x, positions,
-               use_kernel: bool = False, enc_out=None):
+               use_kernel: bool = False, enc_out=None,
+               sh: Optional[ActSharding] = None):
     """One block, full sequence.  Returns (x, the layer's cache entries:
     see :func:`_mixer_seq`, plus ``xk``/``xv`` with cross-attention)."""
     h = rmsnorm(x, p["norm1"])
-    mixed, state = _mixer_seq(p, kind, cfg, h, positions, use_kernel)
+    mixed, state = _mixer_seq(p, kind, cfg, h, positions, use_kernel, sh)
     x = x + mixed
     if "xattn" in p:                 # cross-attention (decoder of enc-dec)
         xk, xv = _cross_kv(p["xattn"], cfg, enc_out)
         hx = rmsnorm(x, p["norm_x"])
         out, _ = _attn_apply(p["xattn"], cfg, hx, positions, "attn",
-                             use_kernel, kv=(xk, xv))
+                             use_kernel, kv=(xk, xv), sh=sh)
         x = x + out
         state.update(xk=xk, xv=xv)
-    ffn = _ffn_apply(p, cfg, x)
+    ffn = _ffn_apply(p, cfg, x, sh)
     if ffn is not None:
-        x = x + ffn
+        x = shard(x + ffn, sh, "hidden")
     return x, state
 
 
@@ -434,7 +474,8 @@ def layers_of(params: P, cfg: ArchConfig):
 
 
 def _encode(params: P, cfg: ArchConfig, frames: torch.Tensor,
-            use_kernel: bool = False) -> torch.Tensor:
+            use_kernel: bool = False,
+            sh: Optional[ActSharding] = None) -> torch.Tensor:
     """Encoder stack over precomputed frame embeddings (B, S_src, D): the
     audio frontend is a stub, as in JAX.  Non-causal self-attention."""
     x = frames.to(ACT_DTYPE)
@@ -445,9 +486,9 @@ def _encode(params: P, cfg: ArchConfig, frames: torch.Tensor,
     for lp in _unstacked(enc["layers"]):
         h = rmsnorm(x, lp["norm1"])
         out, _ = _attn_apply(lp["attn"], cfg, h, positions, "attn",
-                             use_kernel, causal=False)
+                             use_kernel, causal=False, sh=sh)
         x = x + out
-        ffn = _ffn_apply(lp, cfg, x)
+        ffn = _ffn_apply(lp, cfg, x, sh)
         if ffn is not None:
             x = x + ffn
     return rmsnorm(x, enc["final_norm"])
@@ -468,18 +509,21 @@ def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     rematerialized in the backward pass (``torch.utils.checkpoint``,
     non-reentrant), which keeps only its input, as the reference's
     ``jax.checkpoint`` with ``nothing_saveable``; tail layers are not.
+
+    ``sh``: see :class:`ActSharding`; with ``moe_mesh`` the batch and the
+    MoE parameters are this rank's blocks.
     """
-    check_unsharded(sh)
     x, positions = _embed(params, cfg, batch)
+    x = shard(x, sh, "hidden")
     use_kernel = kops.resolve_use_kernel(use_kernel, x.device)
-    enc_out = (_encode(params, cfg, batch["frames"], use_kernel)
+    enc_out = (_encode(params, cfg, batch["frames"], use_kernel, sh)
                if cfg.encoder is not None else None)
     pat = cfg.block_pattern
 
     def cycle(x, cp):
         for j, kind in enumerate(pat):
             x, _ = _layer_seq(cp[f"s{j}_{kind}"], kind, cfg, x, positions,
-                              use_kernel, enc_out)
+                              use_kernel, enc_out, sh)
         return x
 
     for cp in _unstacked(params["cycles"]):
@@ -491,6 +535,7 @@ def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     t = 0
     while f"tail_{t}" in params:
         x, _ = _layer_seq(params[f"tail_{t}"], pat[t], cfg, x, positions,
-                          use_kernel, enc_out)
+                          use_kernel, enc_out, sh)
         t += 1
-    return logits_of(params, rmsnorm(x, params["final_norm"]))
+    return shard(logits_of(params, rmsnorm(x, params["final_norm"])), sh,
+                 "logits")

@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import ActSharding, forward
+from repro_torch.models.model import ActSharding, check_unsharded, forward
 from repro_torch.training.optim import AdamW
 from repro_torch.training.tree import leaves, unflatten
 
@@ -73,7 +73,10 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
     turn.  The optimizer writes the new parameters and state into the
     given tensors (see ``optim``); ``metrics["loss"]`` is a 0-d float32
     tensor on the parameters' device (reading it waits for the step).
+    A sharded ``sh`` raises ``NotImplementedError``: the sharded train step
+    (FSDP/ZeRO over ``DTensor``) is not ported yet.
     """
+    check_unsharded(sh)
 
     def value_and_grad(params, mb):
         ps = leaves(params)

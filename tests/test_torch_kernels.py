@@ -283,8 +283,9 @@ def test_cpu_tensors_never_launch():
 
 def test_port_imports_no_jax_and_no_reference():
     """Every repro_torch module (the LM's models with MoE and the recurrent
-    mixers, configs and flash kernel, discovery and serving included)
-    imports without jax and without repro."""
+    mixers, configs and flash kernel, discovery, serving, launch and the
+    distributed join included) imports without jax and without repro, and
+    importing them initialises no process group."""
     code = (
         "import pkgutil, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
@@ -301,8 +302,14 @@ def test_port_imports_no_jax_and_no_reference():
         " 'repro_torch.discovery.evaluate',"
         " 'repro_torch.discovery.orchestrate',"
         " 'repro_torch.serving.quotas', 'repro_torch.serving.scheduler',"
-        " 'repro_torch.serving.snapshots', 'repro_torch.serving.service']\n"
+        " 'repro_torch.serving.snapshots', 'repro_torch.serving.service',"
+        " 'repro_torch.launch.mesh', 'repro_torch.launch.sharding',"
+        " 'repro_torch.launch.input_specs', 'repro_torch.launch.dryrun',"
+        " 'repro_torch.launch.roofline',"
+        " 'repro_torch.relational.distributed', 'repro_torch.mesh_axes']\n"
         "assert all(n in sys.modules for n in need), need\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

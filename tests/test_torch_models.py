@@ -404,16 +404,17 @@ def test_meta_params_match_abstract_params(arch):
 
 
 def test_expert_parallel_moe_raises():
-    """The MoE's expert-parallel path (``moe_mesh``) waits for the sharded
-    slice; every other family runs on one card."""
-    _, tc, _, tp, _, tb, _ = _setup("qwen3-moe-235b-a22b")
-    with pytest.raises(NotImplementedError, match="moe_ffn_shard_map"):
-        tmodels.forward(tp, tc, tb, sh=tmodels.ActSharding(moe_mesh="m"))
-    cache = tmodels.init_cache(tc, B, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmodels.decode_step(tp, tc, cache, torch.zeros(B, dtype=torch.int32),
-                            sh=tmodels.ActSharding(moe_mesh="m",
-                                                   moe_dp_axes=("data",)))
+    """The expert-parallel MoE (``moe_mesh``) serves now
+    (``tests/test_torch_moe_ep.py`` holds it against JAX); the training
+    step still raises on it until the sharded train step is ported."""
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import make_train_step
+
+    tc = tconfigs.get_smoke_config("qwen3-moe-235b-a22b")
+    for sh in (tmodels.ActSharding(moe_mesh="m"),
+               tmodels.ActSharding(moe_mesh="m", moe_dp_axes=("data",))):
+        with pytest.raises(NotImplementedError, match="sharded train step"):
+            make_train_step(tc, AdamW(), sh=sh)
 
 
 # ---------------------------------------------------------------------------
@@ -676,9 +677,25 @@ def test_every_attention_goes_through_the_flash_wrapper(arch, monkeypatch):
 
 
 def test_sharded_activations_raise():
+    """Activation placements change no value (JAX: sharding constraints):
+    ``forward`` with them equals ``forward`` without and records each one;
+    the training step raises on them until the sharded train step is
+    ported."""
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import make_train_step
+
     _, tc, _, tp, _, tb, _ = _setup("qwen2.5-3b")
+    dp = ("data",)
+    sh = tmodels.ActSharding(hidden=(dp, None, None),
+                             heads=(dp, None, "model", None),
+                             logits=(dp, None, "model"))
+    with tlayers.recording_placements() as placed:
+        got = tmodels.forward(tp, tc, tb, sh=sh)
+    assert torch.equal(got, tmodels.forward(tp, tc, tb))
+    assert {field for field, *_ in placed} == {"hidden", "heads", "logits"}
+    assert ("logits", sh.logits, tuple(got.shape), torch.float32) in placed
     with pytest.raises(NotImplementedError, match="sharded"):
-        tmodels.forward(tp, tc, tb, sh=tmodels.ActSharding(hidden="x"))
+        make_train_step(tc, AdamW(), sh=tmodels.ActSharding(hidden="x"))
     assert tmodels.forward(tp, tc, tb, sh=tmodels.ActSharding()).shape[1] \
         == S
 
