@@ -226,6 +226,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
    are built on the card.  Each part's times (the distributed path beside
    the single-device call, warm, CUDA events) are printed beside the
    card's name and power limit.
+14. The sharded train step, on ``nccl`` at world size 1 (phase 13's
+   ``nccl_world``; every gather and reduce-scatter a copy).  (a)
+   qwen2.5-3b at full width and depth, phase 12's B 2 x S 2,048, remat,
+   AdamW, one microbatch, on a 1x1 ``("data", "model")`` mesh (ZeRO-3 by
+   ``zero_policy``): one unsharded step from seeded parameters, a fresh
+   AdamW state and a seeded batch, its parameters and moments copied to
+   the host; then the same start as ``DTensor``s
+   (``training.sharded.shard_train_state``) and one sharded step
+   (``act_sharding``): the loss within ``TRAIN_REPEAT_RTOL`` and every
+   parameter and moment leaf bit-equal (else within
+   ``test_train_step_matches_jax``'s tolerances; the log says which held,
+   and anything else fails); then ``SHARDED_TRAIN_TIMED`` timed steps,
+   whose loss must fall: step ms, ``max_memory_allocated`` and the ratio
+   to phase 12's step.  (b) qwen3-moe-235b-a22b at full width cut to 1 of
+   94 layers (3.73 B parameters), B 1 x S 2,048, the expert-parallel MoE
+   (``moe_mesh``; its ``all_to_all`` and ``all_gather`` backwards on
+   ``nccl``), against the unsharded step (``moe_ffn``) alike.  (c) qwen2.5-3b
+   smoke: one sharded step, its ``DTensor`` state saved under ``build/``
+   (removed after) and restored onto the mesh with ``shardings`` and whole:
+   every leaf bit-equal.  No kernel launches in the train step (the plain
+   attention, as the JAX package's); the phase asserts 0 for all eight.
 
 The phases run in their order, each kernel case checked and timed with
 CUDA events where it stands.  Then a kernel phase: the kernel cases of 4-7
@@ -243,8 +264,8 @@ timing: after one, the host's launches are slower.
 
 Launch counters are set to 0 just before each of phases 4–7, 8b, each
 model of 8c, each refresh of phase 9, each discovery of phase 10,
-phase 11, 12's data plane, training and serving, and 13a's distributed
-joins and 13b's forward, and read just after;
+phase 11, 12's data plane, training and serving, 13a's distributed
+joins and 13b's forward, and 14's sharded steps, and read just after;
 every kernel of a path must have launched inside it.  The last
 lines are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
@@ -376,6 +397,17 @@ SHARDED_MOE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
 SHARDED_FORWARD = ("qwen3-moe-235b-a22b", 4)
 # (c) the dry run's argument bytes against the card's allocation
 DRYRUN_REL_TOL = 0.01
+# phase 14: the sharded train step on a world of one rank (nccl, one card).
+# (a) phase 12's model and shape, whole; (b) qwen3-moe at full width, cut
+# to 1 of its 94 layers (~3.73 B parameters: its state does not fit one
+# card at more), B 1 x S 2,048, with the expert-parallel MoE
+SHARDED_TRAIN_TIMED = 3
+SHARDED_TRAIN_MOE = ("qwen3-moe-235b-a22b", 1, 1, 2048)  # arch, layers, B, S
+# the tolerances of tests/test_torch_training.py::test_train_step_matches_jax
+# (moments to GRAD_TOL x their largest entry, v twice that; parameters to a
+# bf16 ulp where the gradient's sign is certain, 2 lr elsewhere), held where
+# the sharded step is not bit-equal to the unsharded one
+GRAD_TOL, BF16_ULP = 2.0**-5, 2.0**-7
 
 
 def log(*parts) -> None:
@@ -3233,6 +3265,263 @@ def sharded_phase(torch, kops, ref, kernel_rows):
         "joins": join_t, "moe": moe_t, "dryrun": mem_t}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the sharded train step on a world of one rank
+# ---------------------------------------------------------------------------
+
+def seeded_batch(torch, cfg, batch: int, seq: int, seed: int = 14):
+    """A batch of seeded token ids on the card (labels are the next
+    tokens)."""
+    import numpy as np
+
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks[:, :-1].copy()).cuda(),
+            "labels": torch.from_numpy(toks[:, 1:].copy()).cuda()}
+
+
+def timed_step(torch, step, params, state, batch):
+    """One step between two synchronizes: (params, state, loss, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, metrics = step(params, state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    return params, state, loss, (time.perf_counter() - t0) * 1e3
+
+
+def state_leaves(params, state):
+    """(key, tensor) of the parameters and AdamW moments, local blocks of
+    ``DTensor``s taken (on a 1x1 mesh each block is the whole tensor)."""
+    from repro_torch.training.tree import flatten
+
+    out = []
+    for prefix, tree in (("p", params), ("m", state.m), ("v", state.v)):
+        for path, t in flatten(tree):
+            t = t.to_local() if hasattr(t, "to_local") else t
+            out.append((prefix + "/" + "/".join(path), t))
+    return out
+
+
+def compare_states(torch, want, got, lr):
+    """The sharded step's parameters and moments (``got``, on the card)
+    against the unsharded step's (``want``, host copies): ``"bit-equal"``
+    if every leaf is, else ``"tolerances"`` if every leaf meets
+    GRAD_TOL / BF16_ULP as ``test_train_step_matches_jax`` holds them
+    (raises otherwise).  Returns (verdict, leaves not bit-equal)."""
+    got = dict(got)
+    unequal = [k for k, w in want if not torch.equal(got[k], w.cuda())]
+    if not unequal:
+        return "bit-equal", unequal
+    m_of = dict(want)
+    for key in unequal:
+        g = got[key].float().cpu()
+        w = m_of[key].float()
+        kind, name = key.split("/", 1)
+        if kind in ("m", "v"):
+            tol = GRAD_TOL * (2 if kind == "v" else 1)
+            assert torch.allclose(g, w, rtol=tol,
+                                  atol=tol * float(w.abs().max())), key
+        else:
+            m = m_of["m/" + name].float().abs()
+            sure = m > GRAD_TOL * float(m.max())
+            assert torch.allclose(g[sure], w[sure], rtol=BF16_ULP,
+                                  atol=0), key
+            assert torch.allclose(g, w, rtol=BF16_ULP, atol=2 * lr), key
+    return "tolerances", unequal
+
+
+def sharded_train_case(torch, kops, mesh, cfg, batch_size: int, seq: int,
+                       smi, label: str):
+    """Phase 14 (a)/(b): one unsharded step from seeded parameters, a fresh
+    AdamW state and a seeded batch, its parameters and moments kept on the
+    host; then the sharded step (``DTensor`` state on ``mesh``,
+    ``act_sharding``, the expert-parallel MoE where the model has one) from
+    the same parameters, state and batch: the loss within
+    TRAIN_REPEAT_RTOL and every leaf bit-equal (or, failing that, within
+    ``compare_states``' tolerances; the result says which held); then
+    SHARDED_TRAIN_TIMED timed steps.  Returns (launch counts of the
+    sharded steps, a record)."""
+    import numpy as np
+
+    from repro_torch.launch.sharding import act_sharding, zero_policy
+    from repro_torch.models import init_params
+    from repro_torch.training import sharded
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import (TrainStepConfig,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves
+
+    dev = torch.device("cuda")
+    opt = AdamW()
+    ts = TrainStepConfig(microbatches=1, remat=True)
+    batch = seeded_batch(torch, cfg, batch_size, seq)
+
+    def start():
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        return params, opt.init(params)
+
+    params, state = start()
+    n_params = sum(p.numel() for p in leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, loss_u, unsharded_ms = timed_step(
+        torch, make_train_step(cfg, opt, ts), params, state, batch)
+    peak_u = torch.cuda.max_memory_allocated()
+    want = [(k, t.cpu()) for k, t in state_leaves(params, state)]
+    del params, state
+    torch.cuda.empty_cache()
+
+    params, state = start()
+    params, state = sharded.shard_train_state(params, state, cfg, mesh)
+    step = make_train_step(cfg, opt, ts,
+                           sh=act_sharding(cfg, mesh, batch_size, seq))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    params, state, loss_s, first_ms = timed_step(torch, step, params, state,
+                                                 batch)
+    counts = kops.launch_counts()
+    peak_first = torch.cuda.max_memory_allocated()
+    assert np.isfinite(loss_s) and abs(loss_s - loss_u) <= \
+        TRAIN_REPEAT_RTOL * abs(loss_u), \
+        f"14{label}: sharded loss {loss_s!r} != unsharded {loss_u!r}"
+    verdict, unequal = compare_states(torch, want,
+                                      state_leaves(params, state), opt.lr)
+    del want
+    losses, step_ms = [loss_s], []
+    kops.reset_launch_counts()
+    for _ in range(SHARDED_TRAIN_TIMED):
+        params, state, loss, ms = timed_step(torch, step, params, state,
+                                             batch)
+        losses.append(loss)
+        step_ms.append(ms)
+    timed_counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(losses)), f"14{label}: losses {losses}"
+    assert losses[-1] < losses[0], f"14{label}: the loss did not fall"
+    for c in (counts, timed_counts):
+        assert not any(c.values()), \
+            f"14{label}: the train step launched kernels {c}"
+    record = {
+        "arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+        "policy": zero_policy(cfg), "mesh": dict(zip(
+            mesh.mesh_dim_names, (int(n) for n in mesh.shape))),
+        "batch": batch_size, "seq": seq, "remat": True,
+        "optimizer": "AdamW", "unsharded_loss": loss_u,
+        "sharded_loss": loss_s, "leaves": len(leaves(params)) * 3,
+        "result": verdict, "leaves_not_bit_equal": unequal[:10],
+        "unsharded_step_ms": unsharded_ms, "first_sharded_step_ms": first_ms,
+        "step_ms": step_ms, "losses": losses,
+        "unsharded_max_memory_gib": peak_u / 2**30,
+        "first_step_max_memory_gib": peak_first / 2**30,
+        "max_memory_allocated_gib": peak / 2**30}
+    log(f"14{label} sharded train step ({smi}): {json.dumps(record)}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return counts, record
+
+
+def sharded_checkpoint(torch, mesh, smi):
+    """Phase 14 (c): qwen2.5-3b smoke, one sharded step on ``mesh``, the
+    ``DTensor`` state saved (whole leaves, rank 0) under ``build/`` and
+    restored twice: with ``shardings`` onto the mesh (``DTensor``s of the
+    same placements) and whole onto the card; every leaf bit-equal to the
+    saved state.  The directory is removed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.sharding import (act_sharding, params_shardings,
+                                             same_layout, spec_of)
+    from repro_torch.models import init_params
+    from repro_torch.training import sharded
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.tree import flatten, leaves
+
+    dev = torch.device("cuda")
+    cfg = get_smoke_config(TRAIN_ARCH)
+    opt = AdamW()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    params, state = sharded.shard_train_state(params, opt.init(params), cfg,
+                                              mesh)
+    params, state, _ = make_train_step(
+        cfg, opt, sh=act_sharding(cfg, mesh, 2, 16))(
+            params, state, seeded_batch(torch, cfg, 2, 16))
+    tree = {"p": params, "o": state}
+    meta = init_params(cfg, device="meta")
+    like = {"p": meta, "o": opt.init(meta)}
+    specs = {"p": params_shardings(meta, mesh, cfg),
+             "o": sharded.state_specs(meta, mesh, cfg, like["o"])}
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_ckpt_",
+                           dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        CheckpointManager(tmp).save(1, tree, blocking=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        onto_mesh = CheckpointManager(tmp).restore(1, like, mesh=mesh,
+                                                   shardings=specs)
+        restore_s = time.perf_counter() - t0
+        whole = CheckpointManager(tmp).restore(1, like)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    saved = flatten(tree)
+    for (key, t), (_, r), (_, w) in zip(saved, flatten(onto_mesh),
+                                        flatten(whole)):
+        assert same_layout(spec_of(r), spec_of(t)), key
+        assert r.to_local().device.type == "cuda" == w.device.type, key
+        assert torch.equal(r.to_local(), t.to_local()), key
+        assert torch.equal(w, t.full_tensor()), key
+    record = {"arch": cfg.name, "leaves": len(leaves(tree)),
+              "save_s": save_s, "restore_s": restore_s}
+    log(f"14c sharded checkpoint ({smi}): saved and restored onto the "
+        f"mesh and whole, every leaf bit-equal: {json.dumps(record)}")
+    return record
+
+
+def sharded_train_phase(torch, kops, phase12_ms=None):
+    """Phase 14: the sharded train step in a world of one rank (nccl; each
+    collective is a copy while the code, the communicator and the model run
+    at full width): (a) qwen2.5-3b, phase 12's model and shape, (b)
+    qwen3-moe at full width cut to one layer with the expert-parallel MoE,
+    (c) a sharded checkpoint round trip.  Returns (launch counts, a
+    record)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    with nccl_world(torch):
+        mesh = make_host_mesh()
+        counts_a, dense = sharded_train_case(
+            torch, kops, mesh, get_config(TRAIN_ARCH), TRAIN_BATCH,
+            TRAIN_SEQ, smi, "a")
+        if phase12_ms:
+            dense["phase12_step_ms"] = phase12_ms
+            dense["ratio_to_phase12"] = (sum(dense["step_ms"])
+                                         / len(dense["step_ms"])
+                                         / phase12_ms)
+            log(f"14a: {dense['ratio_to_phase12']:.4f} x phase 12's "
+                f"{phase12_ms:.1f} ms a step ({smi})")
+        arch, layers, batch, seq = SHARDED_TRAIN_MOE
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        counts_b, moe_rec = sharded_train_case(torch, kops, mesh, cfg, batch,
+                                               seq, smi, "b")
+        ckpt = sharded_checkpoint(torch, mesh, smi)
+    counts = collections.Counter(counts_a)
+    counts.update(counts_b)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s ({smi})")
+    return dict(counts), {"dense": dense, "moe": moe_rec, "checkpoint": ckpt}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3410,7 +3699,7 @@ def main(argv=None) -> int:
 
     # 12. training: qwen2.5-3b at full width on DBLP walks, the recovery
     # drill at smoke size, then serving the trained parameters
-    counts_train, _ = train_lm(torch, kops)
+    counts_train, train_record = train_lm(torch, kops)
     recovery_drill(torch)
 
     # 13. the sharded slice on nccl at world size 1: the distributed join
@@ -3418,6 +3707,13 @@ def main(argv=None) -> int:
     # accounting against the card's memory
     counts_dj, counts_ep, dj_cases, _ = sharded_phase(torch, kops, ref,
                                                       kernel_rows)
+
+    # 14. the sharded train step on nccl at world size 1: qwen2.5-3b whole
+    # and a full-width qwen3-moe layer against the unsharded step, then a
+    # sharded checkpoint round trip
+    counts_st, _ = sharded_train_phase(
+        torch, kops, sum(train_record["step_ms"])
+        / len(train_record["step_ms"]))
 
     # the kernel phase: the kernel cases of 4-7 on untimed replays of the
     # paths, then every case's device time (a profiler session slows the
@@ -3518,7 +3814,8 @@ def main(argv=None) -> int:
                "js_oj_refresh": counts_oj_ref,
                "js_mv_refresh": counts_mv_ref, **counts_disc,
                "graph_service": counts_svc, **counts_train,
-               "distributed_join": counts_dj, "sharded_moe": counts_ep}
+               "distributed_join": counts_dj, "sharded_moe": counts_ep,
+               "sharded_train": counts_st}
     kernel_rows += graph_rows + flash_rows
     untimed = [(row["name"], case["shape"]) for row in kernel_rows
                for case in row["cases"] if case["device_ms"] is None]

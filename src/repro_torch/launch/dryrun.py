@@ -24,10 +24,14 @@ here compiles, so each field of the JAX report
   * ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the step
     at the global shapes (matmul, bmm and convolution FLOPs, 2 M N K; no
     elementwise FLOPs, as the reference's HLO count), divided by the chips.
-    The step is the single-program one: ``make_train_step`` (forward,
-    recompute, backward and the AdamW update over ``microbatches_for``
-    microbatches), or ``prefill``/``decode_step`` with the MoE as
-    ``moe_ffn`` at the global capacity.
+    The step is the single-program one: ``make_train_step`` on plain
+    tensors (forward, recompute, backward and the AdamW update over
+    ``microbatches_for`` microbatches), or ``prefill``/``decode_step``
+    with the MoE as ``moe_ffn`` at the global capacity.  The sharded train
+    step (``training.sharded``, over ``DTensor`` placements) computes the
+    same FLOPs spread over the ranks (its dense compute is replicated over
+    ``model``, so a rank of a mesh with ``model`` > 1 does more than this
+    count's share); its collectives are reckoned below.
   * ``bytes_accessed``: every operation of that run reads each tensor
     operand in full and writes each output in full (view operations move
     nothing), summed and divided by the chips: the traffic of the unfused
@@ -55,7 +59,8 @@ here compiles, so each field of the JAX report
 
 The run also records the activation placements the model makes
 (``layers.recording_placements``; the prefill and decode steps take
-``act_sharding``'s fields, the train step takes none yet) and reports the
+``act_sharding``'s fields; the train cells' single-program step takes
+none: the sharded step's placements are its parameters') and reports the
 largest per-device block of each field under ``activations``.
 
 Nothing happens at import: no environment variable, no process group.

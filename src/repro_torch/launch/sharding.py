@@ -5,8 +5,10 @@ A placement is a plain tuple with a ``PartitionSpec``'s meaning: one entry
 per tensor dimension, each ``None`` (whole), an axis name, or a tuple of
 axis names (sharded over their product, the first the most major).
 :func:`placements` turns one into ``Shard``/``Replicate`` per mesh
-dimension for ``DTensor``; :func:`shard_params` cuts a whole tree into
-this rank's local blocks.
+dimension for ``DTensor`` (:func:`spec_of` reads one back);
+:func:`shard_params` cuts a whole tree into this rank's local blocks and
+:func:`distribute` into ``DTensor``s; :func:`narrow_to` and
+:func:`gather_to` move a block between two placements.
 
 The rules, name patterns and divisibility tests are the JAX package's
 (``repro/launch/sharding.py``): a dimension is sharded only when it
@@ -30,8 +32,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import axes_size, axis_index, axis_sizes, \
-    dp_axes
+from repro_torch.launch.mesh import axes_size, axis_group, axis_index, \
+    axis_sizes, dp_axes
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import ActSharding
 from repro_torch.models.moe import ep_specs
@@ -346,6 +348,109 @@ def local_block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return block.clone(memory_format=torch.contiguous_format)
 
 
+def spec_of(t) -> Spec:
+    """The placement of a ``DTensor`` as a spec tuple (the inverse of
+    :func:`placements`): one entry per tensor dimension, ``None``, an axis
+    name, or a tuple of names in the mesh's order."""
+    names = list(t.device_mesh.mesh_dim_names)
+    per_dim = [[] for _ in range(t.ndim)]
+    for j, pl in enumerate(t.placements):
+        if pl.is_shard():
+            per_dim[pl.dim].append(names[j])
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in per_dim)
+
+
+def same_layout(a: Spec, b: Spec) -> bool:
+    """Whether two specs place every dimension alike (``"data"`` and
+    ``("data",)`` are one placement)."""
+    return len(a) == len(b) and all(
+        _entry_axes(x) == _entry_axes(y) for x, y in zip(a, b))
+
+
+def _relayout(a: Spec, b: Spec):
+    """(dim, axes of ``a``, axes of ``b``) of each dimension the two specs
+    place differently; one of the two must keep it whole."""
+    if len(a) != len(b):
+        raise ValueError(f"placements {a} and {b} have other ranks")
+    out = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        ax, ay = _entry_axes(x), _entry_axes(y)
+        if ax != ay:
+            if ax and ay:
+                raise ValueError(f"dim {i}: no relayout from {x} to {y}")
+            out.append((i, ax, ay))
+    return out
+
+
+def narrow_to(x: torch.Tensor, spec_from: Spec, spec_to: Spec,
+              mesh) -> torch.Tensor:
+    """This rank's block under ``spec_to`` of the block ``x`` it holds under
+    ``spec_from``, where ``spec_to`` only shards dimensions that
+    ``spec_from`` keeps whole: a view, no copy and no communication."""
+    for i, ax, ay in _relayout(spec_from, spec_to):
+        if ax:
+            raise ValueError(f"narrow_to: dim {i} is sharded over {ax} in "
+                             f"{spec_from}, whole in {spec_to}")
+        size = x.shape[i] // axes_size(mesh, ay)
+        if size * axes_size(mesh, ay) != x.shape[i]:
+            raise ValueError(f"dim {i} of {tuple(x.shape)} does not divide "
+                             f"over {ay}")
+        x = x.narrow(i, axis_index(mesh, ay) * size, size)
+    return x
+
+
+def gather_to(x: torch.Tensor, spec_from: Spec, spec_to: Spec,
+              mesh) -> torch.Tensor:
+    """The block under ``spec_to`` assembled from every rank's block ``x``
+    under ``spec_from`` (a tiled all-gather over each axis group that
+    ``spec_to`` drops; ``spec_to`` shards nothing ``spec_from`` keeps
+    whole).  Not recorded by autograd."""
+    from repro_torch.mesh_axes import all_gather
+
+    for i, ax, ay in _relayout(spec_from, spec_to):
+        if ay:
+            raise ValueError(f"gather_to: dim {i} is whole in {spec_from}, "
+                             f"sharded over {ay} in {spec_to}")
+        with torch.no_grad():
+            x = all_gather(x, axis_group(mesh, ax), i)
+    return x
+
+
+def owns_block(spec: Spec, mesh) -> bool:
+    """Whether this rank is the first of the ranks that hold the same block
+    under ``spec`` (coordinate 0 along every axis the spec does not
+    shard): a sum over distinct elements counts each block once."""
+    used = {a for e in spec for a in _entry_axes(e)}
+    coord = mesh.get_coordinate()
+    return all(c == 0 for name, c in zip(mesh.mesh_dim_names, coord)
+               if name not in used)
+
+
+def distribute(tree, specs, mesh):
+    """A tree of ``DTensor``s on ``mesh`` from a tree of whole tensors and a
+    tree of placements of the same keys (``params_shardings``; a spec
+    ``()`` for a 0-d tensor).  Each local block is a view of the whole
+    tensor where it can be (a 1x1 mesh copies nothing), else a copy."""
+    from torch.distributed.tensor import DTensor
+
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: distribute(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(distribute(getattr(tree, f), getattr(specs, f),
+                                       mesh) for f in tree._fields))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(distribute(v, s, mesh) for v, s in zip(tree,
+                                                                 specs))
+    whole = (None,) * tree.dim()
+    block = narrow_to(tree, whole, tuple(specs) + (None,) * (
+        tree.dim() - len(specs)), mesh).contiguous()
+    return DTensor.from_local(block, mesh, placements(specs, mesh),
+                              run_check=False)
+
+
 def shard_params(params, mesh, specs):
     """This rank's local blocks of a whole parameter tree (for example
     ``params_from_jax``'s output), cut by a tree of placements of the same
@@ -358,4 +463,5 @@ def shard_params(params, mesh, specs):
 __all__ = ["param_spec", "zero_policy", "params_shardings", "act_sharding",
            "batch_shardings", "cache_shardings", "moe_param_specs",
            "placements", "local_shape", "local_bytes", "local_block",
-           "shard_params", "ZERO1_MAX_PARAMS"]
+           "shard_params", "spec_of", "same_layout", "narrow_to",
+           "gather_to", "owns_block", "distribute", "ZERO1_MAX_PARAMS"]

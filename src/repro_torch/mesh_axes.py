@@ -2,10 +2,34 @@
 
 A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` (or a
 stand-in with ``mesh_dim_names`` and ``shape``).  The axis helpers read
-its axis names, sizes and this rank's coordinate; the two collectives are
+its axis names, sizes and this rank's coordinate; the collectives are
 ``jax.lax.all_to_all`` and a tiled ``jax.lax.all_gather`` over one axis's
-process group.  Both the models and the relational layer use them, and
-``repro_torch.launch.mesh`` re-exports the axis helpers.
+process group (or several axes' flattened group).  Both the models and
+the relational layer use them, and ``repro_torch.launch.mesh``
+re-exports the axis helpers.
+
+The collectives are differentiable (``torch.autograd.Function``s), with
+the adjoints a ``shard_map`` body's collectives get in JAX:
+
+  * :func:`all_to_all` (split = concat = dim 0): the same exchange of the
+    cotangent;
+  * :func:`all_gather` with ``adjoint="sum"``: a reduce-scatter (sum) of
+    the cotangent over the same group.  The ranks' consumers differ (other
+    tokens, other rows of a loss), so their contributions add: an FSDP
+    weight, the experts' F shard, a token block;
+  * :func:`all_gather` with ``adjoint="slice"``: this rank's slice of the
+    cotangent.  Every rank of the group computes the same thing from the
+    gathered tensor (the MoE's closing gather over ``model``, whose loss
+    every model rank computes redundantly); a reduce-scatter there would
+    scale the gradient by the group's size;
+  * :func:`sum_gradients`: the identity, whose cotangent is summed over
+    the group (an all-reduce): the entry of a replicated tensor that each
+    rank of the group uses for other work (its slice of the tokens, its
+    tokens' router logits).
+
+:func:`reduce_scatter` and :func:`all_reduce` are the plain collectives
+(not recorded by autograd) that the sharded train step reduces its
+gradients with.
 """
 from __future__ import annotations
 
@@ -57,10 +81,7 @@ def axes_size(mesh, axes) -> int:
     return math.prod(sizes[a] for a in axes)
 
 
-def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """``jax.lax.all_to_all(split_axis=0, concat_axis=0)``: block j of the
-    leading axis goes to rank j of ``group``; blocks arrive in rank
-    order."""
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     import torch.distributed as dist
 
     x = x.contiguous()            # empty_like keeps a view's strides
@@ -69,16 +90,110 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """``jax.lax.all_gather(..., axis=dim, tiled=True)`` over ``group``'s
-    ranks in order."""
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     import torch.distributed as dist
 
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ranks, cut along ``dim`` into
+    equal blocks in rank order: this rank's block (``psum_scatter(...,
+    scatter_dimension=dim, tiled=True)``).  Not recorded by autograd."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not divide over {n} ranks")
+    xm = x.detach().movedim(dim, 0).contiguous()
+    out = xm.new_empty((xm.shape[0] // n,) + tuple(xm.shape[1:]))
+    # the name of torch 2.13 and later, the other of the earlier ones
+    fn = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    fn(out, xm, group=group)
+    return out.movedim(0, dim)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ranks, in a new tensor.  Not
+    recorded by autograd."""
+    import torch.distributed as dist
+
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, adjoint):
+        ctx.group, ctx.dim, ctx.adjoint = group, dim, adjoint
+        ctx.size = x.shape[dim]
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        if ctx.adjoint == "sum":
+            out = reduce_scatter(g, ctx.group, ctx.dim)
+        else:
+            out = g.narrow(ctx.dim, dist.get_rank(ctx.group) * ctx.size,
+                           ctx.size)
+        return out, None, None, None
+
+
+class _SumGradients(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.all_to_all(split_axis=0, concat_axis=0)``: block j of the
+    leading axis goes to rank j of ``group``; blocks arrive in rank
+    order.  Its adjoint is the same exchange."""
+    return _AllToAll.apply(x, group)
+
+
+def all_gather(x: torch.Tensor, group, dim: int,
+               adjoint: str = "sum") -> torch.Tensor:
+    """``jax.lax.all_gather(..., axis=dim, tiled=True)`` over ``group``'s
+    ranks in order.  ``adjoint`` is ``"sum"`` (a reduce-scatter: the
+    ranks use the result for different work) or ``"slice"`` (this rank's
+    slice: every rank computes the same thing from it); see the module
+    docstring."""
+    if adjoint not in ("sum", "slice"):
+        raise ValueError(f"all_gather: adjoint {adjoint!r}")
+    return _AllGather.apply(x, group, dim, adjoint)
+
+
+def sum_gradients(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself; its gradient is summed over ``group`` (see the module
+    docstring)."""
+    return _SumGradients.apply(x, group)
 
 
 __all__ = ["axis_sizes", "axis_group", "axis_index", "axes_size",
-           "all_to_all", "all_gather"]
+           "all_to_all", "all_gather", "sum_gradients", "reduce_scatter",
+           "all_reduce"]

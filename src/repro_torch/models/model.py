@@ -63,8 +63,8 @@ class ActSharding:
     layer through the expert-parallel ``moe_ffn_shard_map`` over its
     ``model`` axis and ``moe_dp_axes``: each rank then runs the model on
     its block of the batch, with its blocks of the experts
-    (``launch.sharding.moe_param_specs``).  The training step takes no
-    sharded ``ActSharding`` yet (:func:`check_unsharded`).
+    (``launch.sharding.moe_param_specs``).  The sharded train step
+    (``training.sharded``) takes the same ``ActSharding``.
     """
 
     hidden: Any = None
@@ -75,17 +75,6 @@ class ActSharding:
     logits: Any = None
     moe_mesh: Any = None
     moe_dp_axes: Any = ()
-
-
-def check_unsharded(sh: Optional[ActSharding]) -> None:
-    """The training step's guard: it takes no placement and no ``moe_mesh``
-    until the sharded train step (FSDP/ZeRO over ``DTensor``, ROADMAP.md
-    §1) is ported."""
-    if sh is not None and any(dataclasses.astuple(sh)):
-        raise NotImplementedError(
-            "the sharded train step (FSDP/ZeRO over DTensor, ROADMAP.md §1) "
-            "is not ported yet: make_train_step takes no sharded "
-            "ActSharding; forward, prefill and decode_step do")
 
 
 def shard(x: torch.Tensor, sh: Optional[ActSharding], field: str):
@@ -494,10 +483,32 @@ def _encode(params: P, cfg: ArchConfig, frames: torch.Tensor,
     return rmsnorm(x, enc["final_norm"])
 
 
+class _Gathered:
+    """The top-level subtrees of ``params`` (all but ``cycles``), each
+    turned whole by ``gather(subtree, (key,), None)`` at its first use in
+    one forward and reused after (a tied embedding is gathered once, for
+    the lookup and the head)."""
+
+    def __init__(self, params: P, gather: Callable):
+        self._params, self._gather, self._done = params, gather, {}
+
+    def __getitem__(self, key):
+        if key not in self._done:
+            self._done[key] = self._gather(self._params[key], (key,), None)
+        return self._done[key]
+
+    def __contains__(self, key) -> bool:
+        return key in self._params
+
+    def get(self, key, default=None):
+        return self[key] if key in self._params else default
+
+
 def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             sh: Optional[ActSharding] = None,
             use_kernel: Optional[bool] = None,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False,
+            gather: Optional[Callable] = None) -> torch.Tensor:
     """Full-sequence float32 logits (B, S, V).
 
     ``batch``: ``tokens`` (B, S) int, plus ``embeds`` (patch frontend) or
@@ -512,7 +523,20 @@ def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 
     ``sh``: see :class:`ActSharding`; with ``moe_mesh`` the batch and the
     MoE parameters are this rank's blocks.
+
+    ``gather`` (the sharded train step, ``training.sharded``): ``params``
+    holds this rank's stored blocks, and ``gather(subtree, path, cycle)``
+    returns the tensors the layers compute with.  Each cycle's subtree
+    (views of cycle ``cycle`` of the stacked blocks under ``("cycles",)``)
+    is gathered at the start of the cycle, inside the rematerialized
+    function: under ``remat`` it is gathered again in the recompute and
+    freed after the cycle (FSDP).  Every other top-level subtree (the
+    embedding, the head, the final norm, tail layers, the encoder) is
+    gathered where it is first used (``cycle`` None).
     """
+    raw = params
+    if gather is not None:
+        params = _Gathered(raw, gather)
     x, positions = _embed(params, cfg, batch)
     x = shard(x, sh, "hidden")
     use_kernel = kops.resolve_use_kernel(use_kernel, x.device)
@@ -520,18 +544,20 @@ def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                if cfg.encoder is not None else None)
     pat = cfg.block_pattern
 
-    def cycle(x, cp):
+    def cycle(x, cp, i):
+        if gather is not None:
+            cp = gather(cp, ("cycles",), i)
         for j, kind in enumerate(pat):
             x, _ = _layer_seq(cp[f"s{j}_{kind}"], kind, cfg, x, positions,
                               use_kernel, enc_out, sh)
         return x
 
-    for cp in _unstacked(params["cycles"]):
+    for i, cp in enumerate(_unstacked(raw["cycles"])):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(cycle, x, cp,
+            x = torch.utils.checkpoint.checkpoint(cycle, x, cp, i,
                                                   use_reentrant=False)
         else:
-            x = cycle(x, cp)
+            x = cycle(x, cp, i)
     t = 0
     while f"tail_{t}" in params:
         x, _ = _layer_seq(params[f"tail_{t}"], pat[t], cfg, x, positions,

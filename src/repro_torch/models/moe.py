@@ -14,7 +14,9 @@ per rank on its token block and expert blocks: the same routing
 ``all_to_all_single``s over ``model`` and tiled ``all_gather``s of the
 F-sharded experts over the dp axes, as the reference's ``shard_map``.
 ``moe_ffn_gathered`` is the reference's other branch (``moe_ffn`` on the
-whole batch) for a rank that holds only blocks.
+whole batch) for a rank that holds only blocks.  Both are differentiable
+with the adjoints of the reference's ``shard_map`` (``mesh_axes``): the
+sharded train step's gradients pass through them.
 
 Routing is discontinuous: two runs whose hidden states differ by a bf16
 ulp (the flash kernel against the plain attention, or two compilers) pick
@@ -34,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.mesh_axes import (all_gather, all_to_all, axes_size,
-                                  axis_group, axis_index)
+                                  axis_group, axis_index, sum_gradients)
 from repro_torch.models.config import MoESpec
 from repro_torch.models.layers import dense_init, place
 
@@ -242,6 +244,13 @@ def moe_ffn_shard_map(x: torch.Tensor, p: Dict[str, torch.Tensor],
         adds it in fp32 before its cast).  With top-k > 1 the two can
         differ by a rounding; with top-1 the gate is exactly 1, the routed
         sum is one bf16 value, and the two agree bit for bit.
+
+    Gradients, as the transpose of the reference's ``shard_map``: every
+    model rank computes the loss from the gathered block, so the closing
+    gather's adjoint is this rank's slice; the token block and the router
+    enter through :func:`mesh_axes.sum_gradients` over ``model`` (each
+    model rank routes other tokens, so their cotangents add); the experts'
+    dp gather reduce-scatters its cotangent over the dp axes.
     """
     nmodel = axes_size(mesh, model_axis)
     ndata = axes_size(mesh, tuple(dp_axes))
@@ -264,8 +273,9 @@ def moe_ffn_shard_map(x: torch.Tensor, p: Dict[str, torch.Tensor],
     dp_group = axis_group(mesh, tuple(dp_axes))
 
     my = axis_index(mesh, model_axis)
-    x_me = x[my * t_me:(my + 1) * t_me]
-    logits = x_me.to(torch.float32) @ p["w_router"]
+    x_me = sum_gradients(x, model_group)[my * t_me:(my + 1) * t_me]
+    w_router = sum_gradients(p["w_router"], model_group)
+    logits = x_me.to(torch.float32) @ w_router
     sendbuf, st, slot, keep, sg = _local_dispatch(x_me, logits, spec, cap)
     recv = all_to_all(sendbuf.reshape(nmodel, e_local, cap, d), model_group)
     xe = recv.transpose(0, 1).reshape(e_local, nmodel * cap, d)
@@ -281,7 +291,7 @@ def moe_ffn_shard_map(x: torch.Tensor, p: Dict[str, torch.Tensor],
     y = y.reshape(e_local, nmodel, cap, d).transpose(0, 1)
     back = all_to_all(y, model_group)            # (nmodel, e_l, cap, D)
     out_me = _combine(back.reshape(e * cap, d), st, slot, keep, sg, t_me, k)
-    out = all_gather(out_me.to(x.dtype), model_group, 0)
+    out = all_gather(out_me.to(x.dtype), model_group, 0, adjoint="slice")
     if spec.shared_expert_dim:
         out = out + _shared(x, p)
     return out
@@ -294,13 +304,15 @@ def moe_ffn_gathered(x: torch.Tensor, p: Dict[str, torch.Tensor],
     that ``moe_ffn_shard_map`` takes: the reference's path when the tokens
     do not split over the shards (``moe_ffn`` on the global arrays).  The
     tokens are gathered over the dp axes and the experts over every axis,
-    and this rank's block of the output is returned."""
+    and this rank's block of the output is returned.  Every model rank
+    computes the same output, so the experts' gather over ``model`` takes
+    its slice of the cotangent; the dp gathers reduce-scatter theirs."""
     dp = tuple(dp_axes)
     dp_group, model_group = axis_group(mesh, dp), axis_group(mesh,
                                                               model_axis)
     whole = dict(p)
     for name, fdim in (("w_gate", 2), ("w_up", 2), ("w_down", 1)):
-        w = all_gather(p[name], model_group, 0)
+        w = all_gather(p[name], model_group, 0, adjoint="slice")
         whole[name] = w if dp_group is None else all_gather(w, dp_group,
                                                              fdim)
     xs = x if dp_group is None else all_gather(x, dp_group, 0)

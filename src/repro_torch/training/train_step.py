@@ -8,6 +8,11 @@
   * the cross-entropy's log-softmax runs in sequence chunks of
     ``XENT_CHUNK`` positions (plus a remainder chunk), as the reference.
 
+Parameters and optimizer state that are ``DTensor``s take the sharded
+step (``training.sharded``: FSDP/ZeRO over their placements, the
+expert-parallel MoE with ``sh.moe_mesh``); plain tensors the step below,
+on one device, where ``sh``'s placements are records that change no value.
+
 Attention: the step calls ``forward(..., use_kernel=False)``, the plain
 attention, on every device.  The JAX package's ``forward`` never calls its
 Pallas flash kernel (its attention is plain ``jnp``), and neither package
@@ -22,8 +27,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import ActSharding, check_unsharded, forward
+from repro_torch.models.model import ActSharding, forward
 from repro_torch.training.optim import AdamW
+from repro_torch.training.sharded import is_sharded, make_sharded_step
 from repro_torch.training.tree import leaves, unflatten
 
 XENT_CHUNK = 512
@@ -37,10 +43,11 @@ def _chunk_nll(lg: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
 
 
 def _chunked_xent(params, cfg: ArchConfig, batch, sh, remat: bool,
-                  chunk: int = XENT_CHUNK) -> torch.Tensor:
-    """Mean next-token loss, the log-softmax taken chunk by chunk."""
+                  chunk: int = XENT_CHUNK, gather=None) -> torch.Tensor:
+    """Mean next-token loss, the log-softmax taken chunk by chunk
+    (``gather``: ``forward``'s, for the sharded step)."""
     logits = forward(params, cfg, batch, sh=sh, use_kernel=False,
-                     remat=remat)
+                     remat=remat, gather=gather)
     labels = batch["labels"]
     s_tok = labels.shape[1]
     logits = logits[:, -s_tok:, :]  # frontends prepend positions
@@ -73,10 +80,11 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
     turn.  The optimizer writes the new parameters and state into the
     given tensors (see ``optim``); ``metrics["loss"]`` is a 0-d float32
     tensor on the parameters' device (reading it waits for the step).
-    A sharded ``sh`` raises ``NotImplementedError``: the sharded train step
-    (FSDP/ZeRO over ``DTensor``) is not ported yet.
+    ``DTensor`` parameters and state (``sharded.shard_train_state``) take
+    the sharded step over their mesh, which gives the same loss and the
+    same new parameters and state (``training.sharded``).
     """
-    check_unsharded(sh)
+    sharded_step = make_sharded_step(cfg, opt, ts, sh)
 
     def value_and_grad(params, mb):
         ps = leaves(params)
@@ -86,6 +94,8 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
         return loss.detach(), grads
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
+        if is_sharded(params):
+            return sharded_step(params, opt_state, batch)
         n_mb = ts.microbatches
         if n_mb == 1:
             loss, grads = value_and_grad(params, batch)

@@ -404,17 +404,21 @@ def test_meta_params_match_abstract_params(arch):
 
 
 def test_expert_parallel_moe_raises():
-    """The expert-parallel MoE (``moe_mesh``) serves now
-    (``tests/test_torch_moe_ep.py`` holds it against JAX); the training
-    step still raises on it until the sharded train step is ported."""
+    """The expert-parallel MoE (``moe_mesh``) serves
+    (``tests/test_torch_moe_ep.py`` holds it against JAX), and the training
+    step takes it now (the sharded train step over ``DTensor`` state,
+    ``tests/test_torch_train_sharded.py``): ``make_train_step`` accepts
+    every such ``ActSharding`` and raises nothing; there is no
+    ``check_unsharded`` left."""
+    import repro_torch.models.model as tmodel
     from repro_torch.training.optim import AdamW
     from repro_torch.training.train_step import make_train_step
 
     tc = tconfigs.get_smoke_config("qwen3-moe-235b-a22b")
     for sh in (tmodels.ActSharding(moe_mesh="m"),
                tmodels.ActSharding(moe_mesh="m", moe_dp_axes=("data",))):
-        with pytest.raises(NotImplementedError, match="sharded train step"):
-            make_train_step(tc, AdamW(), sh=sh)
+        assert callable(make_train_step(tc, AdamW(), sh=sh))
+    assert not hasattr(tmodel, "check_unsharded")
 
 
 # ---------------------------------------------------------------------------
@@ -679,8 +683,8 @@ def test_every_attention_goes_through_the_flash_wrapper(arch, monkeypatch):
 def test_sharded_activations_raise():
     """Activation placements change no value (JAX: sharding constraints):
     ``forward`` with them equals ``forward`` without and records each one;
-    the training step raises on them until the sharded train step is
-    ported."""
+    the training step takes them, and on one device's tensors its step
+    equals the step without them."""
     from repro_torch.training.optim import AdamW
     from repro_torch.training.train_step import make_train_step
 
@@ -694,8 +698,18 @@ def test_sharded_activations_raise():
     assert torch.equal(got, tmodels.forward(tp, tc, tb))
     assert {field for field, *_ in placed} == {"hidden", "heads", "logits"}
     assert ("logits", sh.logits, tuple(got.shape), torch.float32) in placed
-    with pytest.raises(NotImplementedError, match="sharded"):
-        make_train_step(tc, AdamW(), sh=tmodels.ActSharding(hidden="x"))
+    batch = {"tokens": tb["tokens"][:, :-1], "labels": tb["tokens"][:, 1:]}
+    outs = []
+    for placed_sh in (tmodels.ActSharding(hidden="x"), sh, None):
+        params = tmodels.init_params(tc, torch.Generator().manual_seed(1),
+                                     "cpu")
+        opt = AdamW()
+        step = make_train_step(tc, opt, sh=placed_sh)
+        outs.append(step(params, opt.init(params), batch))
+    for new_p, _, metrics in outs[:2]:
+        assert torch.equal(metrics["loss"], outs[2][2]["loss"])
+        assert all(torch.equal(a, b) for a, b in zip(
+            _leaves(new_p).values(), _leaves(outs[2][0]).values()))
     assert tmodels.forward(tp, tc, tb, sh=tmodels.ActSharding()).shape[1] \
         == S
 
