@@ -82,7 +82,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    encoder, B 4 x S 1,536, 16/16 heads, Dh 64, non-causal, and its
    cross-attention, Sq 256 over Sk 1,536; recurrentgemma's MQA 16/1 at
    Dh 256 under a 2,048 window; qwen3-moe's 64/4 and llama4-scout's 40/8
-   GQA, B 4 x S 2,048, causal), to the reference test's
+   GQA, B 4 x S 2,048, causal) and at phase 15's (a qwen2.5-3b rank's
+   8/1 and 4/1 heads at ``model`` 2 and 4; the last of internvl2-1b's four
+   sequence-parallel ranks, Sq 512 at ``q_offset`` 1,536 against Sk
+   2,048, 14/2 heads, Dh 64), to the reference test's
    rtol = atol = 2e-2: the kernel rounds the probabilities to bf16 before
    P V, the plain version does not, and both round the output to bf16 once,
    so they may sit a bf16 ulp or two apart.  Timed like phase 3; its bound
@@ -247,6 +250,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (removed after) and restored onto the mesh with ``shardings`` and whole:
    every leaf bit-equal.  No kernel launches in the train step (the plain
    attention, as the JAX package's); the phase asserts 0 for all eight.
+15. Tensor-parallel serving over ``model`` (``ActSharding.mesh``).  (a)
+   Phase 8b's qwen2.5-3b, B 4 x 2,048 + 32 steps fed 8b's greedy tokens,
+   through ``DTensor`` parameters placed by ``params_shardings`` on a 1x1
+   mesh (``nccl`` at world size 1) and ``act_sharding``'s ``ActSharding``:
+   every logit row bit-equal to 8b's (TP at ``model`` 1 is the identity),
+   36 flash launches.  (b) The same model at ``model`` 2 and 4, one
+   process a rank on the one card (``chip_smoke.py --tp-rank``, the two
+   worlds at once) over ``gloo`` (``nccl`` cannot put two ranks on one
+   card; every collective is staged through the host, so no time of
+   theirs is TP speed): each rank's parameter and cache blocks against
+   ``local_shape``, its GEMMs and flash launches at its local widths (8/1
+   and 4/1 heads), the prefill's cache narrowed into the decode layout
+   (``head_dim``-sharded at ``model`` 4), ``TP_STEPS`` steps fed 8b's
+   tokens; every logit row within ``LM_REL_TOL`` x std of 8b's and the
+   greedy tokens agreeing on at least ``TP_ARGMAX_MIN`` of the rows.  (c)
+   At ``model`` 4, internvl2-1b at full width, B 4 x (256 patches + 1,792
+   tokens), its prefill sequence-parallel (each rank's 512 rows against
+   the 2,048 gathered keys: the flash kernel's ``q_offset``), against the
+   unsharded prefill alike.  Every flash launch of (b) and (c) is held
+   against the plain version on its own operands (``FLASH_TOL``).  A rank
+   that fails fails the phase.
 
 The phases run in their order, each kernel case checked and timed with
 CUDA events where it stands.  Then a kernel phase: the kernel cases of 4-7
@@ -265,7 +289,8 @@ timing: after one, the host's launches are slower.
 Launch counters are set to 0 just before each of phases 4–7, 8b, each
 model of 8c, each refresh of phase 9, each discovery of phase 10,
 phase 11, 12's data plane, training and serving, 13a's distributed
-joins and 13b's forward, and 14's sharded steps, and read just after;
+joins and 13b's forward, 14's sharded steps, and 15a's run and each
+rank's run of 15b and 15c (summed over the ranks), and read just after;
 every kernel of a path must have launched inside it.  The last
 lines are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
@@ -403,6 +428,18 @@ DRYRUN_REL_TOL = 0.01
 # card at more), B 1 x S 2,048, with the expert-parallel MoE
 SHARDED_TRAIN_TIMED = 3
 SHARDED_TRAIN_MOE = ("qwen3-moe-235b-a22b", 1, 1, 2048)  # arch, layers, B, S
+# phase 15: tensor-parallel serving over ``model``.  (b) phase 8b's model
+# at model 2 and 4, one process a rank on the one card over gloo (nccl
+# cannot put two ranks on one device), TP_STEPS decode steps fed 8b's
+# greedy tokens; (c) internvl2-1b at model 4, its prefill
+# sequence-parallel (14 heads do not divide 4): 256 patches + 1,792 tokens
+TP_WORLDS = (2, 4)
+TP_STEPS = 8
+TP_VLM, TP_VLM_TOKENS = "internvl2-1b", 1792
+# greedy tokens of a TP run against 8b's: random weights give near-flat
+# logits, so a near-tie may flip now and then (one of 8 rows at smoke
+# size on the CPU); a layout or exchange fault agrees on next to none
+TP_ARGMAX_MIN = 0.75
 # the tolerances of tests/test_torch_training.py::test_train_step_matches_jax
 # (moments to GRAD_TOL x their largest entry, v twice that; parameters to a
 # bf16 ulp where the gradient's sign is certain, 2 lr elsewhere), held where
@@ -1505,12 +1542,13 @@ def analytics_mv(torch, kops, ref, ExtractionEngine, db, model, rows):
     return counts, timing
 
 
-def attended_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """(i, j) pairs the flash kernel's masks keep: j < sk, i >= j when
-    causal, i - j < window."""
+def attended_pairs(sq: int, sk: int, causal: bool, window,
+                   q_offset: int = 0) -> int:
+    """(i, j) pairs the flash kernel's masks keep: j < sk, p >= j when
+    causal, p - j < window, for the position p = i + q_offset."""
     import numpy as np
 
-    i = np.arange(sq, dtype=np.int64)
+    i = np.arange(sq, dtype=np.int64) + q_offset
     hi = np.minimum(i + 1, sk) if causal else np.full(sq, sk, np.int64)
     lo = np.maximum(i - window + 1, 0) if window is not None else 0
     return int(np.maximum(hi - lo, 0).sum())
@@ -1579,19 +1617,23 @@ def flash_cases(torch, kops, ref):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
 
-    def case(label, b, s, hq, hkv, dh, window, sq=None, causal=True):
+    def case(label, b, s, hq, hkv, dh, window, sq=None, causal=True,
+             q_offset=0):
         sq = s if sq is None else sq           # s is Sk
         q, k, v = flash_qkv(torch, gen, b, sq, s, hq, hkv, dh)
         # the library yardstick: (B, H, S, Dh) copies with K/V expanded to
-        # Hq heads, prepared outside the timing; a window needs a mask
+        # Hq heads, prepared outside the timing; a window or an offset
+        # needs a mask
         qt, kt, vt = (x.transpose(1, 2).repeat_interleave(hq // x.shape[2],
                                                           dim=1).contiguous()
                       for x in (q, k, v))
         mask = None
-        if window is not None:
-            i = torch.arange(s, device=dev)
-            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
-                                                 < window)
+        if window is not None or q_offset:
+            i = torch.arange(sq, device=dev)[:, None] + q_offset
+            j = torch.arange(s, device=dev)[None, :]
+            mask = i >= j
+            if window is not None:
+                mask = mask & (i - j < window)
 
         def library():
             if mask is None:
@@ -1599,13 +1641,15 @@ def flash_cases(torch, kops, ref):
                                                       is_causal=causal)
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
-        pairs = attended_pairs(sq, s, causal, window)
+        pairs = attended_pairs(sq, s, causal, window, q_offset)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         return (label,
                 lambda: kops.flash_attention(q, k, v, causal=causal,
-                                             window=window),
+                                             window=window,
+                                             q_offset=q_offset),
                 lambda: ref.flash_attention(q, k, v, causal=causal,
-                                            window=window),
+                                            window=window,
+                                            q_offset=q_offset),
                 library, nbytes, 4 * b * hq * dh * pairs, BF16_FLOPS_PER_S)
 
     return [case(f"{LM_ARCH} prefill B 4 S 2048 16/2 Dh 128 causal",
@@ -1625,7 +1669,17 @@ def flash_cases(torch, kops, ref):
             case("qwen3-moe B 4 S 2048 64/4 Dh 128 causal",
                  4, 2048, 64, 4, 128, None),
             case("llama4-scout B 4 S 2048 40/8 Dh 128 causal",
-                 4, 2048, 40, 8, 128, None)]
+                 4, 2048, 40, 8, 128, None),
+            # phase 15's: a qwen2.5-3b rank at model 2 and 4, and the
+            # last internvl2-1b sequence-parallel rank of 4 (its 512 rows
+            # at positions 1,536-2,047 against the 2,048 gathered keys)
+            case(f"{LM_ARCH} model 2 rank B 4 S 2048 8/1 Dh 128 causal",
+                 4, 2048, 8, 1, 128, None),
+            case(f"{LM_ARCH} model 4 rank B 4 S 2048 4/1 Dh 128 causal",
+                 4, 2048, 4, 1, 128, None),
+            case("internvl2-1b seq-par rank 3 of 4 B 4 Sq 512 Sk 2048 14/2 "
+                 "Dh 64 causal offset 1536", 4, 2048, 14, 2, 64, None,
+                 sq=512, q_offset=1536)]
 
 
 def serve_lm(torch, kops):
@@ -1690,6 +1744,11 @@ def serve_lm(torch, kops):
     first_tok = torch.argmax(first_logits, dim=-1).to(torch.int32)
     first_step = step_logits[0]
     del cache
+    # for phase 15: the prompt, every logit row and the greedy tokens fed
+    outputs = {"tokens": tokens.cpu(),
+               "logits": [x.cpu() for x in [first_logits] + step_logits],
+               "fed": [torch.argmax(x, dim=-1).to(torch.int32).cpu()
+                       for x in [first_logits] + step_logits[:-1]]}
 
     # the same prefill and first decode step on the plain attention path
     (plain_logits, plain_cache), plain_prefill_s = timed(
@@ -1716,7 +1775,7 @@ def serve_lm(torch, kops):
         "max_memory_allocated_gib": peak / 2**30,
         "kernel_vs_plain": agree, "launches": counts}
     log(f"LM serve: {json.dumps(timing)}")
-    return counts, timing
+    return counts, timing, outputs
 
 
 def named_leaves(tree, prefix=""):
@@ -3522,6 +3581,300 @@ def sharded_train_phase(torch, kops, phase12_ms=None):
     return dict(counts), {"dense": dense, "moe": moe_rec, "checkpoint": ckpt}
 
 
+def lm_agreement(torch, got, want) -> dict:
+    """max |got - want| / std(want) and argmax agreement of two logit
+    rows."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert got.shape == want.shape, (tuple(got.shape), tuple(want.shape))
+    assert bool(torch.isfinite(got).all()), "non-finite logits"
+    return {"max_abs_over_std": float((got - want).abs().max()
+                                      / want.std()),
+            "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                      .float().mean())}
+
+
+def tp_world1(torch, kops, lm_outputs, smi):
+    """Phase 15a: phase 8b's qwen2.5-3b through the placed entry points on
+    ``nccl`` at world size 1: ``DTensor`` parameters on a 1x1 mesh
+    (``params_shardings``), ``act_sharding``'s ``ActSharding``, 8b's
+    prompt and the greedy tokens 8b fed; every logit row must equal 8b's
+    bit for bit (TP at ``model`` 1 is the identity).  Returns (launch
+    counts, a record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import (act_sharding, cache_shardings,
+                                             distribute, narrow_tree,
+                                             params_shardings)
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.decode import init_cache
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    max_len = LM_PROMPT + LM_STEPS
+    with nccl_world(torch):
+        mesh = make_host_mesh()
+        whole = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        params = distribute(whole, params_shardings(whole, mesh, cfg), mesh)
+        sh_p = act_sharding(cfg, mesh, LM_BATCH, seq=LM_PROMPT)
+        sh_d = act_sharding(cfg, mesh, LM_BATCH)
+        meta = init_cache(cfg, LM_BATCH, max_len, device="meta")
+        c_pre = cache_shardings(meta, cfg, mesh, LM_BATCH, for_decode=False)
+        c_dec = cache_shardings(meta, cfg, mesh, LM_BATCH)
+        tokens = lm_outputs["tokens"].to(dev)
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, {"tokens": tokens}, max_len,
+                                sh=sh_p)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        cache = narrow_tree(cache, c_pre, c_dec, mesh)
+        rows = [logits]
+        t0 = time.perf_counter()
+        for tok in lm_outputs["fed"]:
+            out, cache = decode_step(params, cfg, cache,
+                                     tok.to(dev, torch.int32), sh=sh_d)
+            rows.append(out)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        counts = kops.launch_counts()
+        del cache, params, whole
+    equal = [torch.equal(r.cpu(), w) for r, w in zip(rows,
+                                                     lm_outputs["logits"])]
+    assert len(rows) == LM_STEPS + 1 and all(equal), \
+        f"15a: logit rows not bit-equal to 8b's: {equal}"
+    assert counts["flash_attention"] == cfg.num_layers, counts
+    rec = {"prefill_s": prefill_s, "decode_ms_per_step":
+           decode_s / LM_STEPS * 1e3, "bit_equal_rows": len(rows),
+           "launches": counts}
+    log(f"15a: qwen2.5-3b placed on a 1x1 mesh (nccl): {len(rows)} logit "
+        f"rows bit-equal to 8b's; {json.dumps(rec)} ({smi})")
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def tp_serve_phase(torch, kops, lm_outputs):
+    """Phase 15: tensor-parallel serving over ``model``.  (a) at world size
+    1 (:func:`tp_world1`); (b, c) one process a rank on the one card over
+    ``gloo`` (:func:`tp_rank`), the worlds of ``TP_WORLDS`` ranks at once.
+    Returns (launch counts summed over (a) and every rank, a record)."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    counts_a, rec_a = tp_world1(torch, kops, lm_outputs, smi)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=ROOT / "build"))
+    try:
+        torch.save(lm_outputs, work / "ref.pt")
+        procs = []
+        for world in TP_WORLDS:
+            for rank in range(world):
+                procs.append((world, rank, subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank",
+                     str(rank), "--tp-world", str(world), "--tp-dir",
+                     str(work)], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        try:
+            for world, rank, p in procs:
+                out, _ = p.communicate(timeout=900)
+                for line in out.splitlines():
+                    log(f"  [{world}:{rank}] {line}")
+                if p.returncode != 0:
+                    failed.append((world, rank, p.returncode))
+        finally:
+            for _, _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        assert not failed, f"15: ranks failed (world, rank, rc): {failed}"
+        counts = collections.Counter(counts_a)
+        ranks = {}
+        for world in TP_WORLDS:
+            for rank in range(world):
+                rec = json.loads((work / f"rank{world}_{rank}.json")
+                                 .read_text())
+                counts.update(rec["launches"])
+                ranks[f"{world}/{rank}"] = rec
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s ({smi})")
+    return dict(counts), {"a": rec_a, "ranks": ranks}
+
+
+def tp_rank(torch, kops, ref, rank: int, world: int, work: Path) -> int:
+    """One rank of phase 15 (b, c), in its own process on card 0: a
+    ``gloo`` world of ``world`` ranks through a file store in ``work``, a
+    1 x ``world`` ``("data", "model")`` mesh.  (b) qwen2.5-3b placed by
+    ``params_shardings`` (each rank's blocks asserted against
+    ``local_shape``), prefill of 8b's prompt and ``TP_STEPS`` decode steps
+    fed 8b's greedy tokens, the cache narrowed into the decode layout;
+    every row against 8b's (``LM_REL_TOL``, ``TP_ARGMAX_MIN``).  (c) at
+    world 4, internvl2-1b's sequence-parallel prefill against the
+    unsharded prefill.  Every flash launch is held against the plain
+    version on its own operands.  Writes ``rank<world>_<rank>.json``."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import (act_sharding, cache_shardings,
+                                             distribute, local_shape,
+                                             narrow_tree, params_shardings,
+                                             spec_of)
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.decode import init_cache
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store{world}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=300))
+    try:
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        backend = dist.get_backend(mesh.get_group("model"))
+        print(f"backend {backend}, model {world}, rank {rank}", flush=True)
+        real, compare = kops.flash_attention, flash_compare(torch)
+        flash = {"shapes": set(), "max_abs_err": 0.0, "checked": 0}
+
+        def checked(q, k, v, **kw):
+            out = real(q, k, v, **kw)
+            err = compare(out, ref.flash_attention(q, k, v, **kw))
+            flash["max_abs_err"] = max(flash["max_abs_err"], err)
+            flash["checked"] += 1
+            flash["shapes"].add(f"q {tuple(q.shape)} k {tuple(k.shape)} "
+                                f"offset {kw.get('q_offset', 0)}")
+            return out
+
+        def placed(cfg, seed):
+            whole = init_params(cfg, torch.Generator(device=dev).manual_seed(
+                seed), device=dev)
+            params = distribute(whole, params_shardings(whole, mesh, cfg),
+                                mesh)
+            nbytes = 0
+            for t in _leaves(params):
+                block = t.to_local()
+                assert tuple(block.shape) == local_shape(
+                    tuple(t.shape), spec_of(t), mesh)
+                nbytes += block.numel() * block.element_size()
+            return whole, params, nbytes
+
+        ref_out = torch.load(work / "ref.pt")
+        cfg = get_config(LM_ARCH)
+        whole, params, nbytes = placed(cfg, 0)
+        del whole
+        torch.cuda.empty_cache()
+        max_len = LM_PROMPT + LM_STEPS
+        sh_p = act_sharding(cfg, mesh, LM_BATCH, seq=LM_PROMPT)
+        sh_d = act_sharding(cfg, mesh, LM_BATCH)
+        meta = init_cache(cfg, LM_BATCH, max_len, device="meta")
+        c_pre = cache_shardings(meta, cfg, mesh, LM_BATCH, for_decode=False)
+        c_dec = cache_shardings(meta, cfg, mesh, LM_BATCH)
+        rec = {"backend": backend, "params_bytes": nbytes}
+        kops.flash_attention = checked
+        torch.cuda.reset_peak_memory_stats()
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, {"tokens": ref_out["tokens"]
+                                              .to(dev)}, max_len, sh=sh_p)
+        torch.cuda.synchronize()
+        rec["prefill_s_gloo"] = time.perf_counter() - t0
+        for t, spec, w in zip(_leaves(cache), _leaves(c_pre),
+                              _leaves(meta)):
+            assert tuple(t.shape) == local_shape(tuple(w.shape), spec, mesh)
+        rec["prefill_k"] = next(list(t.shape) for t in _leaves(cache)
+                                if t.dim() == 5)
+        cache = narrow_tree(cache, c_pre, c_dec, mesh)
+        for t, spec, w in zip(_leaves(cache), _leaves(c_dec),
+                              _leaves(meta)):
+            assert tuple(t.shape) == local_shape(tuple(w.shape), spec, mesh)
+        rec["decode_k"] = next(list(t.shape) for t in _leaves(cache)
+                               if t.dim() == 5)
+        rows = [logits]
+        t0 = time.perf_counter()
+        for i in range(TP_STEPS):
+            out, cache = decode_step(params, cfg, cache,
+                                     ref_out["fed"][i].to(dev), sh=sh_d)
+            rows.append(out)
+        torch.cuda.synchronize()
+        rec["decode_ms_per_step_gloo"] = (time.perf_counter() - t0) \
+            / TP_STEPS * 1e3
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        counts = kops.launch_counts()
+        assert counts["flash_attention"] == cfg.num_layers, counts
+        agree = [lm_agreement(torch, r, w)
+                 for r, w in zip(rows, ref_out["logits"])]
+        rec["worst_over_std"] = max(a["max_abs_over_std"] for a in agree)
+        rec["argmax_agreement"] = float(np.mean(
+            [a["argmax_agreement"] for a in agree]))
+        assert rec["worst_over_std"] <= LM_REL_TOL, agree
+        assert rec["argmax_agreement"] >= TP_ARGMAX_MIN, agree
+        del params, cache, rows
+        torch.cuda.empty_cache()
+        if world == 4:
+            rec["vlm"], vlm_counts = tp_vlm(torch, kops, real, mesh, placed)
+            for k, v in vlm_counts.items():
+                counts[k] += v
+        kops.flash_attention = real
+        rec["launches"] = counts
+        rec["flash"] = dict(flash, shapes=sorted(flash["shapes"]))
+        print(json.dumps(rec), flush=True)
+        (work / f"rank{world}_{rank}.json").write_text(json.dumps(rec))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_vlm(torch, kops, real, mesh, placed):
+    """Phase 15c on one rank: internvl2-1b at model 4, its prefill
+    sequence-parallel, against the unsharded prefill (taken first, with
+    the kernel unchecked: its launches are not counted)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import act_sharding
+    from repro_torch.models import prefill
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(TP_VLM)
+    rng = np.random.default_rng(15)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, TP_VLM_TOKENS)).astype(np.int32)).to(
+            dev),
+        "embeds": torch.from_numpy(rng.normal(size=(
+            LM_BATCH, cfg.frontend_len, cfg.d_model)).astype(np.float32)).to(
+                dev, torch.bfloat16)}
+    seq = cfg.frontend_len + TP_VLM_TOKENS
+    whole, params, nbytes = placed(cfg, 1)
+    checked, kops.flash_attention = kops.flash_attention, real
+    want, _ = prefill(whole, cfg, batch, seq)
+    kops.flash_attention = checked
+    del whole
+    sh = act_sharding(cfg, mesh, LM_BATCH, seq=seq)
+    assert sh.hidden[1] == "model", "internvl2-1b at model 4: not seq_par"
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got, cache = prefill(params, cfg, batch, seq, sh=sh)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    assert counts["flash_attention"] == cfg.num_layers, counts
+    agree = lm_agreement(torch, got, want)
+    assert agree["max_abs_over_std"] <= LM_REL_TOL, agree
+    assert agree["argmax_agreement"] >= TP_ARGMAX_MIN, agree
+    k = next(t for t in _leaves(cache) if t.dim() == 5)
+    assert k.shape[2] == seq, tuple(k.shape)      # the gathered keys, whole
+    return {"prefill_s_gloo": elapsed, "params_bytes": nbytes,
+            "cache_k": list(k.shape), **agree}, counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3542,7 +3895,13 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.parse_args(argv)
+    # one rank of phase 15 (b, c): the script starts these itself
+    parser.add_argument("--tp-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--tp-world", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3570,6 +3929,9 @@ def main(argv=None) -> int:
     # float32 matmuls and convolutions in full float32 (the plain versions)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.tp_rank is not None:
+        return tp_rank(torch, kops, ref, args.tp_rank, args.tp_world,
+                       Path(args.tp_dir))
 
     # 1. the card
     smi = nvidia_smi()
@@ -3680,7 +4042,7 @@ def main(argv=None) -> int:
     # 8. the LM serving path: the flash kernel, then qwen2.5-3b full width
     log("flash_attention vs plain (bf16), CUDA-event times:")
     flash_rows = check_flash_kernel(torch, kops, ref)
-    counts_lm, _ = serve_lm(torch, kops)
+    counts_lm, _, lm_outputs = serve_lm(torch, kops)
     torch.cuda.empty_cache()
     counts_families, _ = serve_families(torch, kops)
 
@@ -3714,6 +4076,12 @@ def main(argv=None) -> int:
     counts_st, _ = sharded_train_phase(
         torch, kops, sum(train_record["step_ms"])
         / len(train_record["step_ms"]))
+
+    # 15. tensor-parallel serving over model: 8b's qwen2.5-3b placed on a
+    # 1x1 mesh (nccl, bit-equal), at model 2 and 4 (a process a rank over
+    # gloo), and internvl2-1b's sequence-parallel prefill at model 4
+    counts_tp, _ = tp_serve_phase(torch, kops, lm_outputs)
+    del lm_outputs
 
     # the kernel phase: the kernel cases of 4-7 on untimed replays of the
     # paths, then every case's device time (a profiler session slows the
@@ -3815,7 +4183,7 @@ def main(argv=None) -> int:
                "js_mv_refresh": counts_mv_ref, **counts_disc,
                "graph_service": counts_svc, **counts_train,
                "distributed_join": counts_dj, "sharded_moe": counts_ep,
-               "sharded_train": counts_st}
+               "sharded_train": counts_st, "tp_serve": counts_tp}
     kernel_rows += graph_rows + flash_rows
     untimed = [(row["name"], case["shape"]) for row in kernel_rows
                for case in row["cases"] if case["device_ms"] is None]

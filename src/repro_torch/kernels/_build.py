@@ -55,7 +55,7 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                   _P),
     },
     "flash_attention": {
-        "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _P),
+        "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
 }
 

@@ -1,8 +1,10 @@
 // Flash-attention forward, causal / sliding-window GQA, bf16 in and out:
 //   out[b,i,h] = softmax_j(q[b,i,h] . k[b,j,h/g] / sqrt(Dh)) v[b,j,h/g],
 // g = Hq / Hkv,
-// over the keys j with j < Sk, plus i >= j when causal, plus i - j < window
-// when windowed (query and key indices are the positions).  The softmax is
+// over the keys j with j < Sk, plus p >= j when causal, plus p - j < window
+// when windowed, where p = i + q_offset is query row i's position (key
+// indices are the positions; a sequence-parallel rank's rows start at
+// q_offset in the gathered keys, and 0 is the whole sequence).  The softmax is
 // fp32 and online; the denominator is clamped at 1e-30.  A query row with no
 // key to attend (only possible when Sq > Sk under a window) is written as 0.
 //
@@ -306,7 +308,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_o, int sq,
                        int sk, int hq, int group, int causal, int window,
-                       float scale_log2) {
+                       int q_offset, float scale_log2) {
   using C = Cfg<D>;
   constexpr int BN = C::BN;
   constexpr int CH = C::kChunks;
@@ -325,10 +327,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.x % hq;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockM;  // heaviest first
 
-  // the key tiles this query tile can see
-  const int q_last = min(q0 + kBlockM, sq) - 1;
+  // the key tiles this query tile can see (positions: row + q_offset)
+  const int q_last = min(q0 + kBlockM, sq) - 1 + q_offset;
   const int k_end = causal ? min(sk, q_last + 1) : sk;
-  const int k_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / BN * BN;
+  const int k_begin =
+      (window > 0 ? max(0, q0 + q_offset - window + 1) : 0) / BN * BN;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
 
   if (threadIdx.x == 0) {
@@ -377,7 +380,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int g = lane / 4;                  // accumulator row in 8
     const int t = lane % 4;                  // accumulator column pair
     const int r0 = q0 + 64 * cw;             // this warpgroup's first row
-    const int row_a = r0 + warp * 16 + g;    // rows of d[4j], d[4j + 2]
+    const int p0 = r0 + q_offset;            // and its position
+    const int row_a = p0 + warp * 16 + g;    // positions of d[4j], d[4j + 2]
     const uint32_t sQw = sQ + 64 * cw * kRowBytes;
 
     float acc[D / 2];
@@ -391,8 +395,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int s = it % kStages;
       const int k0 = k_begin + it * BN;
       mbar_wait(full(s), (it / kStages) & 1);
-      const bool sees = r0 < sq && (!causal || k0 <= r0 + 63) &&
-                        (window == 0 || r0 - (k0 + BN - 1) < window);
+      const bool sees = r0 < sq && (!causal || k0 <= p0 + 63) &&
+                        (window == 0 || p0 - (k0 + BN - 1) < window);
       if (sees) {
         const uint32_t sK = sKV + s * 2 * C::KV_BYTES;
         const uint32_t sV = sK + C::KV_BYTES;
@@ -416,8 +420,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(sc);
 
         // mask the tiles that straddle the diagonal, the window or Sk
-        if ((causal && k0 + BN - 1 > r0) ||
-            (window > 0 && r0 + 63 - k0 >= window) || k0 + BN > sk) {
+        if ((causal && k0 + BN - 1 > p0) ||
+            (window > 0 && p0 + 63 - k0 >= window) || k0 + BN > sk) {
 #pragma unroll
           for (int i = 0; i < BN / 2; ++i) {
             const int row = row_a + 8 * ((i >> 1) & 1);
@@ -570,7 +574,7 @@ bool make_map(CUtensorMap* map, const void* ptr, const int64_t* dims,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            const int64_t* qg, const int64_t* kg, int causal, int window,
-           cudaStream_t stream) {
+           int q_offset, cudaStream_t stream) {
   using C = Cfg<D>;
   static bool configured = false;
   if (!configured) {
@@ -593,18 +597,20 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const float scale_log2 = kLog2e / sqrtf((float)dh);
   flash_attention_kernel<D><<<grid, kThreads, C::SMEM_BYTES, stream>>>(
       tq, tk, tv, to, (int)sq, (int)sk, (int)hq, (int)(hq / hkv), causal,
-      window, scale_log2);
+      window, q_offset, scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // geom: the (Dh, H, S, B) dims and the byte strides of H, S and B, first of
-// q (and out), then of k (and v): 14 int64.
+// q (and out), then of k (and v): 14 int64.  q_offset: the position of
+// query row 0 (0 <= q_offset, q_offset + Sq < 2^31).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out,
                                      const int64_t* geom, int64_t causal,
-                                     int64_t window, void* stream) {
+                                     int64_t window, int64_t q_offset,
+                                     void* stream) {
   const int64_t* qg = geom;
   const int64_t* kg = geom + 7;
   const int64_t dh = qg[0], hq = qg[1], sq = qg[2], b = qg[3];
@@ -613,13 +619,14 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
             hkv > 0 && hq % hkv == 0 && dh > 0 && dh % 8 == 0 && dh <= 256 &&
             sq <= 0x7fffffff && sk <= 0x7fffffff &&
             (sq + kBlockM - 1) / kBlockM <= 65535 && b * hq <= 0x7fffffff &&
-            window >= 0 && window <= 0x7fffffff;
+            window >= 0 && window <= 0x7fffffff && q_offset >= 0 &&
+            q_offset + sq + kBlockM <= 0x7fffffff;
   for (int i = 4; i < 7; ++i)
     ok = ok && qg[i] % 16 == 0 && kg[i] % 16 == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int c = causal ? 1 : 0, w = (int)window;
-  if (dh <= 64) return launch<64>(q, k, v, out, qg, kg, c, w, s);
-  if (dh <= 128) return launch<128>(q, k, v, out, qg, kg, c, w, s);
-  return launch<256>(q, k, v, out, qg, kg, c, w, s);
+  const int c = causal ? 1 : 0, w = (int)window, o = (int)q_offset;
+  if (dh <= 64) return launch<64>(q, k, v, out, qg, kg, c, w, o, s);
+  if (dh <= 128) return launch<128>(q, k, v, out, qg, kg, c, w, o, s);
+  return launch<256>(q, k, v, out, qg, kg, c, w, o, s);
 }

@@ -35,7 +35,7 @@ def tensor_map_geometry(t: torch.Tensor):
     return (dh, h, s, b), strides
 
 
-def _check(q, k, v, window) -> None:
+def _check(q, k, v, window, q_offset) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.ndim != 4:
             raise ValueError(f"flash_attention {name}: shape "
@@ -63,23 +63,30 @@ def _check(q, k, v, window) -> None:
                          f"Hkv {hkv}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
+    if not 0 <= q_offset < 2**30:
+        raise ValueError(f"flash_attention: q_offset {q_offset} is not in "
+                         "[0, 2**30)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """``softmax(q k^T / sqrt(Dh)) v`` per query head, reading kv head
-    ``h // (Hq // Hkv)``; q/k indices are the positions (``j < Sk``, plus
-    ``i >= j`` when ``causal``, plus ``i - j < window``).
+    ``h // (Hq // Hkv)``; query row ``i`` is position ``p = i + q_offset``
+    and key index ``j`` position ``j`` (``j < Sk``, plus ``p >= j`` when
+    ``causal``, plus ``p - j < window``).  ``q_offset`` > 0 is a
+    sequence-parallel rank's block of queries against the gathered keys.
 
     ``q`` (B, Sq, Hq, Dh), ``k``/``v`` (B, Sk, Hkv, Dh), contiguous, one
     dtype; the output has q's shape and dtype.  On the card the inputs must
     be bfloat16 with ``Dh`` a multiple of 8 up to 256.
     """
-    _check(q, k, v, window)
+    q_offset = int(q_offset)
+    _check(q, k, v, window, q_offset)
     dev = q.device
     if dev.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     if q.dtype != torch.bfloat16:
@@ -108,7 +115,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ctypes.cast(geom, ctypes.c_void_p),
         ctypes.c_int64(1 if causal else 0),
         ctypes.c_int64(0 if window is None else int(window)),
-        ctypes.c_void_p(_build.stream_ptr(dev)))
+        ctypes.c_int64(q_offset), ctypes.c_void_p(_build.stream_ptr(dev)))
     _build.check(err, "flash_attention")
     _build.count_launch(flash_attention)
     return out

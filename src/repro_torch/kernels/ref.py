@@ -134,13 +134,15 @@ def bloom_probe(bits: torch.Tensor, keys: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window=None) -> torch.Tensor:
+                    causal: bool = True, window=None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Dense GQA attention oracle for the flash kernel, in float32.
 
     ``q`` (B, Sq, Hq, Dh), ``k``/``v`` (B, Sk, Hkv, Dh); query head ``h``
-    reads kv head ``h // (Hq // Hkv)``.  No positions argument: the q/k
-    indices ARE the positions, as in the kernel's masks (``j < Sk``, plus
-    ``i >= j`` when causal, plus ``i - j < window``).  The output is in q's
+    reads kv head ``h // (Hq // Hkv)``.  No positions argument: query row
+    ``i`` is position ``i + q_offset`` and key index ``j`` position ``j``,
+    as in the kernel's masks (``j < Sk``, plus ``p >= j`` when causal, plus
+    ``p - j < window``, for ``p = i + q_offset``).  The output is in q's
     dtype.  A query row with no key to attend (only when Sq > Sk under a
     window) is 0, the kernel's contract; the JAX reference averages all
     keys there.
@@ -150,7 +152,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = hq // hkv
     qf = (q.to(torch.float32) / math.sqrt(dh)).reshape(b, sq, hkv, g, dh)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(torch.float32))
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:

@@ -16,26 +16,31 @@ here compiles, so each field of the JAX report
     give the step's arguments: parameters (``params_shardings``, ZeRO-1 or
     -3 by ``zero_policy``), the optimizer state (AdamW's step, and m and v
     in float32 under the ZeRO-3 placements) and the batch for train;
-    parameters and batch for prefill; parameters, cache
-    (``cache_shardings``) and the token (whole on every rank) for decode.
+    parameters and batch for prefill; parameters, cache and the token
+    (whole on every rank) for decode.  The cache's layout is the one the
+    port holds (``sharding.serving_cache_shardings``): ``cache_shardings``'
+    for the attention caches, the recurrent mixers' states whole over
+    ``model``.
   * ``output_bytes``: the local blocks of the outputs: parameters and
     optimizer state (train); the last logits (B, V) float32, whole, and the
     cache (prefill, decode).
-  * ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the step
-    at the global shapes (matmul, bmm and convolution FLOPs, 2 M N K; no
-    elementwise FLOPs, as the reference's HLO count), divided by the chips.
-    The step is the single-program one: ``make_train_step`` on plain
-    tensors (forward, recompute, backward and the AdamW update over
-    ``microbatches_for`` microbatches), or ``prefill``/``decode_step``
-    with the MoE as ``moe_ffn`` at the global capacity.  The sharded train
-    step (``training.sharded``, over ``DTensor`` placements) computes the
-    same FLOPs spread over the ranks (its dense compute is replicated over
-    ``model``, so a rank of a mesh with ``model`` > 1 does more than this
-    count's share); its collectives are reckoned below.
+  * ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` over one
+    rank's program (matmul, bmm and convolution FLOPs, 2 M N K; no
+    elementwise FLOPs, as the reference's HLO count).  Prefill and decode:
+    ``prefill``/``decode_step`` with ``act_sharding``'s ``ActSharding``
+    (its mesh the production mesh) on ``meta`` compute blocks of rank 0
+    (``sharding.compute_specs``) and its blocks of the batch and cache:
+    the tensor-parallel program at its local shapes, the MoE through
+    ``moe_ffn_shard_map``.  Train: the single-program step at the global
+    shapes (``make_train_step`` on plain tensors: forward, recompute,
+    backward and the AdamW update over ``microbatches_for`` microbatches)
+    divided by the chips; the sharded train step (``training.sharded``)
+    computes its dense layers replicated over ``model``, so a rank of a
+    mesh with ``model`` > 1 does more than this count's share.
   * ``bytes_accessed``: every operation of that run reads each tensor
     operand in full and writes each output in full (view operations move
-    nothing), summed and divided by the chips: the traffic of the unfused
-    eager program, an upper bound of what a fused one moves.
+    nothing), summed (train: and divided by the chips): the traffic of the
+    unfused eager program, an upper bound of what a fused one moves.
   * ``temp_bytes``: null.  There is no compiler's buffer assignment to
     read it from, and no reckoning of the live activations is made.
   * ``collective_bytes`` (each collective's output bytes, as the
@@ -48,20 +53,32 @@ here compiles, so each field of the JAX report
       - ``reduce-scatter`` (train): each gradient, per microbatch, onto the
         optimizer state's ZeRO-3 block, in float32 (the accumulation
         type).
-      - ``all-to-all``: where the expert-parallel rule holds ((B S) divides
-        by the shards), each MoE layer's two exchanges of (E, cap, D) bf16
-        (cap from the tokens a shard routes), times 3 in training (the
-        forward, remat's recompute, the backward).
-      - not reckoned: tensor-parallel activation collectives, sequence
-        parallelism's K/V gathers, the EP combine's all-gather over
-        ``model``, and the MoE's collectives where the EP rule fails.
+      - ``all-to-all`` (train): where the expert-parallel rule holds ((B S)
+        divides by the shards), each MoE layer's two exchanges of (E, cap,
+        D) bf16 (cap from the tokens a shard routes), times 3 (the forward,
+        remat's recompute, the backward).
+      - prefill and decode: the weights' gathers above (to each leaf's
+        compute block: over dp, and over ``model`` too for a weight the
+        layers do not split), plus every collective rank 0's program runs
+        (``mesh_axes.recording_collectives``, each by its kind): the
+        row-parallel projections' and the vocab-parallel embedding's
+        ``psum``s (float32 all-reduces), the decode's ``head_dim`` score
+        all-reduces and its query and output ``all_to_all``s, the
+        vocabulary gathers of the logits, sequence parallelism's K/V and
+        hidden gathers, and the MoE's exchanges, combine gathers and expert
+        gathers.
+      - not reckoned: in training, tensor-parallel activation collectives
+        (the train step computes its dense layers whole), the EP combine's
+        all-gather over ``model``, and the MoE's collectives where the EP
+        rule fails.
       - ``total``: their sum.
 
-The run also records the activation placements the model makes
+The run also records the activations the model places
 (``layers.recording_placements``; the prefill and decode steps take
-``act_sharding``'s fields; the train cells' single-program step takes
-none: the sharded step's placements are its parameters') and reports the
-largest per-device block of each field under ``activations``.
+``act_sharding``'s fields and record each activation's local block; the
+train cells' single-program step takes none: the sharded step's
+placements are its parameters') and reports the largest per-device block
+of each field under ``activations``.
 
 Nothing happens at import: no environment variable, no process group.
 """
@@ -96,11 +113,14 @@ from repro_torch.launch.mesh import (
 from repro_torch.launch.sharding import (
     act_sharding,
     batch_shardings,
-    cache_shardings,
+    compute_specs,
     local_bytes,
+    local_shape,
     params_shardings,
+    serving_cache_shardings,
     zero_policy,
 )
+from repro_torch.mesh_axes import recording_collectives
 from repro_torch.models import SHAPES, abstract_params
 from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.models.decode import decode_step, prefill
@@ -176,8 +196,8 @@ def cell_arguments(cfg: ArchConfig, shape: ShapeConfig, mesh) -> Dict:
                                         shape.kind))
     else:
         acache = cache_specs(cfg, shape)
-        out["cache"] = (acache, cache_shardings(acache, cfg, mesh,
-                                                shape.global_batch))
+        out["cache"] = (acache, serving_cache_shardings(
+            acache, cfg, mesh, shape.global_batch))
         tok = token_spec(shape)
         out["token"] = (tok, _whole(tok))
     return out
@@ -199,8 +219,8 @@ def output_bytes(cfg: ArchConfig, shape: ShapeConfig, mesh, args) -> int:
         return sum(tree_local_bytes(*args[r], mesh)
                    for r in ("params", "opt_state"))
     cache = cache_specs(cfg, shape)
-    specs = cache_shardings(cache, cfg, mesh, shape.global_batch,
-                            for_decode=shape.kind == "decode")
+    specs = serving_cache_shardings(cache, cfg, mesh, shape.global_batch,
+                                    for_decode=shape.kind == "decode")
     return shape.global_batch * cfg.vocab_size * 4 + \
         tree_local_bytes(cache, specs, mesh)
 
@@ -231,19 +251,26 @@ def _ep_exchange_bytes(cfg: ArchConfig, tokens: int, mesh) -> int:
 
 
 def collective_bytes(cfg: ArchConfig, shape: ShapeConfig, mesh, args,
-                     microbatches: int) -> Dict[str, int]:
-    """The reckoning of the module docstring, per device."""
+                     microbatches: int, sh=None,
+                     recorded=()) -> Dict[str, int]:
+    """The reckoning of the module docstring, per device; ``recorded``:
+    the (kind, bytes) of the collectives a prefill or decode run made."""
     dp = dp_axes(mesh)
     aparams, p_sh = args["params"]
     train = shape.kind == "train"
     policy = zero_policy(cfg)
 
-    def gather(t, spec):          # a dp-sharded leaf's gathered block
-        whole = _dp_whole(spec, dp)
-        return 0 if whole == tuple(spec) else local_bytes(
-            tuple(t.shape), t.dtype, whole, mesh)
+    def gathered(t, spec, kept):  # the block a gather gives, or nothing
+        return 0 if kept == tuple(spec) else local_bytes(
+            tuple(t.shape), t.dtype, kept, mesh)
 
-    fsdp = sum(_map2(gather, aparams, p_sh))
+    if train:                     # each dp-sharded leaf gathered over dp
+        fsdp = sum(_map2(lambda t, s: gathered(t, s, _dp_whole(s, dp)),
+                         aparams, p_sh))
+    else:                         # each leaf gathered to its compute block
+        fsdp = sum(_map2(lambda t, s: gathered(t, s[0], tuple(
+            c if e else None for e, c in zip(*s))), aparams,
+            _zip_specs(p_sh, compute_specs(p_sh, mesh, sh))))
     if train:
         z3 = args["opt_state"][1].m
         grads = sum(_map2(lambda t, s: local_bytes(
@@ -256,15 +283,22 @@ def collective_bytes(cfg: ArchConfig, shape: ShapeConfig, mesh, args,
         tokens = shape.global_batch // microbatches * shape.seq_len
         a2a = 3 * microbatches * cfg.num_layers * _ep_exchange_bytes(
             cfg, tokens, mesh)
+        out = {"all-gather": all_gather, "reduce-scatter": reduce_scatter,
+               "all-to-all": a2a, "all-reduce": 0}
     else:
-        all_gather, reduce_scatter = fsdp, 0
-        tokens = shape.global_batch * (
-            shape.seq_len if shape.kind == "prefill" else 1)
-        a2a = cfg.num_layers * _ep_exchange_bytes(cfg, tokens, mesh)
-    out = {"all-gather": all_gather, "reduce-scatter": reduce_scatter,
-           "all-to-all": a2a}
+        out = {"all-gather": fsdp, "reduce-scatter": 0, "all-to-all": 0,
+               "all-reduce": 0}
+        for kind, nbytes in recorded:
+            out[kind] += nbytes
     out["total"] = sum(out.values())
     return out
+
+
+def _zip_specs(a, b):
+    """A tree of (spec, spec) pairs from two trees of specs."""
+    if isinstance(a, dict):
+        return {k: _zip_specs(a[k], b[k]) for k in a}
+    return (tuple(a), tuple(b))
 
 
 class _Traffic(TorchDispatchMode):
@@ -284,26 +318,55 @@ class _Traffic(TorchDispatchMode):
         return out
 
 
+def _meta_blocks(tree, specs, mesh):
+    """``meta`` tensors of rank 0's blocks of ``tree`` under ``specs``."""
+    if isinstance(tree, dict):
+        return {k: _meta_blocks(v, specs[k], mesh) for k, v in tree.items()}
+    return torch.empty(local_shape(tuple(tree.shape), tuple(specs), mesh),
+                       dtype=tree.dtype, device="meta")
+
+
+def local_arguments(cfg: ArchConfig, shape: ShapeConfig, mesh, args,
+                    sh) -> Dict:
+    """Rank 0's ``meta`` arguments of a prefill or decode step: the
+    parameters' compute blocks (``compute_specs``), its block of the batch
+    (and of the cache, in the port's layout, and of the token's rows)."""
+    p, p_sh = args["params"]
+    out = {"params": _meta_blocks(p, compute_specs(p_sh, mesh, sh), mesh)}
+    rows = batch_shardings(cfg, mesh, shape.global_batch, shape.kind)
+    if shape.kind == "prefill":
+        out["batch"] = _meta_blocks(*args["batch"], mesh)
+    else:
+        out["cache"] = _meta_blocks(*args["cache"], mesh)
+        out["token"] = _meta_blocks(args["token"][0],
+                                    rows["tokens"][:1], mesh)
+    return out
+
+
 def run_step(cfg: ArchConfig, shape: ShapeConfig, args, sh,
-             microbatches: int):
-    """The step once on the ``meta`` arguments at the global shapes:
-    (FLOPs, bytes accessed, placement records)."""
+             microbatches: int, mesh=None):
+    """The step once on ``meta`` arguments: (FLOPs, bytes accessed,
+    placement records, collective records).  Train: the single program at
+    the global shapes; prefill and decode: rank 0's tensor-parallel
+    program on ``mesh`` (its blocks, :func:`local_arguments`)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     counter, traffic = FlopCounterMode(display=False), _Traffic()
-    with counter, traffic, recording_placements() as placed:
-        params = args["params"][0]
+    if shape.kind != "train":
+        args = local_arguments(cfg, shape, mesh, args, sh)
+    with counter, traffic, recording_placements() as placed, \
+            recording_collectives() as moved:
         if shape.kind == "train":
             step = make_train_step(
                 cfg, AdamW(), TrainStepConfig(microbatches=microbatches))
-            step(params, args["opt_state"][0], args["batch"][0])
+            step(args["params"][0], args["opt_state"][0], args["batch"][0])
         elif shape.kind == "prefill":
-            prefill(params, cfg, args["batch"][0], max_len=shape.seq_len,
-                    sh=sh)
+            prefill(args["params"], cfg, args["batch"],
+                    max_len=shape.seq_len, sh=sh)
         else:
-            decode_step(params, cfg, args["cache"][0], args["token"][0],
+            decode_step(args["params"], cfg, args["cache"], args["token"],
                         sh=sh)
-    return counter.get_total_flops(), traffic.bytes, placed
+    return counter.get_total_flops(), traffic.bytes, placed, moved
 
 
 def account(cfg: ArchConfig, shape: ShapeConfig, mesh,
@@ -313,24 +376,26 @@ def account(cfg: ArchConfig, shape: ShapeConfig, mesh,
     args = cell_arguments(cfg, shape, mesh)
     seq = shape.seq_len if shape.kind != "decode" else None
     sh = act_sharding(cfg, mesh, shape.global_batch, seq=seq)
-    # the step runs at the global shapes: the MoE as moe_ffn on the whole
-    # batch (see the module docstring), the placements only recorded
-    flops, traffic, placed = run_step(
-        cfg, shape, args, dataclasses.replace(sh, moe_mesh=None),
-        microbatches)
+    per = 1
+    if shape.kind == "train":
+        # the single program at the global shapes, the MoE as moe_ffn on
+        # the whole batch (see the module docstring)
+        sh, per = dataclasses.replace(sh, mesh=None, moe_mesh=None), chips
+    flops, traffic, placed, moved = run_step(cfg, shape, args, sh,
+                                             microbatches, mesh)
     activations: Dict[str, int] = {}
-    for field, spec, shp, dtype in placed:
-        n = local_bytes(shp, dtype, spec, mesh)
+    for field, spec, shp, dtype in placed:    # local blocks, as recorded
+        n = math.prod(shp) * torch.empty((), dtype=dtype).element_size()
         activations[field] = max(activations.get(field, 0), n)
     return {
         "argument_bytes": argument_bytes(cfg, shape, mesh, args),
         "output_bytes": output_bytes(cfg, shape, mesh, args),
         "temp_bytes": None,
-        "flops": flops / chips,
-        "bytes_accessed": traffic / chips,
+        "flops": flops / per,
+        "bytes_accessed": traffic / per,
         "flops_raw_costanalysis": None,
         "collective_bytes": collective_bytes(cfg, shape, mesh, args,
-                                             microbatches),
+                                             microbatches, sh, moved),
         "activations": activations,
     }
 

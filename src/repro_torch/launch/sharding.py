@@ -8,7 +8,20 @@ axis names (sharded over their product, the first the most major).
 dimension for ``DTensor`` (:func:`spec_of` reads one back);
 :func:`shard_params` cuts a whole tree into this rank's local blocks and
 :func:`distribute` into ``DTensor``s; :func:`narrow_to` and
-:func:`gather_to` move a block between two placements.
+:func:`gather_to` move a block between two placements, :func:`to_compute`
+does both, and :func:`narrow_tree` narrows a whole tree (a prefill's cache
+into the decode layout).
+
+The serving entry points compute on each rank's *compute block* of a
+parameter (:func:`compute_spec`): its placement with the dp axes dropped
+(ZeRO-3's shard gathered), keeping ``model`` where the layers split the
+work over it (attention by heads, the gated MLP by its FFN width, the
+embedding and head by vocabulary); every other weight, and every weight of
+a sequence-parallel model but the embedding and head, is gathered whole.
+The MoE's experts take ``moe_ffn_shard_map``'s layout.
+:func:`serving_gather` turns a ``DTensor`` tree into the blocks and the
+per-cycle gather that ``models.forward``, ``prefill`` and ``decode_step``
+take.
 
 The rules, name patterns and divisibility tests are the JAX package's
 (``repro/launch/sharding.py``): a dimension is sharded only when it
@@ -181,7 +194,8 @@ def act_sharding(cfg: ArchConfig, mesh, batch: int,
     otherwise sequence parallelism (the sequence over ``model``) for
     dense-attention shapes that pass ``seq``; the expert-parallel MoE on
     ``mesh`` for MoE configurations.  The rules are the JAX package's,
-    with its reasons there."""
+    with its reasons there.  ``mesh`` is kept (``ActSharding.mesh``): the
+    serving entry points split their work over its ``model`` axis."""
     dp = dp_axes(mesh)
     model_n = axis_sizes(mesh)["model"]
     bdim = dp if batch % axes_size(mesh, dp) == 0 else None
@@ -195,6 +209,7 @@ def act_sharding(cfg: ArchConfig, mesh, batch: int,
     vocab_div = cfg.vocab_size % model_n == 0
     kv_div = cfg.num_kv_heads % model_n == 0
     return ActSharding(
+        mesh=mesh,
         hidden=(bdim, sdim, None),
         heads=(bdim, sdim, heads, None),
         kv=(bdim, sdim, "model" if kv_div else None, None),
@@ -259,6 +274,25 @@ def cache_shardings(cache_abstract, cfg: ArchConfig, mesh, batch: int,
     return _map_with_path(visit, cache_abstract)
 
 
+ATTN_CACHE = ("k", "v", "xk", "xv", "enc_out", "pos")
+
+
+def serving_cache_shardings(cache_abstract, cfg: ArchConfig, mesh,
+                            batch: int, for_decode: bool = True):
+    """The layout the port's serving entry points hold a cache in:
+    :func:`cache_shardings`' for the attention caches (and ``enc_out``,
+    ``pos``), the recurrent mixers' states whole over ``model`` (their
+    channel split is not ported: ``models.model``'s docstring)."""
+    specs = cache_shardings(cache_abstract, cfg, mesh, batch, for_decode)
+
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        return tree if path[-1] in ATTN_CACHE else _drop_axes(tree,
+                                                              {"model"})
+    return walk(specs)
+
+
 def moe_param_specs(params, mesh, model_axis: str = "model"):
     """Placements for a forward with ``ActSharding(moe_mesh=mesh)``: the
     expert weights in ``moe_ffn_shard_map``'s layout (experts over
@@ -274,6 +308,150 @@ def moe_param_specs(params, mesh, model_axis: str = "model"):
         return (None,) * leaf.dim()
 
     return _map_with_path(visit, params)
+
+
+# ---------------------------------------------------------------------------
+# compute blocks: what the serving layers take of each parameter
+# ---------------------------------------------------------------------------
+
+EXPERTS = ("w_gate", "w_up", "w_down")
+FFN_TP = ("w_gate", "w_up", "w_down")
+
+
+def _tp_leaf(path: Tuple[str, ...], ndim: int) -> bool:
+    """Whether the layers split this leaf's work over ``model``: attention
+    projections (self-, cross- and the encoder's), the gated MLP's three
+    matrices, the embedding and the head."""
+    name = path[-1]
+    lead = 1 if "cycles" in path or "layers" in path else 0
+    if len(path) == 1 and name in ("embed", "head"):
+        return True
+    if ("attn" in path or "xattn" in path) and name in (
+            ATTN_Q + ATTN_KV + ATTN_O):
+        return True
+    return "ffn" in path and name in FFN_TP and ndim == lead + 2
+
+
+def _drop_axes(spec: Spec, axes) -> Spec:
+    def entry(e):
+        kept = tuple(a for a in _entry_axes(e) if a not in axes)
+        return None if not kept else kept[0] if len(kept) == 1 else kept
+    return tuple(entry(e) for e in spec)
+
+
+def seq_parallel(sh: Optional[ActSharding]) -> bool:
+    """Whether ``sh`` shards the hidden states' sequence over ``model``
+    (``act_sharding``'s ``seq_par``)."""
+    return (sh is not None and sh.hidden is not None and len(sh.hidden) > 1
+            and "model" in _entry_axes(sh.hidden[1]))
+
+
+def compute_spec(path: Tuple[str, ...], spec: Spec, mesh,
+                 sh: Optional[ActSharding]) -> Spec:
+    """The placement of the block the serving layers compute with, for a
+    parameter at ``path`` stored under ``spec`` (see the module
+    docstring): the experts in ``moe_ffn_shard_map``'s layout when
+    ``sh.moe_mesh`` is set; else ``spec`` without the dp axes, and without
+    ``model`` too unless the layers split the leaf over it (never under
+    sequence parallelism, but for the embedding and head; never without
+    ``sh.mesh``, where every rank computes whole)."""
+    lead = 1 if "cycles" in path or "layers" in path else 0
+    if sh is not None and sh.moe_mesh is not None and "ffn" in path \
+            and path[-1] in EXPERTS and len(spec) == lead + 3:
+        return (None,) * lead + tuple(ep_specs(dp_axes(mesh))[path[-1]])
+    tp = sh is not None and sh.mesh is not None
+    keep_model = tp and _tp_leaf(path, len(spec)) and (
+        not seq_parallel(sh) or (len(path) == 1
+                                 and path[-1] in ("embed", "head")))
+    drop = set(dp_axes(mesh)) | (set() if keep_model else {"model"})
+    return _drop_axes(spec, drop)
+
+
+def compute_specs(specs, mesh, sh: Optional[ActSharding]):
+    """:func:`compute_spec` of every leaf of a tree of placements
+    (``params_shardings``): cut a whole tree with ``shard_params(params,
+    mesh, compute_specs(...))`` for the blocks the layers take directly."""
+    def visit(path, spec):
+        return compute_spec(path, tuple(spec), mesh, sh)
+
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in tree.items()}
+        return visit(path, tree)
+    return walk(specs)
+
+
+def to_compute(block: torch.Tensor, stored: Spec, compute: Spec,
+               mesh) -> torch.Tensor:
+    """The block under ``compute`` of the block ``block`` this rank holds
+    under ``stored``: gathered over the axes ``compute`` drops, narrowed to
+    the ones it adds (a view where nothing is gathered)."""
+    kept = tuple(c if _entry_axes(s) else None
+                 for s, c in zip(stored, compute))
+    x = gather_to(block, stored, kept, mesh)
+    return narrow_to(x, kept, compute, mesh)
+
+
+def serving_gather(params, sh: Optional[ActSharding]):
+    """(blocks, gather) for a tree of ``DTensor`` parameters (placed by
+    ``params_shardings`` or any other placement): ``blocks`` is the tree of
+    local blocks, and ``gather(subtree, path, cycle)`` (``forward``'s
+    ``gather`` hook) turns a subtree of them into its compute blocks
+    (:func:`compute_spec`), cycle ``cycle`` of a stacked subtree when it is
+    not None; None when every block is its compute block (a 1x1 mesh).
+    No autograd: the serving path."""
+    stored = {}
+    mesh = None
+
+    def visit(path, t):
+        nonlocal mesh
+        if mesh is None:
+            mesh = t.device_mesh
+        elif t.device_mesh != mesh:
+            raise ValueError(f"{'/'.join(path)}: on another mesh")
+        stored[path] = spec_of(t)
+        return t.to_local()
+
+    blocks = _map_with_path(visit, params)
+    if sh is not None and sh.mesh is not None and \
+            axis_sizes(sh.mesh) != axis_sizes(mesh):
+        raise ValueError(f"sh.mesh {axis_sizes(sh.mesh)} is not the "
+                         f"parameters' mesh {axis_sizes(mesh)}")
+    # axes of size 1 split nothing: a leaf whose compute block differs from
+    # its stored block only over them is used as it is
+    ones = {a for a, n in axis_sizes(mesh).items() if n == 1}
+    compute = {}
+    for path, spec in stored.items():
+        co = compute_spec(path, spec, mesh, sh)
+        if _drop_axes(co, ones) != _drop_axes(spec, ones):
+            compute[path] = _drop_axes(spec, ones), _drop_axes(co, ones)
+    if not compute:
+        return blocks, None
+
+    def gather(tree, prefix, cycle):
+        def leaf(path, t):
+            if path not in compute:
+                return t
+            st, co = compute[path]
+            if cycle is not None:
+                st, co = st[1:], co[1:]
+            return to_compute(t, st, co, mesh)
+        return _map_with_path(leaf, tree, tuple(prefix))
+
+    return blocks, gather
+
+
+def narrow_tree(tree, specs_from, specs_to, mesh):
+    """Each leaf of a tree of this rank's blocks under ``specs_from``
+    narrowed to its block under ``specs_to`` (:func:`narrow_to`, no
+    communication), copied where it shrinks so that the larger block can be
+    freed: a prefill's cache (``cache_shardings(..., for_decode=False)``)
+    into the decode layout."""
+    if isinstance(tree, dict):
+        return {k: narrow_tree(v, specs_from[k], specs_to[k], mesh)
+                for k, v in tree.items()}
+    out = narrow_to(tree, tuple(specs_from), tuple(specs_to), mesh)
+    return out if out.shape == tree.shape else out.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +640,9 @@ def shard_params(params, mesh, specs):
 
 __all__ = ["param_spec", "zero_policy", "params_shardings", "act_sharding",
            "batch_shardings", "cache_shardings", "moe_param_specs",
+           "serving_cache_shardings", "seq_parallel", "compute_spec",
+           "compute_specs", "to_compute",
+           "serving_gather", "narrow_tree",
            "placements", "local_shape", "local_bytes", "local_block",
            "shard_params", "spec_of", "same_layout", "narrow_to",
            "gather_to", "owns_block", "distribute", "ZERO1_MAX_PARAMS"]

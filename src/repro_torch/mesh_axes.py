@@ -25,18 +25,29 @@ the adjoints a ``shard_map`` body's collectives get in JAX:
   * :func:`sum_gradients`: the identity, whose cotangent is summed over
     the group (an all-reduce): the entry of a replicated tensor that each
     rank of the group uses for other work (its slice of the tokens, its
-    tokens' router logits).
+    tokens' router logits, its heads or FFN columns);
+  * :func:`psum` (an all-reduce: the closing sum of a row-parallel
+    projection, whose ranks hold partial sums of one result): the
+    identity on the cotangent.  Every rank uses the sum alike (the
+    activations after it are replicated over the group), so each partial
+    sum's cotangent is the sum's; the replicated input of the block takes
+    :func:`sum_gradients`, as Megatron's pair of conjugate operators.
 
 :func:`reduce_scatter` and :func:`all_reduce` are the plain collectives
 (not recorded by autograd) that the sharded train step reduces its
-gradients with.
+gradients with.  On a ``gloo`` group a CUDA tensor is staged through the
+host (:func:`_staged`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Dict
 
 import torch
+
+_RECORDED = threading.local()          # .records: the open recorder
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
@@ -81,22 +92,57 @@ def axes_size(mesh, axes) -> int:
     return math.prod(sizes[a] for a in axes)
 
 
+@contextlib.contextmanager
+def recording_collectives():
+    """Collect (kind, output bytes) of every collective this thread runs
+    while the block runs ("all-gather", "all-to-all", "all-reduce",
+    "reduce-scatter"): the dry run's reckoning of a program's traffic."""
+    outer = getattr(_RECORDED, "records", None)
+    _RECORDED.records = records = []
+    try:
+        yield records
+    finally:
+        _RECORDED.records = outer
+
+
+def _record(kind: str, out: torch.Tensor) -> torch.Tensor:
+    records = getattr(_RECORDED, "records", None)
+    if records is not None:
+        records.append((kind, out.numel() * out.element_size()))
+    return out
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    """Whether a collective on ``x`` goes through the host: a CUDA tensor
+    over a ``gloo`` group (several ranks on one card, where ``nccl`` cannot
+    put two ranks on one device; gloo's CUDA support covers fewer
+    collectives than its host path)."""
+    import torch.distributed as dist
+
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     import torch.distributed as dist
 
     x = x.contiguous()            # empty_like keeps a view's strides
+    if _staged(x, group):
+        return _all_to_all(x.cpu(), group).to(x.device)
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
-    return out
+    return _record("all-to-all", out)
 
 
 def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     import torch.distributed as dist
 
     x = x.contiguous()
+    if _staged(x, group):
+        return _all_gather(x.cpu(), group, dim).to(x.device)
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+    return _record("all-gather", parts[0] if len(parts) == 1
+                   else torch.cat(parts, dim=dim))
 
 
 def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -109,13 +155,15 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     if x.shape[dim] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
                          f"does not divide over {n} ranks")
+    if _staged(x, group):
+        return reduce_scatter(x.cpu(), group, dim).to(x.device)
     xm = x.detach().movedim(dim, 0).contiguous()
     out = xm.new_empty((xm.shape[0] // n,) + tuple(xm.shape[1:]))
     # the name of torch 2.13 and later, the other of the earlier ones
     fn = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
     fn(out, xm, group=group)
-    return out.movedim(0, dim)
+    return _record("reduce-scatter", out.movedim(0, dim))
 
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -123,9 +171,11 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     recorded by autograd."""
     import torch.distributed as dist
 
+    if _staged(x, group):
+        return all_reduce(x.cpu(), group).to(x.device)
     out = x.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=group)
-    return out
+    return _record("all-reduce", out)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -169,6 +219,16 @@ class _SumGradients(torch.autograd.Function):
         return all_reduce(g, ctx.group), None
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """``jax.lax.all_to_all(split_axis=0, concat_axis=0)``: block j of the
     leading axis goes to rank j of ``group``; blocks arrive in rank
@@ -194,6 +254,15 @@ def sum_gradients(x: torch.Tensor, group) -> torch.Tensor:
     return _SumGradients.apply(x, group)
 
 
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.psum`` over ``group``: the sum of every rank's ``x``, in
+    ``x``'s dtype (a bfloat16 input is summed in float32 and rounded once).
+    Its adjoint is the identity (see the module docstring)."""
+    if x.dtype == torch.bfloat16:
+        return _Psum.apply(x.to(torch.float32), group).to(x.dtype)
+    return _Psum.apply(x, group)
+
+
 __all__ = ["axis_sizes", "axis_group", "axis_index", "axes_size",
-           "all_to_all", "all_gather", "sum_gradients", "reduce_scatter",
-           "all_reduce"]
+           "all_to_all", "all_gather", "sum_gradients", "psum",
+           "reduce_scatter", "all_reduce", "recording_collectives"]

@@ -19,6 +19,34 @@ On a CUDA tensor every attention over a whole sequence (causal and
 windowed self-attention, the encoder's, cross-attention) goes through the
 hand-written flash kernel (``kernels.ops.flash_attention``); the CPU, and
 ``use_kernel=False``, take the plain :func:`layers.attention`.
+
+Tensor parallelism over ``model`` (``ActSharding.mesh``, as GSPMD splits
+the JAX package's program under ``act_sharding``'s placements).  Each rank
+computes with its compute blocks (``launch.sharding.compute_spec``); the
+widths it computes at are read from their shapes, so a block that is the
+whole tensor (``model`` of 1, or whole weights) runs the single program:
+
+  * attention: ``wq``/``wk``/``wv`` column-parallel by heads (``bq``... cut
+    alike), ``wo`` row-parallel closed by :func:`mesh_axes.psum`.  Where the
+    KV heads do not divide ``model``, ``wk``/``wv`` stay whole: each rank
+    computes every KV head (the cache holds them) and attends with the ones
+    its query heads read (``h // group``);
+  * the gated MLP: ``w_gate``/``w_up`` column-parallel over F, ``w_down``
+    row-parallel closed by ``psum``;
+  * the embedding vocab-parallel: each rank looks up the ids in its rows
+    (0 elsewhere) and ``psum`` adds them, ``jnp.take``'s semantics kept
+    (:func:`embed_rows`); the head vocab-parallel, the logits gathered
+    over the vocabulary where an entry point returns them;
+  * sequence parallelism (``act_sharding``'s ``seq_par``: the hidden
+    states' sequence over ``model``): a rank runs rows ``[r S/m, (r+1)
+    S/m)`` with whole weights (but the embedding and head), its keys and
+    values gathered over the sequence, its queries at their positions
+    (the flash kernel's ``q_offset``);
+  * the MoE keeps ``moe_ffn_shard_map``'s expert parallelism (``moe_mesh``);
+  * the recurrent mixers (``rglru``, ``mlstm``, ``slstm``) run whole on
+    every rank, their weights gathered over ``model`` and their states
+    whole (where ``cache_shardings`` splits those states' channels over
+    ``model``: their channel split is not ported).
 """
 from __future__ import annotations
 
@@ -31,7 +59,14 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
-from repro_torch.mesh_axes import axes_size
+from repro_torch.mesh_axes import (
+    all_gather,
+    axes_size,
+    axis_group,
+    axis_index,
+    axis_sizes,
+    psum,
+)
 from repro_torch.models import moe
 from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ArchConfig
@@ -57,16 +92,23 @@ class ActSharding:
     ``hidden`` (B, S, D), ``heads`` (B, S, H, Dh), ``kv``, ``ffn``,
     ``expert`` (E, C, D) and ``logits`` (B, S, V) are placement tuples
     (``launch.sharding``): in JAX they are ``with_sharding_constraint``s,
-    which change no value, and here they change none either; a rank's
-    activations stay whole, and ``layers.recording_placements`` lets the
-    dry run account for them.  ``moe_mesh`` (a ``DeviceMesh``) sends every MoE
-    layer through the expert-parallel ``moe_ffn_shard_map`` over its
-    ``model`` axis and ``moe_dp_axes``: each rank then runs the model on
-    its block of the batch, with its blocks of the experts
-    (``launch.sharding.moe_param_specs``).  The sharded train step
-    (``training.sharded``) takes the same ``ActSharding``.
+    which change no value.  ``mesh`` (a ``DeviceMesh``, set by
+    ``act_sharding``) makes the serving entry points (``forward``,
+    ``prefill``, ``decode_step``) split their work over its ``model``
+    axis, as the placements say (the module docstring): heads, FFN width
+    and vocabulary by the compute blocks' shapes, the sequence where
+    ``hidden`` shards it; ``layers.recording_placements`` records each
+    activation's local block for the dry run.  ``mesh=None`` leaves the
+    fields records and every rank computes whole: the train step
+    (``training``) takes that, its tensor-parallel compute not ported.
+    ``moe_mesh`` (a ``DeviceMesh``) sends every MoE layer through the
+    expert-parallel ``moe_ffn_shard_map`` over its ``model`` axis and
+    ``moe_dp_axes``: each rank then runs the model on its block of the
+    batch, with its blocks of the experts
+    (``launch.sharding.moe_param_specs``).
     """
 
+    mesh: Any = None
     hidden: Any = None
     heads: Any = None
     kv: Any = None
@@ -78,9 +120,44 @@ class ActSharding:
 
 
 def shard(x: torch.Tensor, sh: Optional[ActSharding], field: str):
-    """``with_sharding_constraint``'s counterpart: ``x`` unchanged, its
-    placement ``getattr(sh, field)`` recorded (``layers.place``)."""
+    """``with_sharding_constraint``'s counterpart: ``x`` (this rank's
+    block: the layers have already split it) unchanged, its placement
+    ``getattr(sh, field)`` and its local shape recorded
+    (``layers.place``)."""
     return place(x, getattr(sh, field) if sh is not None else None, field)
+
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """This rank's place on the ``model`` axis of ``ActSharding.mesh``:
+    its process group (None alone), size and index, and whether the hidden
+    states' sequence is split over it."""
+
+    group: Any = None
+    n: int = 1
+    rank: int = 0
+    seq_par: bool = False
+
+    def start(self, whole: int, local: int, what: str) -> int:
+        """The first index of this rank's block of ``local`` of ``whole``
+        (0 when the block is whole)."""
+        if local == whole:
+            return 0
+        if local * self.n != whole:
+            raise ValueError(f"{what}: a block of {local} of {whole} is not "
+                             f"one of {self.n} model ranks'")
+        return self.rank * local
+
+
+def tp_of(sh: Optional[ActSharding]) -> TP:
+    """:class:`TP` of ``sh`` (alone without ``sh.mesh`` or at ``model`` 1)."""
+    mesh = getattr(sh, "mesh", None)
+    if mesh is None or axis_sizes(mesh).get("model", 1) == 1:
+        return TP()
+    from repro_torch.launch.sharding import seq_parallel
+
+    return TP(axis_group(mesh, "model"), axis_sizes(mesh)["model"],
+              axis_index(mesh, "model"), seq_parallel(sh))
 
 
 # ---------------------------------------------------------------------------
@@ -249,74 +326,141 @@ def params_from_jax(tree, device=None) -> P:
 # forward pieces
 # ---------------------------------------------------------------------------
 
-def _qkv(p: P, cfg: ArchConfig, x, positions):
-    """Projected, biased, roped q (B,S,Hq,Dh) and k, v (B,S,Hkv,Dh)."""
+def _cols(bias: torch.Tensor, n: int, tp: TP) -> torch.Tensor:
+    """This rank's ``n`` entries of a bias stored whole (``param_spec``
+    keeps 1-D leaves whole) for a column-parallel projection's block."""
+    if bias.shape[-1] == n:
+        return bias
+    return bias.narrow(-1, tp.start(bias.shape[-1], n, "bias"), n)
+
+
+def _proj(x, w, b, tp: TP):
+    """``x @ w (+ b)``: a column-parallel block when ``w`` is one."""
+    y = x @ w
+    return y if b is None else y + _cols(b, y.shape[-1], tp)
+
+
+def _qkv(p: P, cfg: ArchConfig, x, positions, tp: TP = TP()):
+    """Projected, biased, roped q (B,S,Hq,Dh) and k, v (B,S,Hkv,Dh), at
+    the rank's head counts (the blocks of ``wq``/``wk``/``wv``)."""
     b, s, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if "bq" in p:
-        q = q + p["bq"]
-    if "bk" in p:
-        k, v = k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    dh = cfg.head_dim
+    q = _proj(x, p["wq"], p.get("bq"), tp).reshape(b, s, -1, dh)
+    k = _proj(x, p["wk"], p.get("bk"), tp).reshape(b, s, -1, dh)
+    v = _proj(x, p["wv"], p.get("bv"), tp).reshape(b, s, -1, dh)
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 
 
 def _cross_kv(p: P, cfg: ArchConfig, src):
     """Cross-attention keys and values of the encoder output (no bias, no
-    RoPE, as in JAX): (B, Sk, Hkv, Dh) each."""
+    RoPE, as in JAX): (B, Sk, Hkv, Dh) each, at the rank's KV heads."""
     b, sk, _ = src.shape
-    return ((src @ p["wk"]).reshape(b, sk, cfg.num_kv_heads, cfg.head_dim),
-            (src @ p["wv"]).reshape(b, sk, cfg.num_kv_heads, cfg.head_dim))
+    return ((src @ p["wk"]).reshape(b, sk, -1, cfg.head_dim),
+            (src @ p["wv"]).reshape(b, sk, -1, cfg.head_dim))
+
+
+def kv_for_queries(k, v, cfg: ArchConfig, h0: int, hq: int, k0: int,
+                   contiguous: bool = True):
+    """The block of KV heads that query heads ``[h0, h0 + hq)`` read (head
+    ``h`` reads ``h // group``), of ``k``/``v`` (B, S, H, Dh) holding KV
+    heads ``[k0, k0 + H)``: ``k``, ``v`` themselves when they read all,
+    else a narrowed block (copied when ``contiguous``: the flash kernel's
+    operands).  Each KV head of the block must be read by as many of the
+    query heads (``hq`` a multiple of the group or a divisor of it), as on
+    every mesh whose ``model`` axis divides the heads by a power of two;
+    anything else raises."""
+    group = cfg.num_heads // cfg.num_kv_heads
+    lo, hi = h0 // group - k0, (h0 + hq - 1) // group + 1 - k0
+    if lo < 0 or hi > k.shape[2] or (hq % group and group % hq):
+        raise ValueError(f"query heads [{h0}, {h0 + hq}) do not read a "
+                         f"block of KV heads [{k0}, {k0 + k.shape[2]}) "
+                         f"evenly (group {group})")
+    if (lo, hi) == (0, k.shape[2]):
+        return k, v
+    k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    return (k.contiguous(), v.contiguous()) if contiguous else (k, v)
+
+
+def row_parallel(y, rows: int, whole: int, tp: TP):
+    """``y``, the product of a weight block of ``rows`` of its ``whole``
+    input rows: summed over ``model`` (``psum``) where the block is a
+    rank's share of them."""
+    if rows == whole:
+        return y
+    tp.start(whole, rows, "row-parallel block")      # one rank's share
+    return psum(y, tp.group)
+
+
+def out_proj(out, wo, cfg: ArchConfig, tp: TP):
+    """(B, S, H, Dh) attention output through ``wo``: a row-parallel block
+    (the rank's heads' rows) closed by ``psum`` over ``model``."""
+    b, s = out.shape[:2]
+    return row_parallel(out.reshape(b, s, -1) @ wo, wo.shape[0], cfg.q_dim,
+                        tp)
 
 
 def _attn_apply(p: P, cfg: ArchConfig, x, positions, kind: str,
                 use_kernel: bool = False, causal: bool = True, kv=None,
-                sh: Optional[ActSharding] = None):
+                sh: Optional[ActSharding] = None, seq_par: bool = False):
     """Full-sequence attention block: self-attention, or cross-attention
     (non-causal, no RoPE) over ``kv = (k, v)`` from :func:`_cross_kv`.
     Returns (out, (k, v)): for self-attention the roped keys and the values
-    that ``prefill`` writes into the cache.
+    that ``prefill`` writes into the cache (every KV head the rank
+    computed; under ``seq_par`` gathered over the whole sequence).
 
-    Query and key positions are ``arange`` (``_embed``, ``_encode``), which
-    are exactly the flash kernel's iota masks.
+    Key positions are ``arange``; query positions are ``positions``, which
+    are ``arange`` too (``_embed``, ``_encode``) or, under ``seq_par``, the
+    rank's block of it from ``q_offset``: exactly the flash kernel's masks.
     """
+    tp = tp_of(sh)
     b, s, _ = x.shape
+    hq = p["wq"].shape[-1] // cfg.head_dim
+    h0 = tp.start(cfg.num_heads, hq, "query heads")
+    q_offset = 0
     if kv is None:
-        q, k, v = _qkv(p, cfg, x, positions)
+        q, k, v = _qkv(p, cfg, x, positions, tp)
         k_pos = positions
+        if seq_par:
+            k = all_gather(k, tp.group, 1)
+            v = all_gather(v, tp.group, 1)
+            q_offset = tp.rank * s
+            k_pos = torch.arange(k.shape[1], dtype=torch.int32,
+                                 device=x.device).expand(b, k.shape[1])
     else:
-        q = x @ p["wq"]
-        if "bq" in p:
-            q = q + p["bq"]
-        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+        q = _proj(x, p["wq"], p.get("bq"), tp).reshape(b, s, hq,
+                                                       cfg.head_dim)
         k, v = kv
         causal = False
         k_pos = torch.arange(k.shape[1], dtype=torch.int32,
                              device=x.device).expand(b, k.shape[1])
+    k0 = tp.start(cfg.num_kv_heads, k.shape[2], "KV heads")
+    ka, va = kv_for_queries(k, v, cfg, h0, hq, k0)
     q = shard(q, sh, "heads")
     window = cfg.window if kind == "swa" else None
-    if use_kernel:
-        out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    if use_kernel:       # the offset passed only where a rank has one
+        offset = {"q_offset": q_offset} if q_offset else {}
+        out = kops.flash_attention(q, ka, va, causal=causal, window=window,
+                                   **offset)
     elif cfg.force_chunked_attn and s > 1 and kv is None:
-        out = chunked_attention(q, k, v, positions, k_pos, causal=causal,
+        out = chunked_attention(q, ka, va, positions, k_pos, causal=causal,
                                 window=window)
     else:
-        out = attention(q, k, v, positions, k_pos, causal=causal,
+        out = attention(q, ka, va, positions, k_pos, causal=causal,
                         window=window)
     out = shard(out, sh, "heads")
-    return out.reshape(b, s, cfg.q_dim) @ p["wo"], (k, v)
+    return out_proj(out, p["wo"], cfg, tp), (k, v)
 
 
 def _ffn_apply(p: P, cfg: ArchConfig, x, sh: Optional[ActSharding] = None):
     if "ffn" not in p:
         return None
     h = rmsnorm(x, p["norm2"])
+    tp = tp_of(sh)
     if cfg.moe is not None:
+        rows = h.shape[1]
+        if tp.seq_par:      # the MoE takes the tokens whole over model
+            h = all_gather(h, tp.group, 1, adjoint="slice")
         lead = h.shape[:-1]
         x2 = h.reshape(-1, h.shape[-1])
         if sh is not None and sh.moe_mesh is not None:
@@ -324,8 +468,10 @@ def _ffn_apply(p: P, cfg: ArchConfig, x, sh: Optional[ActSharding] = None):
         else:
             out = moe.moe_ffn(x2, p["ffn"], cfg.moe,
                               expert_sharding=getattr(sh, "expert", None))
-        return out.reshape(*lead, -1)
-    return gated_mlp(h, p["ffn"], cfg.mlp)
+        out = out.reshape(*lead, -1)
+        return out.narrow(1, tp.rank * rows, rows) if tp.seq_par else out
+    return row_parallel(gated_mlp(h, p["ffn"], cfg.mlp),
+                        p["ffn"]["w_down"].shape[0], cfg.d_ff, tp)
 
 
 def _moe_on_mesh(x2, p: P, cfg: ArchConfig, sh: ActSharding):
@@ -350,7 +496,8 @@ def _mixer_seq(p: P, kind: str, cfg: ArchConfig, h, positions,
     sequence, whose cache the reference leaves malformed)."""
     if kind in ("attn", "swa"):
         out, (k, v) = _attn_apply(p["attn"], cfg, h, positions, kind,
-                                  use_kernel, sh=sh)
+                                  use_kernel, sh=sh,
+                                  seq_par=tp_of(sh).seq_par)
         return out, {"k": k, "v": v}
     if kind == "rglru":
         out, h_last = rec.rglru_seq(p["rglru"], h)
@@ -387,22 +534,38 @@ def _layer_seq(p: P, kind: str, cfg: ArchConfig, x, positions,
     return x, state
 
 
-def embed_rows(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_rows(embed: torch.Tensor, tokens: torch.Tensor,
+               vocab: Optional[int] = None, tp: TP = TP()) -> torch.Tensor:
     """The embedding rows of ``tokens``, as ``jnp.take(embed, tokens,
     axis=0)`` gives them: an id in ``[-V, 0)`` counts from the end, and an
     id outside ``[-V, V)`` gives a row of NaN (``take``'s fill mode), where
     plain indexing would raise (a device assert on the card).  No host
-    sync."""
+    sync.
+
+    ``embed`` may be this rank's block of ``vocab`` rows (vocab-parallel):
+    each rank takes the rows it holds, 0 for the others, and ``psum`` over
+    ``model`` adds the one row each id has (in float32: exact)."""
     v = embed.shape[0]
+    vocab = v if vocab is None else vocab
     ids = tokens.to(torch.int64)
-    rows = embed[torch.remainder(ids, v)]
-    inside = (ids >= -v) & (ids < v)
+    if v == vocab:
+        rows = embed[torch.remainder(ids, v)]
+    else:
+        local = torch.remainder(ids, vocab) - tp.start(vocab, v, "embed")
+        mine = (local >= 0) & (local < v)
+        rows = embed[local.clamp(0, v - 1)].to(torch.float32)
+        rows = psum(torch.where(mine[..., None], rows, 0.0),
+                    tp.group).to(embed.dtype)
+    inside = (ids >= -vocab) & (ids < vocab)
     return torch.where(inside[..., None], rows, float("nan"))
 
 
-def _embed(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
-    """Token (+ patch frontend) embedding -> (x, positions)."""
-    x = embed_rows(params["embed"], batch["tokens"]).to(ACT_DTYPE)
+def _embed(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+           tp: TP = TP()):
+    """Token (+ patch frontend) embedding -> (x, positions); under
+    sequence parallelism this rank's block of the sequence."""
+    x = embed_rows(params["embed"], batch["tokens"], cfg.vocab_size,
+                   tp).to(ACT_DTYPE)
     if cfg.family in ("dense", "moe", "vlm", "hybrid", "ssm") and \
             cfg.frontend == "patch" and "embeds" in batch:
         pe = batch["embeds"].to(ACT_DTYPE) @ params["patch_proj"]
@@ -413,6 +576,13 @@ def _embed(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    if tp.seq_par:
+        if s % tp.n:
+            raise ValueError(f"sequence parallelism: {s} positions do not "
+                             f"split over {tp.n} model ranks")
+        rows = s // tp.n
+        x = x.narrow(1, tp.rank * rows, rows)
+        positions = positions.narrow(1, tp.rank * rows, rows)
     return x, positions
 
 
@@ -422,11 +592,18 @@ def embed_scale(cfg: ArchConfig) -> float:
                     ACT_DTYPE)
 
 
-def logits_of(params: P, x) -> torch.Tensor:
-    """float32 logits of the final hidden states (tied or own head)."""
+def logits_of(params: P, x, vocab: Optional[int] = None,
+              sh: Optional[ActSharding] = None) -> torch.Tensor:
+    """float32 logits of the final hidden states (tied or own head).  A
+    vocab-parallel head (a block of ``vocab`` columns) gives this rank's
+    logits, recorded under ``sh.logits``, then gathered over ``model``."""
     head = params.get("head")
     logits = x @ params["embed"].T if head is None else x @ head
-    return logits.to(torch.float32)
+    logits = shard(logits.to(torch.float32), sh, "logits")
+    if vocab is not None and logits.shape[-1] < vocab:
+        logits = all_gather(logits, tp_of(sh).group, logits.dim() - 1,
+                            adjoint="slice")
+    return logits
 
 
 def _unstacked(tree) -> list:
@@ -449,16 +626,22 @@ def _leaves(tree):
         yield tree
 
 
-def layers_of(params: P, cfg: ArchConfig):
+def layers_of(params: P, cfg: ArchConfig, gather: Optional[Callable] = None):
     """(parameters, kind, cycle index or tail name) of every layer, in
-    order; cycle parameters are views into the stacked tensors."""
+    order; cycle parameters are views into the stacked tensors, or each
+    cycle's subtree through ``gather`` (``forward``'s hook) at the start
+    of the cycle, and each tail layer through it."""
     pat = cfg.block_pattern
     for i, cp in enumerate(_unstacked(params["cycles"])):
+        if gather is not None:
+            cp = gather(cp, ("cycles",), i)
         for j, kind in enumerate(pat):
             yield cp[f"s{j}_{kind}"], kind, (i, f"s{j}_{kind}")
     t = 0
     while f"tail_{t}" in params:
-        yield params[f"tail_{t}"], pat[t], f"tail_{t}"
+        tl = params[f"tail_{t}"]
+        yield (tl if gather is None else gather(tl, (f"tail_{t}",), None),
+               pat[t], f"tail_{t}")
         t += 1
 
 
@@ -504,6 +687,23 @@ class _Gathered:
         return self[key] if key in self._params else default
 
 
+def serving_view(params: P, sh: Optional[ActSharding],
+                 gather: Optional[Callable] = None):
+    """(blocks, params, gather) an entry point runs on: a tree of
+    ``DTensor``s becomes its local blocks and ``launch.sharding.
+    serving_gather``'s hook (its compute blocks, gathered per cycle);
+    ``params`` reads the top-level subtrees through ``gather`` when there
+    is one.  Plain tensors are the compute blocks themselves."""
+    if gather is None and params:
+        first = next(_leaves(params))
+        if type(first).__name__ == "DTensor":
+            from repro_torch.launch.sharding import serving_gather
+
+            params, gather = serving_gather(params, sh)
+    return params, (params if gather is None else _Gathered(params, gather)), \
+        gather
+
+
 def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             sh: Optional[ActSharding] = None,
             use_kernel: Optional[bool] = None,
@@ -522,7 +722,13 @@ def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     ``jax.checkpoint`` with ``nothing_saveable``; tail layers are not.
 
     ``sh``: see :class:`ActSharding`; with ``moe_mesh`` the batch and the
-    MoE parameters are this rank's blocks.
+    MoE parameters are this rank's blocks.  With ``sh.mesh`` the rank
+    computes on its ``model`` blocks (the module docstring) and the logits
+    come back whole; ``params`` is then a tree of ``DTensor``s placed by
+    ``launch.sharding.params_shardings`` (or any placement: each leaf is
+    gathered to its ``compute_spec`` block, over dp once a cycle), or of
+    plain compute blocks, and ``batch`` is this rank's block of the batch
+    (``batch_shardings``).
 
     ``gather`` (the sharded train step, ``training.sharded``): ``params``
     holds this rank's stored blocks, and ``gather(subtree, path, cycle)``
@@ -534,10 +740,9 @@ def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     embedding, the head, the final norm, tail layers, the encoder) is
     gathered where it is first used (``cycle`` None).
     """
-    raw = params
-    if gather is not None:
-        params = _Gathered(raw, gather)
-    x, positions = _embed(params, cfg, batch)
+    raw, params, gather = serving_view(params, sh, gather)
+    tp = tp_of(sh)
+    x, positions = _embed(params, cfg, batch, tp)
     x = shard(x, sh, "hidden")
     use_kernel = kops.resolve_use_kernel(use_kernel, x.device)
     enc_out = (_encode(params, cfg, batch["frames"], use_kernel, sh)
@@ -563,5 +768,7 @@ def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         x, _ = _layer_seq(params[f"tail_{t}"], pat[t], cfg, x, positions,
                           use_kernel, enc_out, sh)
         t += 1
-    return shard(logits_of(params, rmsnorm(x, params["final_norm"])), sh,
-                 "logits")
+    x = rmsnorm(x, params["final_norm"])
+    if tp.seq_par:
+        x = all_gather(x, tp.group, 1, adjoint="slice")
+    return logits_of(params, x, cfg.vocab_size, sh)

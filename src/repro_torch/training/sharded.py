@@ -50,10 +50,16 @@ One step, on every rank of the mesh at once:
     ZeRO-3 blocks in place, the global norm over distinct elements, and
     under ZeRO-1 the updated blocks gathered over dp once a step.
 
-Tensor-parallel compute over ``model`` (heads and FFN split across ranks,
-with activation collectives and sequence parallelism) is not ported:
-``model`` shards storage here, and ``ActSharding``'s activation fields
-stay placement records.
+Tensor-parallel compute over ``model`` (heads, FFN width and vocabulary
+split across ranks, with activation collectives, and sequence
+parallelism) is ported for serving (``forward``, ``prefill`` and
+``decode_step`` with ``ActSharding.mesh``: ``models.model``'s docstring)
+but not for this step: here ``model`` shards storage, each layer computes
+whole on every rank (``train_step._chunked_xent`` drops ``sh.mesh``), and
+``ActSharding``'s activation fields stay placement records.  Moving the
+step onto the serving path's compute blocks needs the backward of the
+row-parallel sums (``mesh_axes.psum``'s identity with ``sum_gradients`` at
+each block's entry) and gradients reduced over dp only.
 """
 from __future__ import annotations
 
@@ -68,13 +74,12 @@ from repro_torch.launch.sharding import (
     _entry_axes,
     _map_with_path,
     distribute,
-    gather_to,
     local_shape,
-    narrow_to,
     params_shardings,
     placements,
     same_layout,
     spec_of,
+    to_compute,
 )
 from repro_torch.mesh_axes import all_reduce, reduce_scatter
 from repro_torch.models.config import ArchConfig
@@ -192,10 +197,7 @@ class LeafPlan:
     def to_compute(self, block: torch.Tensor) -> torch.Tensor:
         """The stored block turned into the compute block: gathered over
         the axes the compute layout drops, narrowed to the ones it adds."""
-        kept = tuple(c if _entry_axes(s) else None
-                     for s, c in zip(self.stored, self.compute))
-        x = gather_to(block, self.stored, kept, self.mesh)
-        return narrow_to(x, kept, self.compute, self.mesh)
+        return to_compute(block, self.stored, self.compute, self.mesh)
 
     def to_grad(self, g: torch.Tensor, dtype) -> torch.Tensor:
         """The compute block's gradient reduced onto the grad block, in

@@ -45,7 +45,11 @@ def _chunk_nll(lg: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
 def _chunked_xent(params, cfg: ArchConfig, batch, sh, remat: bool,
                   chunk: int = XENT_CHUNK, gather=None) -> torch.Tensor:
     """Mean next-token loss, the log-softmax taken chunk by chunk
-    (``gather``: ``forward``'s, for the sharded step)."""
+    (``gather``: ``forward``'s, for the sharded step).  The layers run
+    whole on every rank (``sh.mesh`` dropped): the train step's
+    tensor-parallel compute is not ported."""
+    if sh is not None:
+        sh = dataclasses.replace(sh, mesh=None)
     logits = forward(params, cfg, batch, sh=sh, use_kernel=False,
                      remat=remat, gather=gather)
     labels = batch["labels"]

@@ -650,6 +650,43 @@ def test_cuda_flash_attention_matches_plain(cuda, b, sq, sk, hq, hkv, dh,
                                atol=FLASH_TOL)
 
 
+FLASH_OFFSETS = [
+    # (B, Sq, Sk, Hq, Hkv, Dh, causal, window, q_offset): a sequence-
+    # parallel rank's rows against the gathered keys
+    pytest.param(b, sq, sk, hq, hkv, dh, causal, window, off,
+                 id=f"d{dh}-off{off}-{'causal' if causal else 'full'}"
+                    + (f"-window{window}" if window else ""))
+    for b, sq, sk, hq, hkv, dh in [(2, 512, 2048, 14, 2, 64),
+                                   (1, 256, 1024, 8, 1, 128)]
+    for off in (0, sk // 2 - sq // 2 + 7, sk - sq)
+    for causal, window in [(True, None), (True, 300), (False, None)]
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,dh,causal,window,off",
+                         FLASH_OFFSETS)
+def test_cuda_flash_attention_offset_matches_plain(cuda, b, sq, sk, hq, hkv,
+                                                   dh, causal, window, off):
+    """The query offset (offsets 0, mid-sequence, and the last block of
+    queries) against the plain version with the same offset."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + dh + off)
+    q, k, v = (torch.randn((b, s, h, dh), generator=gen, device=cuda)
+               .to(torch.bfloat16) for s, h in ((sq, hq), (sk, hkv),
+                                                (sk, hkv)))
+    got = _launched("flash_attention", lambda: kops.flash_attention(
+        q, k, v, causal=causal, window=window, q_offset=off))
+    want = tref.flash_attention(q, k, v, causal=causal, window=window,
+                                q_offset=off)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=FLASH_TOL,
+                               atol=FLASH_TOL)
+    if off == 0:       # offset 0 is the call without it, bit for bit
+        assert torch.equal(got, kops.flash_attention(q, k, v, causal=causal,
+                                                     window=window))
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_rejects_what_it_cannot_take(cuda):
     q = torch.zeros((1, 8, 2, 64), device=cuda)

@@ -213,9 +213,14 @@ def test_input_specs_match_jax(arch, shape):
 # the dry run: per-device argument bytes against JAX's PartitionSpecs
 # ---------------------------------------------------------------------------
 
-def _jax_local_bytes(tree, specs, mesh_shape):
+ATTN_CACHE = ("k", "v", "xk", "xv", "enc_out", "pos")
+
+
+def _jax_local_bytes(tree, specs, mesh_shape, whole_states=False):
     """Bytes of one device's blocks: each leaf's size over the product of
-    the axis sizes its PartitionSpec shards it by."""
+    the axis sizes its PartitionSpec shards it by.  ``whole_states``: a
+    cache's recurrent states count whole over ``model``, as the port holds
+    them (its serving path keeps the recurrent mixers whole)."""
     total = 0
     leaves, specs = _jax_leaves(tree), _jax_leaves(specs)
     assert leaves.keys() == specs.keys()
@@ -223,6 +228,9 @@ def _jax_local_bytes(tree, specs, mesh_shape):
         div = 1
         for e in tuple(specs[key]):
             for a in ((e,) if isinstance(e, str) else (e or ())):
+                if whole_states and a == "model" and \
+                        key.rsplit("/", 1)[-1] not in ATTN_CACHE:
+                    continue
                 div *= mesh_shape[a]
         n = math.prod(leaf.shape)
         assert n % div == 0, key
@@ -248,7 +256,8 @@ def _jax_argument_bytes(arch, shape_name, tag):
     else:
         c = jinput.cache_specs(cfg, shape)
         total += _jax_local_bytes(c, jsharding.cache_shardings(
-            c, cfg, mesh, shape.global_batch), mesh.shape)
+            c, cfg, mesh, shape.global_batch), mesh.shape,
+            whole_states=True)
         total += shape.global_batch * 4                # the token, whole
     return total
 
@@ -266,8 +275,9 @@ def test_dryrun_argument_bytes_match_jax_partition_specs(arch, shape, tag,
                                                          bare_specs):
     """One dense, one MoE and two recurrent cells, on a fake process group
     of 256 or 512 ranks: the report's per-device argument bytes equal the
-    shard sizes reckoned from JAX's PartitionSpecs, and every field the
-    roofline reads is there."""
+    shard sizes reckoned from JAX's PartitionSpecs (a decode cache's
+    recurrent states whole over ``model``, as the port holds them), and
+    every field the roofline reads is there."""
     rep = dryrun.lower_cell(arch, shape, tag == "2x16x16")
     assert rep["status"] == "ok" and rep["chips"] == math.prod(
         MESHES[tag].values())
@@ -283,19 +293,61 @@ def test_dryrun_argument_bytes_match_jax_partition_specs(arch, shape, tag,
 
 
 def test_dryrun_flops_count_the_step():
-    """qwen2.5-3b decode on a 16x16 mesh: the matmul FLOPs of one decode
-    step of 128 tokens over a 32k cache, reckoned by hand, divided by the
-    256 chips."""
+    """qwen2.5-3b decode on a 16x16 mesh: the matmul FLOPs of rank 0's
+    tensor-parallel decode step, reckoned by hand: its 128 / 16 rows, its
+    16 / 16 query heads, both KV heads (2 do not divide 16: ``wk``/``wv``
+    whole), F / 16 of the gated MLP, every head's scores and output over
+    its 128 / 16 slice of head_dim of the 32k cache, V / 16 of the
+    logits."""
     cfg, shape = tconfigs.get_config("qwen2.5-3b"), tmodels.SHAPES[
         "decode_32k"]
     rep = dryrun.lower_cell("qwen2.5-3b", "decode_32k", False)
-    b, s, d = shape.global_batch, shape.seq_len, cfg.d_model
-    per_layer = 2 * b * d * (cfg.q_dim + 2 * cfg.kv_dim) \
-        + 2 * b * cfg.q_dim * d \
-        + 2 * b * d * cfg.d_ff * 3 \
-        + 2 * 2 * b * cfg.num_heads * s * cfg.head_dim
-    want = cfg.num_layers * per_layer + 2 * b * d * cfg.vocab_size
-    assert rep["per_device"]["flops"] * 256 == pytest.approx(want, rel=1e-9)
+    m = 16
+    b, s, d = shape.global_batch // 16, shape.seq_len, cfg.d_model
+    per_layer = 2 * b * d * (cfg.q_dim // m + 2 * cfg.kv_dim) \
+        + 2 * b * cfg.q_dim // m * d \
+        + 2 * b * d * cfg.d_ff // m * 3 \
+        + 2 * 2 * b * cfg.num_heads * s * cfg.head_dim // m
+    want = cfg.num_layers * per_layer + 2 * b * d * cfg.vocab_size // m
+    assert rep["per_device"]["flops"] == pytest.approx(want, rel=1e-9)
+    # the collectives the program ran: per layer the row-parallel sums of
+    # wo and w_down, (b, 1, D) float32 each, and the scores' sum, (b, H,
+    # 1, S) float32; the embedding's sum; two exchanges of the query and
+    # output, (b, 1, H, Dh) / 16 bf16 each
+    coll = rep["per_device"]["collective_bytes"]
+    assert coll["all-reduce"] == cfg.num_layers * (
+        2 * b * d * 4 + b * cfg.num_heads * s * 4) + b * d * 4
+    assert coll["all-to-all"] == cfg.num_layers * 2 * (
+        b * cfg.num_heads * cfg.head_dim // m * 2)
+
+
+@pytest.mark.parametrize("arch,seq_par", [("qwen2.5-3b", False),
+                                          ("gemma-2b", True)])
+def test_dryrun_prefill_is_the_rank_program(arch, seq_par):
+    """A prefill cell's FLOPs are rank 0's program: qwen2.5-3b (16 heads)
+    splits heads and FFN over the 16 ``model`` ranks, gemma-2b (8 heads)
+    runs sequence-parallel (its hidden states' block is S / 16 rows, and
+    its K/V gathers are reckoned); either way each rank's FLOPs are far
+    below the single program's (a whole-model rank would do 16 times its
+    share)."""
+    cfg, shape = tconfigs.get_config(arch), tmodels.SHAPES["prefill_32k"]
+    rep = dryrun.lower_cell(arch, "prefill_32k", False)
+    pd = rep["per_device"]
+    b = shape.global_batch // 16
+    hidden = pd["activations"]["hidden"]
+    rows = shape.seq_len // 16 if seq_par else shape.seq_len
+    assert hidden == b * rows * cfg.d_model * 2
+    # the MLP's matmuls alone over the rank's rows of the whole sequence,
+    # were it whole, exceed the count
+    whole_mlp = 2 * b * shape.seq_len * cfg.d_model * cfg.d_ff * 3 \
+        * cfg.num_layers
+    assert pd["flops"] < whole_mlp
+    coll = pd["collective_bytes"]
+    assert coll["all-reduce"] > 0 and coll["total"] == sum(
+        v for k, v in coll.items() if k != "total")
+    if seq_par:         # K and V of every layer gathered over the sequence
+        kv = 2 * b * shape.seq_len * cfg.kv_dim * 2 * cfg.num_layers
+        assert coll["all-gather"] >= kv
 
 
 def test_dryrun_main_writes_reports_roofline_reads(tmp_path, capsys):
