@@ -85,7 +85,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    GQA, B 4 x S 2,048, causal) and at phase 15's (a qwen2.5-3b rank's
    8/1 and 4/1 heads at ``model`` 2 and 4; the last of internvl2-1b's four
    sequence-parallel ranks, Sq 512 at ``q_offset`` 1,536 against Sk
-   2,048, 14/2 heads, Dh 64), to the reference test's
+   2,048, 14/2 heads, Dh 64; a recurrentgemma-9b rank's 8/1 heads at
+   ``model`` 2, Dh 256, window 2,048), to the reference test's
    rtol = atol = 2e-2: the kernel rounds the probabilities to bf16 before
    P V, the plain version does not, and both round the output to bf16 once,
    so they may sit a bf16 ulp or two apart.  Timed like phase 3; its bound
@@ -117,6 +118,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    between the paths are counted per layer, and the gate holds the rows
    whose routing agreed in every layer (a near tie flips with the bf16
    rounding of the attention, and that token's output moves by O(1)).
+   For recurrentgemma-9b and xlstm-1.3b the recurrent states after the
+   prefill and after ``TP_STEPS`` steps are kept for phase 15d/e, and one
+   more prefill with one weight of the first mixer moved by a bf16 ulp
+   records the model's own sensitivity (logits and states).
 
 9. Refresh and recovery.  (a) JS-OJ: ``fraud_model("store")`` on a fresh
    ``make_tpcds(sf=1000)``, extracted cold and warm, PageRank analysed so a
@@ -268,9 +273,29 @@ Run from the root of a checkout:  python3 chip_smoke.py
    At ``model`` 4, internvl2-1b at full width, B 4 x (256 patches + 1,792
    tokens), its prefill sequence-parallel (each rank's 512 rows against
    the 2,048 gathered keys: the flash kernel's ``q_offset``), against the
-   unsharded prefill alike.  Every flash launch of (b) and (c) is held
-   against the plain version on its own operands (``FLASH_TOL``).  A rank
-   that fails fails the phase.
+   unsharded prefill alike.  (d, e) Then, two processes a model, both
+   models at once, at ``model`` 2, their recurrent mixers split by
+   channels (the mLSTM's memory by key rows): first each mixer alone at
+   full width, split against whole on the same seeded inputs
+   (``MIXER_OUT_TOL``, ``MIXER_STATE_TOL``); then recurrentgemma-9b (38
+   layers) and xlstm-1.3b (48) at full width, fed 8c's prompt (B 4 x
+   2,048) and its first ``TP_STEPS`` greedy tokens: each rank's parameter
+   and cache blocks at ``local_shape``; the recurrent states gathered
+   after the prefill and after the steps and held to 8c's leaf by leaf
+   (the first recurrent layer's to ``FIRST_STATE_TOL``, every leaf to
+   ``LM_REL_TOL`` of its largest entry but the sLSTM's rescaled ``c`` and
+   ``n``); every logit row within ``LM_REL_TOL`` x std of 8c's and the
+   greedy tokens agreeing on ``TP_ARGMAX_MIN`` of the rows.  xlstm-1.3b
+   turns a one-ulp change into drift beyond those bounds at full depth
+   (8c measures it: ``TP_RECURRENT_CUT``), so there its run is recorded
+   (the first layer's states still gated) and the gates hold at one
+   cycle, 8 layers, against the unsharded run of that cut.  Logged per
+   rank: the parameter and state blocks' bytes beside the whole's, the
+   peak memory beside 8c's, the bytes of each kind of collective of the
+   prefill and of a decode step, and the seconds over ``gloo`` (no TP
+   speed).  Every flash launch of (b)-(e) is held against the plain
+   version on its own operands (``FLASH_TOL``).  A rank that fails fails
+   the phase.
 
 The phases run in their order, each kernel case checked and timed with
 CUDA events where it stands.  Then a kernel phase: the kernel cases of 4-7
@@ -290,7 +315,7 @@ Launch counters are set to 0 just before each of phases 4–7, 8b, each
 model of 8c, each refresh of phase 9, each discovery of phase 10,
 phase 11, 12's data plane, training and serving, 13a's distributed
 joins and 13b's forward, 14's sharded steps, and 15a's run and each
-rank's run of 15b and 15c (summed over the ranks), and read just after;
+rank's run of 15b-e (summed over the ranks), and read just after;
 every kernel of a path must have launched inside it.  The last
 lines are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
@@ -440,6 +465,42 @@ TP_VLM, TP_VLM_TOKENS = "internvl2-1b", 1792
 # logits, so a near-tie may flip now and then (one of 8 rows at smoke
 # size on the CPU); a layout or exchange fault agrees on next to none
 TP_ARGMAX_MIN = 0.75
+# (d, e) the recurrent families at full width at model 2, one process a
+# rank over gloo, fed phase 8c's prompt (B 4 x 2,048) and its first
+# TP_STEPS greedy tokens: recurrentgemma-9b (38 layers) and xlstm-1.3b
+# (48).  Their states after the prefill and after the steps are gathered
+# and held to the unsharded run's leaf by leaf (check_states): max |TP -
+# unsharded| over the leaf's largest entry within LM_REL_TOL.  A state
+# drifts with the hidden states that feed it (the split sums round
+# otherwise in bf16, as the logits do); a channel or key-row block in
+# another rank's place is off by about that largest entry.
+TP_RECURRENT = ("recurrentgemma-9b", "xlstm-1.3b")
+TP_RECURRENT_WORLD = 2
+# xlstm-1.3b at random weights amplifies a bf16 rounding: one weight of its
+# first mLSTM moved by a bf16 ulp moves 8c's full-depth logits by 0.56 x std
+# and flips half the greedy tokens (the sLSTM's stabilizer m sums its raw
+# forget gates to ~544 over 2,048 steps).  So at full depth its TP run is
+# recorded against 8c's, not gated, and the gate holds at one cycle of its
+# pattern (8 layers: 7 mLSTM, 1 sLSTM) against the unsharded run of that
+# cut; each mixer alone is gated at full width.
+TP_RECURRENT_CUT = ("xlstm-1.3b", 8)
+# the first recurrent layer's states after the prefill: its input is the
+# embedding alone, so the split and whole runs agree to float32 sums (a
+# bf16 ulp of the leaf's largest entry; a block in another rank's place is
+# off by about that entry)
+FIRST_STATE_TOL = 2.0**-8
+# each mixer alone, split against whole on the same inputs: outputs within
+# two bf16 ulps of their largest entry (a row-parallel psum rounds each
+# rank's bf16 part), states within one (a decode step's bf16 projections
+# through a column block may round apart from the whole matrix's: cuBLAS
+# takes another kernel at 4 rows)
+MIXER_OUT_TOL, MIXER_STATE_TOL = 2.0**-6, 2.0**-8
+# the sLSTM's c and n are held relative to exp(m), m a running max of sums
+# of its raw forget gates: a bf16 rounding upstream moves m's path and
+# rescales both (one weight moved by an ulp moves them by 0.15-0.19 of
+# their largest entry within one cycle), so they are recorded, not gated;
+# h = o c / max(n, 1), what the layer passes on, reaches the logits
+SLSTM_SCALED = ("_slstm/c", "_slstm/n")
 # the tolerances of tests/test_torch_training.py::test_train_step_matches_jax
 # (moments to GRAD_TOL x their largest entry, v twice that; parameters to a
 # bf16 ulp where the gradient's sign is certain, 2 lr elsewhere), held where
@@ -1677,6 +1738,9 @@ def flash_cases(torch, kops, ref):
                  4, 2048, 8, 1, 128, None),
             case(f"{LM_ARCH} model 4 rank B 4 S 2048 4/1 Dh 128 causal",
                  4, 2048, 4, 1, 128, None),
+            # phase 15d's: a recurrentgemma-9b rank at model 2
+            case("recurrentgemma model 2 rank B 4 S 2048 8/1 Dh 256 window "
+                 "2048", 4, 2048, 8, 1, 256, 2048),
             case("internvl2-1b seq-par rank 3 of 4 B 4 Sq 512 Sk 2048 14/2 "
                  "Dh 64 causal offset 1536", 4, 2048, 14, 2, 64, None,
                  sq=512, q_offset=1536)]
@@ -1819,11 +1883,29 @@ def decode_weight_bytes(params, cfg, routes):
     return bound, reads
 
 
+def recurrent_states(cache):
+    """(path, tensor) of the recurrent states phase 15d/e compares: every
+    RG-LRU and sLSTM state, every mLSTM ``n``, and the mLSTM memory ``c``
+    of the first slot of the cycle (each slot's is 100 MB at xlstm-1.3b's
+    width)."""
+    for path, t in named_leaves(cache):
+        name = path.rsplit("/", 1)[-1]
+        if name not in ("h", "conv", "c", "n", "m"):
+            continue
+        if name == "c" and t.dim() == 5 and "/s0_" not in path:
+            continue
+        yield path, t
+
+
 def serve_family(torch, kops, arch, layers, prompt):
     """Phase 8c, one model: ``prefill`` of LM_BATCH prompts through the
     flash kernel, LM_STEPS greedy decode steps, a warm prefill; then the
     prefill and the first (teacher-forced) decode step on the plain
-    attention path, held to LM_REL_TOL x std(logits)."""
+    attention path, held to LM_REL_TOL x std(logits).  Returns (launch
+    counts, a record, and for ``TP_RECURRENT`` the outputs phase 15d/e
+    compares with: the prompt, the logit rows of the prefill and the first
+    ``TP_STEPS`` steps, the greedy tokens fed to those, the recurrent
+    states after the prefill and after those steps, the peak memory)."""
     import dataclasses
 
     import numpy as np
@@ -1875,19 +1957,30 @@ def serve_family(torch, kops, arch, layers, prompt):
         (logits, cache), prefill_s = timed(
             lambda: prefill(params, cfg, batch, max_len))
     prefill_launches = kops.launch_counts()["flash_attention"]
+    keep = arch in TP_RECURRENT and layers is None
+    if keep:
+        states_prefill = {p: t.to("cpu", copy=True)   # decode writes
+                          for p, t in recurrent_states(cache)}   # in place
     first_logits = logits
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     step_logits = []
 
-    def decode():
+    def decode(steps):
         nonlocal cache, tok
-        for _ in range(LM_STEPS):
+        for _ in range(steps):
             out, cache = decode_step(params, cfg, cache, tok)
             step_logits.append(out)
             tok = torch.argmax(out, dim=-1).to(torch.int32)
 
+    # timed in two parts: phase 15d/e's states after TP_STEPS steps are
+    # copied out between them
     with recording_routes() as decode_routes:
-        _, decode_s = timed(decode)
+        _, decode_s = timed(lambda: decode(TP_STEPS))
+        if keep:
+            states_steps = {p: t.to("cpu", copy=True)
+                            for p, t in recurrent_states(cache)}
+        _, rest_s = timed(lambda: decode(LM_STEPS - TP_STEPS))
+    decode_s += rest_s
     counts = kops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     assert prefill_launches == flash_calls, \
@@ -1902,10 +1995,34 @@ def serve_family(torch, kops, arch, layers, prompt):
     assert int(cache["pos"]) == prompt + LM_STEPS
     first_tok = torch.argmax(first_logits, dim=-1).to(torch.int32)
     first_step = step_logits[0]
+    outputs = None
+    if keep:          # for phase 15d/e
+        rows = [first_logits] + step_logits[:TP_STEPS]
+        outputs = {
+            "tokens": batch["tokens"].cpu(),
+            "logits": [x.cpu() for x in rows],
+            "fed": [torch.argmax(x, dim=-1).to(torch.int32).cpu()
+                    for x in rows[:-1]],
+            "states_prefill": states_prefill,
+            "states_steps": states_steps,
+            "peak_gib": peak / 2**30}
     del cache
     out, warm_prefill_s = timed(lambda: prefill(params, cfg, batch,
                                                 max_len))
     del out
+    if keep:    # the model's own sensitivity: one weight moved by an ulp
+        kind = cfg.block_pattern[0]
+        mixer = params["cycles"][f"s0_{kind}"][kind]
+        w = mixer["w_out" if "w_out" in mixer else "w_o"]
+        saved = w[0, 0, 0].clone()
+        w[0, 0, 0] = (saved.float() * (1 + 2.0**-7)).to(w.dtype)
+        nudged, ncache = prefill(params, cfg, batch, max_len)
+        w[0, 0, 0] = saved
+        outputs["nudged_weight_prefill"] = dict(
+            lm_agreement(torch, nudged, first_logits),
+            states=state_agreement(torch, dict(recurrent_states(ncache)),
+                                   states_prefill, f"{cfg.name} nudged"))
+        del nudged, ncache
     bound_bytes, read_bytes = decode_weight_bytes(params, cfg,
                                                   decode_routes)
     timing = {
@@ -1921,12 +2038,19 @@ def serve_family(torch, kops, arch, layers, prompt):
         "decode_weight_read_bytes": read_bytes,
         "max_memory_allocated_gib": peak / 2**30,
         "flash_launches": counts["flash_attention"]}
+    if keep:
+        timing["nudged_weight_prefill"] = outputs["nudged_weight_prefill"]
     if flash_calls:
         # the same prefill and first decode step on the plain attention
         with recording_routes() as plain_routes:
             (plain_logits, plain_cache), plain_prefill_s = timed(
                 lambda: prefill(params, cfg, batch, max_len,
                                 use_kernel=False))
+        if keep:
+            timing["kernel_vs_plain_states"] = check_states(
+                state_agreement(torch, dict(recurrent_states(plain_cache)),
+                                states_prefill, f"{cfg.name} plain"),
+                None, cfg.name, every=False)
         with recording_routes() as plain_step_routes:
             plain_step, _ = decode_step(params, cfg, plain_cache, first_tok)
         del plain_cache
@@ -1971,19 +2095,23 @@ def serve_family(torch, kops, arch, layers, prompt):
     timing["model_s"] = time.perf_counter() - t_start
     log(f"LM family serve: {json.dumps(timing)}")
     del params, first_logits, step_logits
-    return counts, timing
+    return counts, timing, outputs
 
 
 def serve_families(torch, kops):
     """Phase 8c: the MoE, recurrent and encoder-decoder families at full
-    width on one card, one after another (each freed before the next)."""
-    counts, timings = {}, []
+    width on one card, one after another (each freed before the next).
+    Returns (launch counts by path, records, {arch: outputs} of
+    ``TP_RECURRENT``)."""
+    counts, timings, outputs = {}, [], {}
     for arch, layers, prompt in LM_FAMILIES:
-        c, t = serve_family(torch, kops, arch, layers, prompt)
+        c, t, out = serve_family(torch, kops, arch, layers, prompt)
         counts[f"lm_serve_{arch}"] = c
         timings.append(t)
+        if out is not None:
+            outputs[arch] = out
         torch.cuda.empty_cache()
-    return counts, timings
+    return counts, timings, outputs
 
 
 def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
@@ -3654,13 +3782,37 @@ def tp_world1(torch, kops, lm_outputs, smi):
     return counts, rec
 
 
-def tp_serve_phase(torch, kops, lm_outputs):
+def run_ranks(jobs, label: str):
+    """Start ``chip_smoke.py`` once per (tag, arguments) of ``jobs``, all
+    at once, log each one's output under its tag, and fail if one fails."""
+    procs = [(tag, subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for tag, args in jobs]
+    failed = []
+    try:
+        for tag, p in procs:
+            out, _ = p.communicate(timeout=900)
+            for line in out.splitlines():
+                log(f"  [{tag}] {line}")
+            if p.returncode != 0:
+                failed.append((tag, p.returncode))
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert not failed, f"{label}: ranks failed (rank, rc): {failed}"
+
+
+def tp_serve_phase(torch, kops, lm_outputs, family_outputs):
     """Phase 15: tensor-parallel serving over ``model``.  (a) at world size
     1 (:func:`tp_world1`); (b, c) one process a rank on the one card over
-    ``gloo`` (:func:`tp_rank`), the worlds of ``TP_WORLDS`` ranks at once.
+    ``gloo`` (:func:`tp_rank`), the worlds of ``TP_WORLDS`` ranks at once;
+    then (d, e) the recurrent families of ``TP_RECURRENT`` at model
+    ``TP_RECURRENT_WORLD`` (:func:`tp_recurrent_rank`), both at once.
     Returns (launch counts summed over (a) and every rank, a record)."""
     import shutil
-    import subprocess
     import tempfile
 
     smi = nvidia_smi()
@@ -3669,28 +3821,9 @@ def tp_serve_phase(torch, kops, lm_outputs):
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=ROOT / "build"))
     try:
         torch.save(lm_outputs, work / "ref.pt")
-        procs = []
-        for world in TP_WORLDS:
-            for rank in range(world):
-                procs.append((world, rank, subprocess.Popen(
-                    [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank",
-                     str(rank), "--tp-world", str(world), "--tp-dir",
-                     str(work)], stdout=subprocess.PIPE,
-                    stderr=subprocess.STDOUT, text=True)))
-        failed = []
-        try:
-            for world, rank, p in procs:
-                out, _ = p.communicate(timeout=900)
-                for line in out.splitlines():
-                    log(f"  [{world}:{rank}] {line}")
-                if p.returncode != 0:
-                    failed.append((world, rank, p.returncode))
-        finally:
-            for _, _, p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        assert not failed, f"15: ranks failed (world, rank, rc): {failed}"
+        run_ranks([(f"{world}:{rank}", ["--tp-rank", str(rank), "--tp-world",
+                                        str(world), "--tp-dir", str(work)])
+                   for world in TP_WORLDS for rank in range(world)], "15b-c")
         counts = collections.Counter(counts_a)
         ranks = {}
         for world in TP_WORLDS:
@@ -3699,6 +3832,23 @@ def tp_serve_phase(torch, kops, lm_outputs):
                                  .read_text())
                 counts.update(rec["launches"])
                 ranks[f"{world}/{rank}"] = rec
+        log(f"phase 15b-c: {time.perf_counter() - t0:.1f} s ({smi})")
+        t1 = time.perf_counter()
+        for arch in TP_RECURRENT:
+            torch.save(family_outputs[arch], work / f"{arch}.pt")
+        world = TP_RECURRENT_WORLD
+        run_ranks([(f"{arch} {world}:{rank}",
+                    ["--tp-rank", str(rank), "--tp-world", str(world),
+                     "--tp-dir", str(work), "--tp-arch", arch])
+                   for arch in TP_RECURRENT for rank in range(world)],
+                  "15d-e")
+        for arch in TP_RECURRENT:
+            for rank in range(world):
+                rec = json.loads((work / f"{arch}_{world}_{rank}.json")
+                                 .read_text())
+                counts.update(rec["launches"])
+                ranks[f"{arch}/{world}/{rank}"] = rec
+        log(f"phase 15d-e: {time.perf_counter() - t1:.1f} s ({smi})")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 15: {time.perf_counter() - t0:.1f} s ({smi})")
@@ -3875,6 +4025,349 @@ def tp_vlm(torch, kops, real, mesh, placed):
             "cache_k": list(k.shape), **agree}, counts
 
 
+def state_agreement(torch, got, want, what: str) -> dict:
+    """Per state leaf (``want``: the unsharded run's, whole, on the host):
+    max |got - want| over max |want| (``over_max``) and over std(want), and
+    ``first``: the first cycle's slice (a tail leaf whole) over its max;
+    every leaf finite and of ``want``'s shape."""
+    out = {}
+    for path, w in want.items():
+        g, w = got[path].float().cpu(), w.float()
+        assert g.shape == w.shape, (what, path, tuple(g.shape),
+                                    tuple(w.shape))
+        assert bool(torch.isfinite(g).all()), f"{what} {path}: non-finite"
+        d = (g - w).abs()
+        first = 0 if path.startswith("cycles/") else slice(None)
+        out[path] = {
+            "over_max": float(d.max() / max(float(w.abs().max()), 1e-30)),
+            "over_std": float(d.max() / max(float(w.std()), 1e-30)),
+            "first": float(d[first].max()
+                           / max(float(w[first].abs().max()), 1e-30))}
+    return out
+
+
+def check_states(agree: dict, first_layer, what: str, every: bool) -> dict:
+    """The gates of phase 15d/e on ``state_agreement``'s record: the first
+    recurrent layer's states after the prefill (``first_layer``: its
+    path's prefix; its input is the embedding alone) within
+    ``FIRST_STATE_TOL`` of their largest entry (None: no such check);
+    with ``every``, each leaf's ``over_max`` within ``LM_REL_TOL`` but the
+    sLSTM's c and n (``SLSTM_SCALED``).  Returns the worst leaf."""
+    for path, a in agree.items():
+        if first_layer is not None and path.startswith(first_layer):
+            assert a["first"] <= FIRST_STATE_TOL, (what, path, a)
+        if every and not path.endswith(SLSTM_SCALED):
+            assert a["over_max"] <= LM_REL_TOL, (what, path, a)
+    worst = max(agree, key=lambda p: agree[p]["over_max"])
+    return {"leaves": len(agree), "worst": worst, **agree[worst]}
+
+
+def mixers_alone(torch, cfg, group, rank: int, world: int) -> dict:
+    """Each recurrent mixer of ``cfg`` at its full width, B LM_BATCH x
+    LM_PROMPT, on this rank's column / row blocks against the whole mixer
+    on the same inputs (seeded): the sequence form, then a decode step from
+    its state.  Outputs within ``MIXER_OUT_TOL`` of their largest entry
+    (the row-parallel sums round in bf16 otherwise), states within
+    ``MIXER_STATE_TOL`` (they are the whole mixer's channels or key rows;
+    only float32 sums may round apart)."""
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models.layers import TP
+
+    dev = torch.device("cuda", 0)
+    tp = TP(group, world, rank)
+    d, h = cfg.d_model, max(cfg.num_heads, 1)
+    gen = torch.Generator(device=dev).manual_seed(26)
+
+    def cols(w):
+        n = w.shape[-1] // world
+        return w[..., rank * n:(rank + 1) * n].contiguous()
+
+    def rows(w):
+        n = w.shape[0] // world
+        return w[rank * n:(rank + 1) * n].contiguous()
+
+    def keys(t):                   # the mLSTM's key rows (dim 2 of C, n)
+        n = t.shape[2] // world
+        return t[:, :, rank * n:(rank + 1) * n]
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max())
+
+    out = {}
+    for kind in sorted(set(cfg.block_pattern) & {"rglru", "mlstm", "slstm"}):
+        x = torch.randn(LM_BATCH, LM_PROMPT, d, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        xs = torch.randn(LM_BATCH, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        if kind == "rglru":
+            p = rec.init_rglru(gen, d, dev)
+            mine = {k: rows(v) if k == "w_out" else v if k == "lam"
+                    else cols(v) for k, v in p.items()}
+            o, st = rec.rglru_seq(p, x)
+            lo, lst = rec.rglru_seq(mine, x, tp=tp)
+            conv = x[:, -(rec.CONV_WIDTH - 1):] @ p["w_x"]
+            o2, st2, _ = rec.rglru_step(p, xs, st, conv)
+            lo2, lst2, _ = rec.rglru_step(mine, xs, lst, cols(conv), tp)
+            pairs = [(lst, cols(st)), (lst2, cols(st2))]
+        elif kind == "slstm":
+            p = rec.init_slstm(gen, d, dev)
+            mine = {k: rows(v) if k == "w_out" else cols(v)
+                    for k, v in p.items()}
+            o, st = rec.slstm_seq(p, x)
+            lo, lst = rec.slstm_seq(mine, x, tp=tp)
+            pairs = [(a, cols(b)) for a, b in zip(lst, st)]
+            o2, st2 = rec.slstm_step(p, xs, st)
+            lo2, lst2 = rec.slstm_step(mine, xs, lst, tp)
+            pairs += [(a, cols(b)) for a, b in zip(lst2, st2)]
+        else:                          # the step updates C, n in place
+            p = rec.init_mlstm(gen, d, h, dev)
+            mine = {k: v if k in ("w_i", "w_f") and h % world else cols(v)
+                    for k, v in p.items()}
+            o, (c, n) = rec.mlstm_seq(p, x, h)
+            lo, (lc, ln) = rec.mlstm_seq(mine, x, h, tp=tp)
+            errs = [rel(lc, keys(c)), rel(ln, keys(n))]
+            o2, _ = rec.mlstm_step(p, xs, (c, n), h)
+            lo2, _ = rec.mlstm_step(mine, xs, (lc, ln), h, tp)
+            pairs = [(lc, keys(c)), (ln, keys(n))]
+        out[kind] = {"out": max(rel(lo, o), rel(lo2, o2)),
+                     "states": max([rel(a, b) for a, b in pairs]
+                                   + (errs if kind == "mlstm" else []))}
+        assert out[kind]["out"] <= MIXER_OUT_TOL, (kind, out[kind])
+        assert out[kind]["states"] <= MIXER_STATE_TOL, (kind, out[kind])
+        del p, mine, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def unsharded_outputs(torch, cfg, params, tokens) -> dict:
+    """Phase 8c's record (``serve_family``) of an unsharded run of
+    ``params`` on ``tokens``: the logit rows of the prefill and
+    ``TP_STEPS`` greedy steps, the tokens fed, the recurrent states after
+    the prefill and after the steps."""
+    from repro_torch.models import decode_step, prefill
+
+    logits, cache = prefill(params, cfg, {"tokens": tokens},
+                            tokens.shape[1] + LM_STEPS)
+    out = {"tokens": tokens.cpu(), "logits": [logits.cpu()], "fed": [],
+           "states_prefill": {p: t.to("cpu", copy=True)
+                              for p, t in recurrent_states(cache)}}
+    for _ in range(TP_STEPS):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out["fed"].append(tok.cpu())
+        logits, cache = decode_step(params, cfg, cache, tok)
+        out["logits"].append(logits.cpu())
+    out["states_steps"] = {p: t.to("cpu", copy=True)
+                           for p, t in recurrent_states(cache)}
+    return out
+
+
+def tp_recurrent_run(torch, kops, cfg, mesh, whole, want, gate: bool):
+    """``whole`` (freed here) placed by ``params_shardings`` on ``mesh``,
+    the prefill of ``want``'s prompt and its fed tokens through the TP
+    entry points, against ``want`` (:func:`unsharded_outputs`' record):
+    the parameter and cache blocks at ``local_shape``; the states
+    (``check_states``; with ``gate`` every leaf, and the logit rows within
+    ``LM_REL_TOL`` x std and ``TP_ARGMAX_MIN``).  Returns (a record, launch
+    counts)."""
+    import numpy as np
+
+    from repro_torch.launch.sharding import (act_sharding, cache_shardings,
+                                             distribute, gather_to,
+                                             local_shape, narrow_tree,
+                                             params_shardings, spec_of)
+    from repro_torch.mesh_axes import recording_collectives
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.decode import init_cache
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    params = distribute(whole, params_shardings(whole, mesh, cfg), mesh)
+    whole_bytes = sum(t.numel() * t.element_size() for t in _leaves(whole))
+    whole.clear()
+    torch.cuda.empty_cache()
+    nbytes = 0
+    for t in _leaves(params):
+        block = t.to_local()
+        assert tuple(block.shape) == local_shape(
+            tuple(t.shape), spec_of(t), mesh), tuple(block.shape)
+        nbytes += block.numel() * block.element_size()
+    rec = {"layers": cfg.num_layers, "params_bytes": nbytes,
+           "whole_params_bytes": whole_bytes,
+           "place_s": time.perf_counter() - t0}
+    prompt = want["tokens"].shape[1]
+    max_len = prompt + LM_STEPS
+    sh_p = act_sharding(cfg, mesh, LM_BATCH, seq=prompt)
+    sh_d = act_sharding(cfg, mesh, LM_BATCH)
+    meta = init_cache(cfg, LM_BATCH, max_len, device="meta")
+    c_pre = cache_shardings(meta, cfg, mesh, LM_BATCH, for_decode=False)
+    c_dec = cache_shardings(meta, cfg, mesh, LM_BATCH)
+    first = f"cycles/s0_{cfg.block_pattern[0]}/"
+
+    def blocks_of(cache, specs, what):
+        local = whole_bytes = 0
+        for (path, t), (_, spec), (_, w) in zip(
+                named_leaves(cache), named_leaves(specs), named_leaves(meta)):
+            assert tuple(t.shape) == local_shape(tuple(w.shape), spec,
+                                                 mesh), (what, path)
+            if path.rsplit("/", 1)[-1] in ("h", "conv", "c", "n", "m"):
+                local += t.numel() * t.element_size()
+                whole_bytes += w.numel() * w.element_size()
+        return local, whole_bytes
+
+    def gathered(cache, specs):
+        spec = dict(named_leaves(specs))
+        return {p: gather_to(t, spec[p], (None,) * t.dim(), mesh)
+                for p, t in recurrent_states(cache)}
+
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_collectives() as moved:
+        logits, cache = prefill(params, cfg, {"tokens": want["tokens"]
+                                              .to(dev)}, max_len, sh=sh_p)
+    torch.cuda.synchronize()
+    rec["prefill_s_gloo"] = time.perf_counter() - t0
+    rec["prefill_collective_bytes"] = collective_totals(moved)
+    rec["state_bytes"], rec["whole_state_bytes"] = blocks_of(
+        cache, c_pre, "prefill cache")
+    states = {"prefill": state_agreement(
+        torch, gathered(cache, c_pre), want["states_prefill"],
+        f"15 {cfg.name} prefill states")}
+    cache = narrow_tree(cache, c_pre, c_dec, mesh)
+    blocks_of(cache, c_dec, "decode cache")
+    rows = [logits]
+    t0 = time.perf_counter()
+    for i, tok in enumerate(want["fed"]):
+        with recording_collectives() as moved:
+            out, cache = decode_step(params, cfg, cache, tok.to(dev),
+                                     sh=sh_d)
+        if i == 0:
+            rec["step_collective_bytes"] = collective_totals(moved)
+        rows.append(out)
+    torch.cuda.synchronize()
+    rec["decode_ms_per_step_gloo"] = (time.perf_counter() - t0) \
+        / len(want["fed"]) * 1e3
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    counts = kops.launch_counts()
+    blocks_of(cache, c_dec, "cache after the steps")
+    states["steps"] = state_agreement(
+        torch, gathered(cache, c_dec), want["states_steps"],
+        f"15 {cfg.name} states after the steps")
+    agree = [lm_agreement(torch, r, w) for r, w in zip(rows, want["logits"])]
+    assert len(agree) == TP_STEPS + 1
+    rec["worst_over_std"] = max(a["max_abs_over_std"] for a in agree)
+    rec["argmax_agreement"] = float(np.mean(
+        [a["argmax_agreement"] for a in agree]))
+    print(json.dumps({cfg.name: rec, "states": states}), flush=True)
+    rec["states"] = {
+        "prefill": check_states(states["prefill"], first, cfg.name, gate),
+        "steps": check_states(states["steps"], None, cfg.name, gate)}
+    if gate:
+        assert rec["worst_over_std"] <= LM_REL_TOL, agree
+        assert rec["argmax_agreement"] >= TP_ARGMAX_MIN, agree
+    del params, cache, rows
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+def tp_recurrent_rank(torch, kops, ref, rank: int, world: int, work: Path,
+                      arch: str) -> int:
+    """One rank of phase 15d/e, in its own process on card 0: a ``gloo``
+    world of ``world`` ranks, a 1 x ``world`` ``("data", "model")`` mesh.
+    First each of ``arch``'s mixers alone at full width, split against
+    whole (:func:`mixers_alone`).  Then ``arch`` at full width and depth
+    (:func:`tp_recurrent_run`) against 8c's run of it (``work /
+    <arch>.pt``): gated where ``TP_RECURRENT_CUT`` does not name it, else
+    recorded, and gated at that depth against the unsharded run of the cut
+    model (:func:`unsharded_outputs`, taken first with whole parameters).
+    Every flash launch is held against the plain version on its own
+    operands.  Writes ``<arch>_<world>_<rank>.json``."""
+    import dataclasses
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo",
+                            init_method=f"file://{work}/store_{arch}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=300))
+    try:
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        group = mesh.get_group("model")
+        backend = dist.get_backend(group)
+        print(f"backend {backend}, {arch}, model {world}, rank {rank}",
+              flush=True)
+        real, compare = kops.flash_attention, flash_compare(torch)
+        flash = {"shapes": set(), "max_abs_err": 0.0, "checked": 0}
+
+        def checked(q, k, v, **kw):
+            out = real(q, k, v, **kw)
+            err = compare(out, ref.flash_attention(q, k, v, **kw))
+            flash["max_abs_err"] = max(flash["max_abs_err"], err)
+            flash["checked"] += 1
+            flash["shapes"].add(f"q {tuple(q.shape)} k {tuple(k.shape)} "
+                                f"window {kw.get('window')}")
+            return out
+
+        cfg = get_config(arch)
+        rec = {"backend": backend, "arch": arch, "model": world,
+               "mixers_alone": mixers_alone(torch, cfg, group, rank, world)}
+        cut = dict([TP_RECURRENT_CUT]).get(arch)
+        want = torch.load(work / f"{arch}.pt")
+        kops.flash_attention = checked
+
+        def params_of(c):
+            return init_params(c, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+
+        rec["full"], counts = tp_recurrent_run(
+            torch, kops, cfg, mesh, params_of(cfg), want, gate=cut is None)
+        rec["full"]["unsharded_peak_gib"] = want["peak_gib"]
+        tokens = want["tokens"]
+        del want
+        n_attn = sum(k in ("attn", "swa") for k in cfg.layer_kinds())
+        assert counts["flash_attention"] == n_attn == flash["checked"], \
+            (counts, flash["checked"])
+        if cut is not None:
+            cut_cfg = dataclasses.replace(cfg, num_layers=cut)
+            whole = params_of(cut_cfg)
+            kops.flash_attention = real      # the reference launches nothing
+            base = unsharded_outputs(torch, cut_cfg, whole,
+                                     tokens.to(dev))
+            kops.flash_attention = checked
+            rec["cut"], cut_counts = tp_recurrent_run(
+                torch, kops, cut_cfg, mesh, whole, base, gate=True)
+            for k, v in cut_counts.items():
+                counts[k] += v
+        kops.flash_attention = real
+        rec["launches"] = counts
+        rec["flash"] = dict(flash, shapes=sorted(flash["shapes"]))
+        print(json.dumps(rec), flush=True)
+        (work / f"{arch}_{world}_{rank}.json").write_text(json.dumps(rec))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def collective_totals(moved) -> dict:
+    """Bytes of each kind of collective of a ``recording_collectives``
+    record, and how many ran."""
+    out = collections.Counter()
+    for kind, nbytes in moved:
+        out[kind] += nbytes
+        out[f"{kind} calls"] += 1
+    return dict(out)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3901,6 +4394,7 @@ def main(argv=None) -> int:
     parser.add_argument("--tp-world", type=int, default=None,
                         help=argparse.SUPPRESS)
     parser.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-arch", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3929,6 +4423,10 @@ def main(argv=None) -> int:
     # float32 matmuls and convolutions in full float32 (the plain versions)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.tp_rank is not None and args.tp_arch is not None:
+        return tp_recurrent_rank(torch, kops, ref, args.tp_rank,
+                                 args.tp_world, Path(args.tp_dir),
+                                 args.tp_arch)
     if args.tp_rank is not None:
         return tp_rank(torch, kops, ref, args.tp_rank, args.tp_world,
                        Path(args.tp_dir))
@@ -4044,7 +4542,7 @@ def main(argv=None) -> int:
     flash_rows = check_flash_kernel(torch, kops, ref)
     counts_lm, _, lm_outputs = serve_lm(torch, kops)
     torch.cuda.empty_cache()
-    counts_families, _ = serve_families(torch, kops)
+    counts_families, _, family_outputs = serve_families(torch, kops)
 
     # 9. refresh and recovery: JS-OJ rounds (delta, delta, full, noop) on a
     # durable database, JS-MV through its maintained view, then recovery
@@ -4080,8 +4578,8 @@ def main(argv=None) -> int:
     # 15. tensor-parallel serving over model: 8b's qwen2.5-3b placed on a
     # 1x1 mesh (nccl, bit-equal), at model 2 and 4 (a process a rank over
     # gloo), and internvl2-1b's sequence-parallel prefill at model 4
-    counts_tp, _ = tp_serve_phase(torch, kops, lm_outputs)
-    del lm_outputs
+    counts_tp, _ = tp_serve_phase(torch, kops, lm_outputs, family_outputs)
+    del lm_outputs, family_outputs
 
     # the kernel phase: the kernel cases of 4-7 on untimed replays of the
     # paths, then every case's device time (a profiler session slows the

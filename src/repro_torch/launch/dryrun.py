@@ -17,10 +17,10 @@ here compiles, so each field of the JAX report
     -3 by ``zero_policy``), the optimizer state (AdamW's step, and m and v
     in float32 under the ZeRO-3 placements) and the batch for train;
     parameters and batch for prefill; parameters, cache and the token
-    (whole on every rank) for decode.  The cache's layout is the one the
-    port holds (``sharding.serving_cache_shardings``): ``cache_shardings``'
-    for the attention caches, the recurrent mixers' states whole over
-    ``model``.
+    (whole on every rank) for decode.  The cache's layout is
+    ``cache_shardings``', the port's: the attention caches by KV heads (or
+    ``head_dim``), the recurrent mixers' states by channels (the mLSTM's
+    memory by its key rows).
   * ``output_bytes``: the local blocks of the outputs: parameters and
     optimizer state (train); the last logits (B, V) float32, whole, and the
     cache (prefill, decode).
@@ -30,9 +30,10 @@ here compiles, so each field of the JAX report
     ``prefill``/``decode_step`` with ``act_sharding``'s ``ActSharding``
     (its mesh the production mesh) on ``meta`` compute blocks of rank 0
     (``sharding.compute_specs``) and its blocks of the batch and cache:
-    the tensor-parallel program at its local shapes, the MoE through
-    ``moe_ffn_shard_map``.  Train: the single-program step at the global
-    shapes (``make_train_step`` on plain tensors: forward, recompute,
+    the tensor-parallel program at its local shapes (the recurrent mixers
+    at their channel blocks), the MoE through ``moe_ffn_shard_map``.
+    Train: the single-program step at the global shapes
+    (``make_train_step`` on plain tensors: forward, recompute,
     backward and the AdamW update over ``microbatches_for`` microbatches)
     divided by the chips; the sharded train step (``training.sharded``)
     computes its dense layers replicated over ``model``, so a rank of a
@@ -65,8 +66,11 @@ here compiles, so each field of the JAX report
         ``psum``s (float32 all-reduces), the decode's ``head_dim`` score
         all-reduces and its query and output ``all_to_all``s, the
         vocabulary gathers of the logits, sequence parallelism's K/V and
-        hidden gathers, and the MoE's exchanges, combine gathers and expert
-        gathers.
+        hidden gathers, the MoE's exchanges, combine gathers and expert
+        gathers, and the recurrent mixers' exchanges (the RG-LRU's gate
+        input gather; the mLSTM's query and key ``all_to_all``s, value,
+        gate and output gathers and the float32 all-reduce of its partial
+        sums over the key rows).
       - not reckoned: in training, tensor-parallel activation collectives
         (the train step computes its dense layers whole), the EP combine's
         all-gather over ``model``, and the MoE's collectives where the EP
@@ -113,11 +117,11 @@ from repro_torch.launch.mesh import (
 from repro_torch.launch.sharding import (
     act_sharding,
     batch_shardings,
+    cache_shardings,
     compute_specs,
     local_bytes,
     local_shape,
     params_shardings,
-    serving_cache_shardings,
     zero_policy,
 )
 from repro_torch.mesh_axes import recording_collectives
@@ -196,7 +200,7 @@ def cell_arguments(cfg: ArchConfig, shape: ShapeConfig, mesh) -> Dict:
                                         shape.kind))
     else:
         acache = cache_specs(cfg, shape)
-        out["cache"] = (acache, serving_cache_shardings(
+        out["cache"] = (acache, cache_shardings(
             acache, cfg, mesh, shape.global_batch))
         tok = token_spec(shape)
         out["token"] = (tok, _whole(tok))
@@ -219,8 +223,8 @@ def output_bytes(cfg: ArchConfig, shape: ShapeConfig, mesh, args) -> int:
         return sum(tree_local_bytes(*args[r], mesh)
                    for r in ("params", "opt_state"))
     cache = cache_specs(cfg, shape)
-    specs = serving_cache_shardings(cache, cfg, mesh, shape.global_batch,
-                                    for_decode=shape.kind == "decode")
+    specs = cache_shardings(cache, cfg, mesh, shape.global_batch,
+                            for_decode=shape.kind == "decode")
     return shape.global_batch * cfg.vocab_size * 4 + \
         tree_local_bytes(cache, specs, mesh)
 
@@ -270,7 +274,7 @@ def collective_bytes(cfg: ArchConfig, shape: ShapeConfig, mesh, args,
     else:                         # each leaf gathered to its compute block
         fsdp = sum(_map2(lambda t, s: gathered(t, s[0], tuple(
             c if e else None for e, c in zip(*s))), aparams,
-            _zip_specs(p_sh, compute_specs(p_sh, mesh, sh))))
+            _zip_specs(p_sh, compute_specs(p_sh, aparams, mesh, sh))))
     if train:
         z3 = args["opt_state"][1].m
         grads = sum(_map2(lambda t, s: local_bytes(
@@ -332,7 +336,8 @@ def local_arguments(cfg: ArchConfig, shape: ShapeConfig, mesh, args,
     parameters' compute blocks (``compute_specs``), its block of the batch
     (and of the cache, in the port's layout, and of the token's rows)."""
     p, p_sh = args["params"]
-    out = {"params": _meta_blocks(p, compute_specs(p_sh, mesh, sh), mesh)}
+    out = {"params": _meta_blocks(p, compute_specs(p_sh, p, mesh, sh),
+                                  mesh)}
     rows = batch_shardings(cfg, mesh, shape.global_batch, shape.kind)
     if shape.kind == "prefill":
         out["batch"] = _meta_blocks(*args["batch"], mesh)

@@ -16,8 +16,9 @@ The serving entry points compute on each rank's *compute block* of a
 parameter (:func:`compute_spec`): its placement with the dp axes dropped
 (ZeRO-3's shard gathered), keeping ``model`` where the layers split the
 work over it (attention by heads, the gated MLP by its FFN width, the
-embedding and head by vocabulary); every other weight, and every weight of
-a sequence-parallel model but the embedding and head, is gathered whole.
+embedding and head by vocabulary, the recurrent mixers by channels); every
+other weight, and every weight of a sequence-parallel model but the
+embedding and head, is gathered whole.
 The MoE's experts take ``moe_ffn_shard_map``'s layout.
 :func:`serving_gather` turns a ``DTensor`` tree into the blocks and the
 per-cycle gather that ``models.forward``, ``prefill`` and ``decode_step``
@@ -274,25 +275,6 @@ def cache_shardings(cache_abstract, cfg: ArchConfig, mesh, batch: int,
     return _map_with_path(visit, cache_abstract)
 
 
-ATTN_CACHE = ("k", "v", "xk", "xv", "enc_out", "pos")
-
-
-def serving_cache_shardings(cache_abstract, cfg: ArchConfig, mesh,
-                            batch: int, for_decode: bool = True):
-    """The layout the port's serving entry points hold a cache in:
-    :func:`cache_shardings`' for the attention caches (and ``enc_out``,
-    ``pos``), the recurrent mixers' states whole over ``model`` (their
-    channel split is not ported: ``models.model``'s docstring)."""
-    specs = cache_shardings(cache_abstract, cfg, mesh, batch, for_decode)
-
-    def walk(tree, path=()):
-        if isinstance(tree, dict):
-            return {k: walk(v, path + (k,)) for k, v in tree.items()}
-        return tree if path[-1] in ATTN_CACHE else _drop_axes(tree,
-                                                              {"model"})
-    return walk(specs)
-
-
 def moe_param_specs(params, mesh, model_axis: str = "model"):
     """Placements for a forward with ``ActSharding(moe_mesh=mesh)``: the
     expert weights in ``moe_ffn_shard_map``'s layout (experts over
@@ -316,6 +298,7 @@ def moe_param_specs(params, mesh, model_axis: str = "model"):
 
 EXPERTS = ("w_gate", "w_up", "w_down")
 FFN_TP = ("w_gate", "w_up", "w_down")
+RECURRENT = ("rglru", "mlstm", "slstm")
 
 
 def _tp_leaf(path: Tuple[str, ...], ndim: int) -> bool:
@@ -346,20 +329,28 @@ def seq_parallel(sh: Optional[ActSharding]) -> bool:
             and "model" in _entry_axes(sh.hidden[1]))
 
 
-def compute_spec(path: Tuple[str, ...], spec: Spec, mesh,
-                 sh: Optional[ActSharding]) -> Spec:
+def compute_spec(path: Tuple[str, ...], spec: Spec, shape: Tuple[int, ...],
+                 mesh, sh: Optional[ActSharding]) -> Spec:
     """The placement of the block the serving layers compute with, for a
-    parameter at ``path`` stored under ``spec`` (see the module
-    docstring): the experts in ``moe_ffn_shard_map``'s layout when
-    ``sh.moe_mesh`` is set; else ``spec`` without the dp axes, and without
-    ``model`` too unless the layers split the leaf over it (never under
-    sequence parallelism, but for the embedding and head; never without
-    ``sh.mesh``, where every rank computes whole)."""
+    parameter of ``shape`` at ``path`` stored under ``spec`` (see the
+    module docstring): the experts in ``moe_ffn_shard_map``'s layout when
+    ``sh.moe_mesh`` is set; a recurrent mixer's weight split by channels
+    over ``model`` as :func:`param_spec`'s contract-dim rule splits it,
+    whatever it is stored under (its states are split so in
+    ``cache_shardings``; a weight stored whole, as ZeRO-1 of a model whose
+    heads do not divide ``model`` replicates it, is narrowed to its block);
+    else ``spec`` without the dp axes, and without ``model`` too unless the
+    layers split the leaf over it (never under sequence parallelism, but
+    for the embedding and head; never without ``sh.mesh``, where every
+    rank computes whole)."""
     lead = 1 if "cycles" in path or "layers" in path else 0
     if sh is not None and sh.moe_mesh is not None and "ffn" in path \
             and path[-1] in EXPERTS and len(spec) == lead + 3:
         return (None,) * lead + tuple(ep_specs(dp_axes(mesh))[path[-1]])
     tp = sh is not None and sh.mesh is not None
+    if tp and any(m in path for m in RECURRENT) and not seq_parallel(sh):
+        return param_spec("/".join(path), tuple(shape), mesh,
+                          dp_override=())
     keep_model = tp and _tp_leaf(path, len(spec)) and (
         not seq_parallel(sh) or (len(path) == 1
                                  and path[-1] in ("embed", "head")))
@@ -367,18 +358,18 @@ def compute_spec(path: Tuple[str, ...], spec: Spec, mesh,
     return _drop_axes(spec, drop)
 
 
-def compute_specs(specs, mesh, sh: Optional[ActSharding]):
+def compute_specs(specs, params, mesh, sh: Optional[ActSharding]):
     """:func:`compute_spec` of every leaf of a tree of placements
-    (``params_shardings``): cut a whole tree with ``shard_params(params,
-    mesh, compute_specs(...))`` for the blocks the layers take directly."""
-    def visit(path, spec):
-        return compute_spec(path, tuple(spec), mesh, sh)
-
-    def walk(tree, path=()):
+    (``params_shardings``) of the tree ``params`` (tensors of any device,
+    ``meta`` too: only their shapes are read): cut a whole tree with
+    ``shard_params(params, mesh, compute_specs(...))`` for the blocks the
+    layers take directly."""
+    def walk(tree, leaves, path=()):
         if isinstance(tree, dict):
-            return {k: walk(v, path + (str(k),)) for k, v in tree.items()}
-        return visit(path, tree)
-    return walk(specs)
+            return {k: walk(v, leaves[k], path + (str(k),))
+                    for k, v in tree.items()}
+        return compute_spec(path, tuple(tree), tuple(leaves.shape), mesh, sh)
+    return walk(specs, params)
 
 
 def to_compute(block: torch.Tensor, stored: Spec, compute: Spec,
@@ -400,7 +391,7 @@ def serving_gather(params, sh: Optional[ActSharding]):
     (:func:`compute_spec`), cycle ``cycle`` of a stacked subtree when it is
     not None; None when every block is its compute block (a 1x1 mesh).
     No autograd: the serving path."""
-    stored = {}
+    stored, shapes = {}, {}
     mesh = None
 
     def visit(path, t):
@@ -410,6 +401,7 @@ def serving_gather(params, sh: Optional[ActSharding]):
         elif t.device_mesh != mesh:
             raise ValueError(f"{'/'.join(path)}: on another mesh")
         stored[path] = spec_of(t)
+        shapes[path] = tuple(t.shape)
         return t.to_local()
 
     blocks = _map_with_path(visit, params)
@@ -422,7 +414,7 @@ def serving_gather(params, sh: Optional[ActSharding]):
     ones = {a for a, n in axis_sizes(mesh).items() if n == 1}
     compute = {}
     for path, spec in stored.items():
-        co = compute_spec(path, spec, mesh, sh)
+        co = compute_spec(path, spec, shapes[path], mesh, sh)
         if _drop_axes(co, ones) != _drop_axes(spec, ones):
             compute[path] = _drop_axes(spec, ones), _drop_axes(co, ones)
     if not compute:
@@ -640,7 +632,7 @@ def shard_params(params, mesh, specs):
 
 __all__ = ["param_spec", "zero_policy", "params_shardings", "act_sharding",
            "batch_shardings", "cache_shardings", "moe_param_specs",
-           "serving_cache_shardings", "seq_parallel", "compute_spec",
+           "seq_parallel", "compute_spec",
            "compute_specs", "to_compute",
            "serving_gather", "narrow_tree",
            "placements", "local_shape", "local_bytes", "local_block",

@@ -6,6 +6,8 @@ The port of ``repro.models.decode``.  Cache sizes are the serving contract:
   rglru  -> (cycles, B, D) fp32 + conv tail (B, W-1, D)     O(1)
   mlstm  -> (cycles, B, H, Dh, Dh) + (.., Dh) fp32          O(1)
   slstm  -> (cycles, B, D) fp32 x3                          O(1)
+(under tensor parallelism D / m channels, and Dh / m key rows of the
+mLSTM's memory).
 With an encoder, every ``attn`` layer also holds its cross-attention keys
 and values ``xk``/``xv`` (B, src_len, Hkv, Dh), and the cache the encoder
 output ``enc_out`` (B, src_len, D).  Keys are stored *post-RoPE*;
@@ -45,7 +47,11 @@ Per layer and step that moves 2 (B, H, Dh) bf16 tensors and reduces one
 (B, H, S) float32 score tensor, where gathering the cache would move
 (B, S, Hkv, Dh).  With heads that do not divide ``model`` (the query whole
 on every rank) the rank takes its slice of the query and gathers the
-output's slices.  The recurrent mixers' states stay whole on each rank.
+output's slices.  The recurrent mixers' states are the rank's blocks in
+both layouts (``cache_shardings`` splits them alike for prefill and
+decode): the RG-LRU's and sLSTM's channels, the mLSTM's key rows
+(``recurrent.py``'s docstring); :func:`prefill` reads their widths from
+the mixers' weight blocks.
 """
 from __future__ import annotations
 
@@ -97,10 +103,12 @@ def _cache_len(cfg: ArchConfig, kind: str, max_len: int) -> int:
 
 def _layer_cache(cfg: ArchConfig, kind: str, b: int, max_len: int,
                  src_len: int, device, lead: Tuple[int, ...] = (),
-                 kv_heads: Optional[int] = None) -> Dict[str, Any]:
+                 kv_heads: Optional[int] = None,
+                 state_split: int = 1) -> Dict[str, Any]:
     hkv, dh, d = cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     hkv = hkv if kv_heads is None else kv_heads
     h = max(cfg.num_heads, 1)
+    dl = d // state_split
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(lead + (b,) + shape, dtype=dtype, device=device)
@@ -114,25 +122,30 @@ def _layer_cache(cfg: ArchConfig, kind: str, b: int, max_len: int,
             c["xv"] = zeros(src_len, hkv, dh, dtype=ACT_DTYPE)
         return c
     if kind == "rglru":
-        return {"h": zeros(d),
-                "conv": zeros(rec.CONV_WIDTH - 1, d, dtype=ACT_DTYPE)}
+        return {"h": zeros(dl),
+                "conv": zeros(rec.CONV_WIDTH - 1, dl, dtype=ACT_DTYPE)}
     if kind == "mlstm":
-        return {"c": zeros(h, d // h, d // h), "n": zeros(h, d // h)}
+        dk = rec.key_block(d // h, state_split)
+        return {"c": zeros(h, dk, d // h), "n": zeros(h, dk)}
     if kind == "slstm":
-        return {"c": zeros(d), "n": zeros(d), "m": zeros(d)}
+        return {"c": zeros(dl), "n": zeros(dl), "m": zeros(dl)}
     raise ValueError(kind)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, src_len: int = 0,
-               device=None, kv_heads: Optional[int] = None) -> Dict[str, Any]:
+               device=None, kv_heads: Optional[int] = None,
+               state_split: int = 1) -> Dict[str, Any]:
     """Zeroed caches: stacked per cycle slot, one per tail layer; with an
     encoder, ``src_len`` is the encoder's output length.  ``kv_heads``:
-    the KV heads a rank holds (all by default)."""
+    the KV heads a rank holds (all by default); ``state_split``: the
+    ``model`` ranks the recurrent states are split over (their blocks in
+    ``cache_shardings``; 1, whole, by default)."""
     device = resolve_device(device)
     pat = cfg.block_pattern
     n_cycles, tail = divmod(cfg.num_layers, len(pat))
     cyc = {f"s{j}_{kind}": _layer_cache(cfg, kind, batch, max_len, src_len,
-                                        device, (n_cycles,), kv_heads)
+                                        device, (n_cycles,), kv_heads,
+                                        state_split)
            for j, kind in enumerate(pat)}
     cache: Dict[str, Any] = {
         "pos": torch.zeros((), dtype=torch.int32, device=device),
@@ -140,7 +153,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, src_len: int = 0,
     for t in range(tail):
         cache[f"tail_{t}"] = _layer_cache(cfg, pat[t], batch, max_len,
                                           src_len, device,
-                                          kv_heads=kv_heads)
+                                          kv_heads=kv_heads,
+                                          state_split=state_split)
     if cfg.encoder is not None:
         cache["enc_out"] = torch.zeros((batch, src_len, cfg.d_model),
                                        dtype=ACT_DTYPE, device=device)
@@ -271,17 +285,17 @@ def _layer_step(p: P, kind: str, cfg: ArchConfig, x, lc, pos,
         mixed = _attn_step(p["attn"], cfg, h, lc, pos, kind, tp)
     elif kind == "rglru":
         out, h_new, conv = rec.rglru_step(p["rglru"], h[:, 0], lc["h"],
-                                          lc["conv"])
+                                          lc["conv"], tp)
         lc["h"].copy_(h_new)
         lc["conv"].copy_(conv)
         mixed = out[:, None]
     elif kind == "mlstm":
         out, _ = rec.mlstm_step(p["mlstm"], h[:, 0], (lc["c"], lc["n"]),
-                                max(cfg.num_heads, 1))
+                                max(cfg.num_heads, 1), tp)
         mixed = out[:, None]
     elif kind == "slstm":
         out, state = rec.slstm_step(p["slstm"], h[:, 0],
-                                    (lc["c"], lc["n"], lc["m"]))
+                                    (lc["c"], lc["n"], lc["m"]), tp)
         for key, val in zip("cnm", state):
             lc[key].copy_(val)
         mixed = out[:, None]
@@ -389,7 +403,8 @@ def prefill(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                if cfg.encoder is not None else None)
     src_len = enc_out.shape[1] if enc_out is not None else 0
     cache = init_cache(cfg, b, max_len, src_len, device=x.device,
-                       kv_heads=_kv_heads(raw, cfg, gather))
+                       kv_heads=_kv_heads(raw, cfg, gather),
+                       state_split=_state_split(raw, cfg, gather))
     for p, kind, where in layers_of(raw, cfg, gather):
         x, state = _layer_seq(p, kind, cfg, x, positions, use_kernel,
                               enc_out, sh)
@@ -404,25 +419,45 @@ def prefill(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     return logits_of(params, x, cfg.vocab_size, sh)[:, 0, :], cache
 
 
-def _kv_heads(raw: P, cfg: ArchConfig, gather) -> Optional[int]:
-    """The KV heads a rank's attention layers compute: the head count of
-    the first attention layer's ``wk`` block (None without one)."""
-    pat = cfg.block_pattern
-    for j, kind in enumerate(pat):
-        if kind not in ("attn", "swa"):
+def _first_block(raw: P, cfg: ArchConfig, gather, kinds, mixer: str,
+                 name: str) -> Optional[torch.Tensor]:
+    """The compute block of weight ``name`` of the first layer whose kind
+    is in ``kinds`` (under its ``mixer`` subtree), None without one."""
+    for j, kind in enumerate(cfg.block_pattern):
+        if kind not in kinds:
             continue
         if raw.get("cycles"):
             key, prefix = f"s{j}_{kind}", ("cycles",)
-            sub, cycle = {key: {"attn": {"wk": raw["cycles"][key]["attn"][
-                "wk"][0]}}}, 0
+            sub, cycle = {key: {mixer: {name: raw["cycles"][key][mixer][
+                name][0]}}}, 0
         else:
             key, prefix, cycle = f"tail_{j}", (f"tail_{j}",), None
             if key not in raw:
                 continue
-            sub = {"attn": {"wk": raw[key]["attn"]["wk"]}}
+            sub = {mixer: {name: raw[key][mixer][name]}}
         if gather is not None:
             sub = gather(sub, prefix, cycle)
-        wk = sub[key]["attn"]["wk"] if cycle is not None else \
-            sub["attn"]["wk"]
-        return wk.shape[-1] // cfg.head_dim
+        return sub[key][mixer][name] if cycle is not None else \
+            sub[mixer][name]
     return None
+
+
+def _kv_heads(raw: P, cfg: ArchConfig, gather) -> Optional[int]:
+    """The KV heads a rank's attention layers compute: the head count of
+    the first attention layer's ``wk`` block (None without one)."""
+    wk = _first_block(raw, cfg, gather, ("attn", "swa"), "attn", "wk")
+    return None if wk is None else wk.shape[-1] // cfg.head_dim
+
+
+RECURRENT_IN = {"rglru": "w_x", "mlstm": "w_q", "slstm": "w_z"}
+
+
+def _state_split(raw: P, cfg: ArchConfig, gather) -> int:
+    """The ``model`` ranks a rank's recurrent mixers split their channels
+    over: D over the width of the first recurrent layer's input column
+    block (1 without a recurrent layer, or with whole weights)."""
+    for kind, name in RECURRENT_IN.items():
+        w = _first_block(raw, cfg, gather, (kind,), kind, name)
+        if w is not None:
+            return cfg.d_model // w.shape[-1]
+    return 1

@@ -12,12 +12,15 @@ to the order of the fp32 sums.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.mesh_axes import psum
 
 Params = Dict[str, torch.Tensor]
 
@@ -48,6 +51,47 @@ def place(x: torch.Tensor, spec: Any, field: str) -> torch.Tensor:
     if spec is not None and records is not None:
         records.append((field, spec, tuple(x.shape), x.dtype))
     return x
+
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """This rank's place on the ``model`` axis of ``ActSharding.mesh``:
+    its process group (None alone), size and index, and whether the hidden
+    states' sequence is split over it."""
+
+    group: Any = None
+    n: int = 1
+    rank: int = 0
+    seq_par: bool = False
+
+    def start(self, whole: int, local: int, what: str) -> int:
+        """The first index of this rank's block of ``local`` of ``whole``
+        (0 when the block is whole)."""
+        if local == whole:
+            return 0
+        if local * self.n != whole:
+            raise ValueError(f"{what}: a block of {local} of {whole} is not "
+                             f"one of {self.n} model ranks'")
+        return self.rank * local
+
+
+def block_of(vec: torch.Tensor, n: int, tp: TP) -> torch.Tensor:
+    """This rank's ``n`` entries of a vector stored whole (``param_spec``
+    keeps 1-D leaves whole: a bias, the RG-LRU's ``lam``) for a
+    column-parallel block of ``n`` columns."""
+    if vec.shape[-1] == n:
+        return vec
+    return vec.narrow(-1, tp.start(vec.shape[-1], n, "vector"), n)
+
+
+def row_parallel(y, rows: int, whole: int, tp: TP):
+    """``y``, the product of a weight block of ``rows`` of its ``whole``
+    input rows: summed over ``model`` (``psum``) where the block is a
+    rank's share of them."""
+    if rows == whole:
+        return y
+    tp.start(whole, rows, "row-parallel block")      # one rank's share
+    return psum(y, tp.group)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,

@@ -43,10 +43,15 @@ whole tensor (``model`` of 1, or whole weights) runs the single program:
     values gathered over the sequence, its queries at their positions
     (the flash kernel's ``q_offset``);
   * the MoE keeps ``moe_ffn_shard_map``'s expert parallelism (``moe_mesh``);
-  * the recurrent mixers (``rglru``, ``mlstm``, ``slstm``) run whole on
-    every rank, their weights gathered over ``model`` and their states
-    whole (where ``cache_shardings`` splits those states' channels over
-    ``model``: their channel split is not ported).
+  * the recurrent mixers (``rglru``, ``mlstm``, ``slstm``) split their
+    channels: column blocks in, ``w_out`` row blocks closed by ``psum``
+    (the mLSTM's ``w_o`` a column block, gathered), and their states the
+    rank's channels (the mLSTM's memory its key rows), as
+    ``cache_shardings`` lays them out; ``recurrent.py``'s docstring has
+    the exchanges.
+
+The train step (``training``) computes whole on every rank: its
+tensor-parallel compute is not ported.
 """
 from __future__ import annotations
 
@@ -72,14 +77,17 @@ from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     ACT_DTYPE,
+    TP,
     _rounded,
     attention,
+    block_of,
     chunked_attention,
     dense_init,
     gated_mlp,
     place,
     rmsnorm,
     rope,
+    row_parallel,
 )
 from repro_torch.relational.table import resolve_device
 
@@ -125,28 +133,6 @@ def shard(x: torch.Tensor, sh: Optional[ActSharding], field: str):
     ``getattr(sh, field)`` and its local shape recorded
     (``layers.place``)."""
     return place(x, getattr(sh, field) if sh is not None else None, field)
-
-
-@dataclasses.dataclass(frozen=True)
-class TP:
-    """This rank's place on the ``model`` axis of ``ActSharding.mesh``:
-    its process group (None alone), size and index, and whether the hidden
-    states' sequence is split over it."""
-
-    group: Any = None
-    n: int = 1
-    rank: int = 0
-    seq_par: bool = False
-
-    def start(self, whole: int, local: int, what: str) -> int:
-        """The first index of this rank's block of ``local`` of ``whole``
-        (0 when the block is whole)."""
-        if local == whole:
-            return 0
-        if local * self.n != whole:
-            raise ValueError(f"{what}: a block of {local} of {whole} is not "
-                             f"one of {self.n} model ranks'")
-        return self.rank * local
 
 
 def tp_of(sh: Optional[ActSharding]) -> TP:
@@ -326,18 +312,10 @@ def params_from_jax(tree, device=None) -> P:
 # forward pieces
 # ---------------------------------------------------------------------------
 
-def _cols(bias: torch.Tensor, n: int, tp: TP) -> torch.Tensor:
-    """This rank's ``n`` entries of a bias stored whole (``param_spec``
-    keeps 1-D leaves whole) for a column-parallel projection's block."""
-    if bias.shape[-1] == n:
-        return bias
-    return bias.narrow(-1, tp.start(bias.shape[-1], n, "bias"), n)
-
-
 def _proj(x, w, b, tp: TP):
     """``x @ w (+ b)``: a column-parallel block when ``w`` is one."""
     y = x @ w
-    return y if b is None else y + _cols(b, y.shape[-1], tp)
+    return y if b is None else y + block_of(b, y.shape[-1], tp)
 
 
 def _qkv(p: P, cfg: ArchConfig, x, positions, tp: TP = TP()):
@@ -380,16 +358,6 @@ def kv_for_queries(k, v, cfg: ArchConfig, h0: int, hq: int, k0: int,
         return k, v
     k, v = k[:, :, lo:hi], v[:, :, lo:hi]
     return (k.contiguous(), v.contiguous()) if contiguous else (k, v)
-
-
-def row_parallel(y, rows: int, whole: int, tp: TP):
-    """``y``, the product of a weight block of ``rows`` of its ``whole``
-    input rows: summed over ``model`` (``psum``) where the block is a
-    rank's share of them."""
-    if rows == whole:
-        return y
-    tp.start(whole, rows, "row-parallel block")      # one rank's share
-    return psum(y, tp.group)
 
 
 def out_proj(out, wo, cfg: ArchConfig, tp: TP):
@@ -493,22 +461,24 @@ def _mixer_seq(p: P, kind: str, cfg: ArchConfig, h, positions,
     """A block's mixer over the normed sequence ``h``: (out, the layer's
     cache entries at the end of the sequence).  The RG-LRU's conv state is
     its last W - 1 inputs, ``h[:, -(W-1):] @ w_x`` (None for a shorter
-    sequence, whose cache the reference leaves malformed)."""
+    sequence, whose cache the reference leaves malformed).  The recurrent
+    states are the rank's blocks (its channels of ``w_x``)."""
+    tp = tp_of(sh)
     if kind in ("attn", "swa"):
         out, (k, v) = _attn_apply(p["attn"], cfg, h, positions, kind,
-                                  use_kernel, sh=sh,
-                                  seq_par=tp_of(sh).seq_par)
+                                  use_kernel, sh=sh, seq_par=tp.seq_par)
         return out, {"k": k, "v": v}
     if kind == "rglru":
-        out, h_last = rec.rglru_seq(p["rglru"], h)
+        out, h_last = rec.rglru_seq(p["rglru"], h, tp=tp)
         w = rec.CONV_WIDTH - 1
         conv = h[:, -w:] @ p["rglru"]["w_x"] if h.shape[1] >= w else None
         return out, {"h": h_last, "conv": conv}
     if kind == "mlstm":
-        out, (c, n) = rec.mlstm_seq(p["mlstm"], h, max(cfg.num_heads, 1))
+        out, (c, n) = rec.mlstm_seq(p["mlstm"], h, max(cfg.num_heads, 1),
+                                    tp=tp)
         return out, {"c": c, "n": n}
     if kind == "slstm":
-        out, (c, n, m) = rec.slstm_seq(p["slstm"], h)
+        out, (c, n, m) = rec.slstm_seq(p["slstm"], h, tp=tp)
         return out, {"c": c, "n": n, "m": m}
     raise ValueError(kind)
 

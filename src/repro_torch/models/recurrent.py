@@ -14,6 +14,45 @@ The mLSTM step updates its ``(C, n)`` state tensors in place (a 16 MB
 ``(B, H, 512, 512)`` matrix memory a layer at xlstm-1.3b's width), as do
 the LSTM sequence loops; when autograd records (training), the sequence
 loops take out-of-place forms of the same operations.
+
+Tensor parallelism over ``model``: each mixer takes this rank's blocks of
+its weights and states, as ``launch.sharding``'s placements lay them out,
+and its place on the ``model`` axis (``tp``, a ``layers.TP``: the process
+group, its size and this rank's index; alone by default).  The widths come
+from the blocks' shapes, so whole blocks run the single program.  The
+sequence and step forms share the exchanges, and no collective runs inside
+a time loop:
+
+  * RG-LRU: ``w_x``, ``w_y``, ``conv_w`` and the gates' ``w_rec_gate`` /
+    ``w_input_gate`` are column blocks (D / m channels), ``lam`` whole (the
+    rank takes its channels of it), ``w_out`` a row block.  ``y``, ``xb``
+    and the conv output ``xc`` are the rank's channels; the gates contract
+    over the whole D, so ``xc`` is gathered over ``model`` once a layer
+    (``all_gather``) and multiplied by the gates' column blocks; ``a``,
+    ``b``, the scan and the states ``h`` (B, D/m) and ``conv`` (B, W-1,
+    D/m) are the rank's channels; ``w_out`` is closed by ``psum``.
+  * sLSTM: ``w_z``, ``w_i``, ``w_f``, ``w_o_gate`` column blocks, ``w_out``
+    a row block.  The cell has no recurrence across channels, so every
+    gate and the loop over ``c``/``n``/``m`` run on the rank's D / m
+    channels; ``w_out`` is closed by ``psum``.
+  * mLSTM: the weights are column blocks over D = H Dh (a split by heads,
+    ``w_i``/``w_f`` by heads where H divides ``model``, else whole), the
+    state ``C[b, h, k, v]`` and ``n[b, h, k]`` are split by the key dim
+    ``k`` (Dk = Dh / m).  Rows ``k`` of C evolve alone (``C_t[k] = f_t
+    C_{t-1}[k] + i_t k_t[k] v_t``), so a rank runs the whole loop on its
+    Dk rows of every head.  Before the loop the stored blocks of ``q`` and
+    ``k`` are regrouped to the key split by one ``all_to_all`` each
+    (:func:`_to_key_rows`; with H not a multiple of ``model`` a rank's
+    columns are part of one head and the exchange is padded); ``v`` and the
+    gates are gathered whole.  After the loop the ``q^T [C, n]`` outputs,
+    partial sums over ``k``, are summed by one float32 ``psum``, which
+    gives the numerators and the ``q . n`` denominators together; the
+    output through ``w_o`` (a column block, as the placement lays it out)
+    is gathered back into the replicated hidden state.  A decode step
+    makes the same exchanges on one position.
+
+The collectives are ``mesh_axes``' differentiable ones, so the same code
+serves a tensor-parallel train step.
 """
 from __future__ import annotations
 
@@ -23,7 +62,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init
+from repro_torch.mesh_axes import all_gather, all_to_all, psum
+from repro_torch.models.layers import TP, block_of, dense_init, row_parallel
 
 CONV_WIDTH = 4
 C_RGLRU = 8.0
@@ -65,11 +105,17 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _rglru_coeffs(p: P, xc: torch.Tensor):
-    """Per-step decay a_t and input b_t of h_t = a_t h_{t-1} + b_t."""
-    rg = torch.sigmoid((xc @ p["w_rec_gate"]).to(torch.float32))
-    ig = torch.sigmoid((xc @ p["w_input_gate"]).to(torch.float32))
-    log_a = -C_RGLRU * rg * F.softplus(p["lam"])
+def _rglru_coeffs(p: P, xc: torch.Tensor, tp: TP = TP()):
+    """Per-step decay a_t and input b_t of h_t = a_t h_{t-1} + b_t, at the
+    rank's channels of ``xc``; the gates contract over every channel, so a
+    rank's ``xc`` is gathered over ``model`` first."""
+    xg = xc
+    if xc.shape[-1] < p["w_rec_gate"].shape[0]:
+        xg = all_gather(xc, tp.group, xc.dim() - 1)
+    rg = torch.sigmoid((xg @ p["w_rec_gate"]).to(torch.float32))
+    ig = torch.sigmoid((xg @ p["w_input_gate"]).to(torch.float32))
+    lam = block_of(p["lam"], rg.shape[-1], tp)
+    log_a = -C_RGLRU * rg * F.softplus(lam)
     a = torch.exp(log_a)
     gated_x = xc.to(torch.float32) * ig
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) \
@@ -92,34 +138,36 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rglru_seq(p: P, x: torch.Tensor, h0: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence RG-LRU block.  x: (B,S,D) -> (out, h_last fp32)."""
+def rglru_seq(p: P, x: torch.Tensor, h0: Optional[torch.Tensor] = None,
+              tp: TP = TP()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence RG-LRU block.  x: (B,S,D) -> (out, h_last fp32 at the
+    rank's channels)."""
     y = F.gelu((x @ p["w_y"]).to(torch.float32), approximate="tanh")
     xb = x @ p["w_x"]
     xc = _causal_conv(xb, p["conv_w"])
-    a, b = _rglru_coeffs(p, xc)
+    a, b = _rglru_coeffs(p, xc, tp)
     if h0 is not None:
         b = b.clone()
         b[:, 0] += a[:, 0] * h0
     h = linear_scan(a, b)
     out = (h * y).to(x.dtype) @ p["w_out"]
-    return out, h[:, -1]
+    return row_parallel(out, p["w_out"].shape[0], x.shape[-1], tp), h[:, -1]
 
 
 def rglru_step(p: P, x: torch.Tensor, h: torch.Tensor,
-               conv_state: torch.Tensor):
-    """One decode step.  x: (B,D); h: (B,D) fp32; conv_state: (B,W-1,D).
-    Returns (out, h_new, new conv_state)."""
+               conv_state: torch.Tensor, tp: TP = TP()):
+    """One decode step.  x: (B,D); h: (B,D) fp32; conv_state: (B,W-1,D)
+    (the rank's channels of both).  Returns (out, h_new, new conv_state)."""
     y = F.gelu((x @ p["w_y"]).to(torch.float32), approximate="tanh")
     xb = x @ p["w_x"]
     window = torch.cat([conv_state, xb[:, None, :]], dim=1)     # (B,W,D)
     xc = torch.einsum("bwd,wd->bd", window.to(torch.float32),
                       p["conv_w"].to(torch.float32)).to(x.dtype)
-    a, b = _rglru_coeffs(p, xc)
+    a, b = _rglru_coeffs(p, xc, tp)
     h_new = a * h + b
     out = (h_new * y).to(x.dtype) @ p["w_out"]
-    return out, h_new, window[:, 1:]
+    return row_parallel(out, p["w_out"].shape[0], x.shape[-1], tp), h_new, \
+        window[:, 1:]
 
 
 # ---------------------------------------------------------------------------
@@ -135,27 +183,75 @@ def init_mlstm(gen, d: int, num_heads: int, device) -> P:
     return p
 
 
-def _mlstm_gates(p: P, x: torch.Tensor, h: int):
-    """fp32 q, k / sqrt(Dh), v split into heads, and the input and forget
-    gates (B, [S,] H).  x: (B, [S,] D)."""
-    lead = x.shape[:-1]
+def key_block(dh: int, n: int) -> int:
+    """Dk, the key rows of each head's memory a rank holds at ``model`` of
+    ``n``: ``cache_shardings`` splits the key dim where it divides."""
+    return dh // n if dh % n == 0 else dh
 
-    def split(u):
-        return u.reshape(*lead, h, -1).to(torch.float32)
 
-    q, k, v = (split(x @ p[w]) for w in ("w_q", "w_k", "w_v"))
-    k = k / math.sqrt(k.shape[-1])
+def _to_key_rows(u: torch.Tensor, h: int, dh: int, tp: TP) -> torch.Tensor:
+    """The rank's key slice of every head (..., H, Dk) from its column
+    block ``u`` (..., D/m) of a projection (a split by heads).
+
+    The D columns are H m groups of Dk (group g = h m + j is head h's
+    slice j); rank r holds groups [r H, (r + 1) H) and sends group g to
+    rank g mod m: one ``all_to_all`` of ceil(H / m) groups to each rank,
+    padded where m does not divide H (the pad is never read).  Where the
+    key dim does not divide ``model`` the state is whole and ``u`` is
+    gathered whole."""
+    m, r = tp.n, tp.rank
+    lead = u.shape[:-1]
+    dk = key_block(dh, m)
+    if dk == dh:
+        return all_gather(u, tp.group, u.dim() - 1).reshape(*lead, h, dh)
+    slots = -(-h // m)
+    send = []
+    for j in range(m):                 # my groups for rank j, padded
+        mine = [g for g in range(h) if (r * h + g) % m == j]
+        send += mine + [0] * (slots - len(mine))
+    idx = torch.tensor(send, device=u.device)
+    out = u.reshape(*lead, h, dk).index_select(-2, idx)
+    out = out.reshape(*lead, m, slots, dk).movedim(-3, 0)
+    got = all_to_all(out, tp.group).movedim(0, -3)
+    got = got.reshape(*lead, m * slots, dk)
+    recv = []
+    for head in range(h):              # group head m + r came from rank src
+        g = head * m + r
+        src = g // h
+        first = (r - src * h) % m
+        recv.append(src * slots + (g - src * h - first) // m)
+    return got.index_select(-2, torch.tensor(recv, device=u.device))
+
+
+def _mlstm_gates(p: P, x: torch.Tensor, h: int, tp: TP = TP()):
+    """fp32 q, k / sqrt(Dh) at the rank's key slice of every head (B, [S,]
+    H, Dk), v (B, [S,] H, Dh), and the input and forget gates (B, [S,] H).
+    x: (B, [S,] D)."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    dh = d // h
+    q, k, v = (x @ p[w] for w in ("w_q", "w_k", "w_v"))
+    if v.shape[-1] < d:                 # column blocks: regroup, gather
+        q, k = (_to_key_rows(u, h, dh, tp) for u in (q, k))
+        v = all_gather(v, tp.group, v.dim() - 1)
+    q, k, v = (u.reshape(*lead, h, -1).to(torch.float32) for u in (q, k, v))
+    k = k / math.sqrt(dh)
     i = x.to(torch.float32) @ p["w_i"]
     f = x.to(torch.float32) @ p["w_f"]
+    if i.shape[-1] < h:                 # the gates' head blocks
+        i, f = all_gather(torch.stack([i, f]), tp.group, i.dim()).unbind(0)
     ig = torch.exp(i - F.softplus(i))             # stabilized exp gate
     fg = torch.sigmoid(f)
     return q, k, v, ig, fg
 
 
-def _mlstm_out(p: P, num, qn, x):
-    """num / max(|q . n|, 1), heads merged, through w_o."""
+def _mlstm_out(p: P, num, qn, x, tp: TP = TP()):
+    """num / max(|q . n|, 1), heads merged, through w_o: a column block
+    whose output is gathered over ``model``."""
     out = num / torch.clamp(torch.abs(qn), min=1.0)[..., None]
-    return out.reshape(*x.shape[:-1], -1).to(x.dtype) @ p["w_o"]
+    out = out.reshape(*x.shape[:-1], -1).to(x.dtype) @ p["w_o"]
+    if out.shape[-1] < x.shape[-1]:
+        out = all_gather(out, tp.group, out.dim() - 1, adjoint="slice")
+    return out
 
 
 def _autograd_records(x: torch.Tensor, p: P) -> bool:
@@ -167,19 +263,23 @@ def _autograd_records(x: torch.Tensor, p: P) -> bool:
         x.requires_grad or any(w.requires_grad for w in p.values()))
 
 
-def mlstm_seq(p: P, x: torch.Tensor, num_heads: int, state0=None):
-    """x: (B,S,D) -> (out, (C, n)).  C: (B,H,Dh,Dh), n: (B,H,Dh), fp32.
+def mlstm_seq(p: P, x: torch.Tensor, num_heads: int, state0=None,
+              tp: TP = TP()):
+    """x: (B,S,D) -> (out, (C, n)).  C: (B,H,Dk,Dh), n: (B,H,Dk), fp32, the
+    rank's key rows (Dk = Dh whole).
 
     The memory carries n as one more column: with v' = [v, 1], one update
     C' = f C' + (i k) v'^T is JAX's ``f C + i k v^T`` and ``f n + i k``
     (the products i k and i k 1 are the same), and ``q^T C'`` gives both
     ``q^T C`` and ``q . n``: three launches a step.  The denominators and
-    the output projection follow the loop.
+    the output projection follow the loop, after the partial sums over a
+    split key dim are added over ``model``.
     """
     bsz, s, d = x.shape
     dh = d // num_heads
-    q, k, v, ig, fg = _mlstm_gates(p, x, num_heads)
-    mem = torch.zeros((bsz, num_heads, dh, dh + 1), dtype=torch.float32,
+    q, k, v, ig, fg = _mlstm_gates(p, x, num_heads, tp)
+    dk = k.shape[-1]
+    mem = torch.zeros((bsz, num_heads, dk, dh + 1), dtype=torch.float32,
                       device=x.device)
     if state0 is not None:
         mem[..., :dh] = state0[0]
@@ -207,21 +307,29 @@ def mlstm_seq(p: P, x: torch.Tensor, num_heads: int, state0=None):
             mem.mul_(ft[t])
             mem.addcmul_(ikt[t], vt[t])
             torch.matmul(qt[t], mem, out=outs[t])
+    if dk < dh:                   # partial sums over the key rows
+        outs = psum(outs, tp.group)
     outs = outs[..., 0, :].transpose(0, 1)                # (B,S,H,Dh+1)
-    out = _mlstm_out(p, outs[..., :dh], outs[..., dh], x)
+    out = _mlstm_out(p, outs[..., :dh], outs[..., dh], x, tp)
     return out, (mem[..., :dh].contiguous(), mem[..., dh].contiguous())
 
 
-def mlstm_step(p: P, x: torch.Tensor, state, num_heads: int):
-    """One decode step.  x: (B,D); state (C, n) is updated in place and
-    returned."""
+def mlstm_step(p: P, x: torch.Tensor, state, num_heads: int,
+               tp: TP = TP()):
+    """One decode step.  x: (B,D); state (C, n) (the rank's key rows) is
+    updated in place and returned."""
     c, n = state
-    q, k, v, ig, fg = _mlstm_gates(p, x, num_heads)
+    q, k, v, ig, fg = _mlstm_gates(p, x, num_heads, tp)
     ig, fg = ig[..., None], fg[..., None]
     c.mul_(fg[..., None]).addcmul_((ig * k)[..., :, None], v[..., None, :])
     n.mul_(fg).addcmul_(ig, k)
     num = torch.matmul(q[..., None, :], c)[..., 0, :]
-    return _mlstm_out(p, num, (n * q).sum(-1), x), (c, n)
+    qn = (n * q).sum(-1)
+    dh = c.shape[-1]
+    if k.shape[-1] < dh:          # partial sums over the key rows
+        both = psum(torch.cat([num, qn[..., None]], -1), tp.group)
+        num, qn = both[..., :dh], both[..., dh]
+    return _mlstm_out(p, num, qn, x, tp), (c, n)
 
 
 # ---------------------------------------------------------------------------
@@ -255,11 +363,13 @@ def _slstm_update(zs, i_t, f_t, m, cn, out=None):
     return torch.addcmul(f_s * cn, i_s, zs, out=out), m_new
 
 
-def slstm_seq(p: P, x: torch.Tensor, state0=None):
-    """x: (B,S,D) -> (out, (c, n, m)), fp32 states (B,D).  Eight launches
-    a step; h = o c / max(n, 1) follows the loop."""
-    bsz, s, d = x.shape
+def slstm_seq(p: P, x: torch.Tensor, state0=None, tp: TP = TP()):
+    """x: (B,S,D) -> (out, (c, n, m)), fp32 states (B,D) (the rank's
+    channels).  Eight launches a step; h = o c / max(n, 1) follows the
+    loop."""
+    bsz, s, _ = x.shape
     z, i, f, o = _slstm_inputs(p, x)
+    d = z.shape[-1]
     if state0 is None:
         zero = torch.zeros((bsz, d), dtype=torch.float32, device=x.device)
         state0 = (zero, zero, zero)
@@ -281,13 +391,16 @@ def slstm_seq(p: P, x: torch.Tensor, state0=None):
             cn, m = _slstm_update(zs[t], i[t], f[t], m, cn, out=cns[t])
     c, n = cns[:, 0].transpose(0, 1), cns[:, 1].transpose(0, 1)
     out = (o * c / torch.clamp(n, min=1.0)).to(x.dtype) @ p["w_out"]
-    return out, (cn[0].clone(), cn[1].clone(), m)
+    return row_parallel(out, p["w_out"].shape[0], x.shape[-1], tp), \
+        (cn[0].clone(), cn[1].clone(), m)
 
 
-def slstm_step(p: P, x: torch.Tensor, state):
+def slstm_step(p: P, x: torch.Tensor, state, tp: TP = TP()):
     z, i, f, o = _slstm_inputs(p, x)
     c, n, m = state
     cn, m = _slstm_update(torch.stack([z, torch.ones_like(z)]), i, f, m,
                           torch.stack([c, n]))
     h = o * cn[0] / torch.clamp(cn[1], min=1.0)
-    return h.to(x.dtype) @ p["w_out"], (cn[0], cn[1], m)
+    out = h.to(x.dtype) @ p["w_out"]
+    return row_parallel(out, p["w_out"].shape[0], x.shape[-1], tp), \
+        (cn[0], cn[1], m)

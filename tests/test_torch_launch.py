@@ -213,14 +213,9 @@ def test_input_specs_match_jax(arch, shape):
 # the dry run: per-device argument bytes against JAX's PartitionSpecs
 # ---------------------------------------------------------------------------
 
-ATTN_CACHE = ("k", "v", "xk", "xv", "enc_out", "pos")
-
-
-def _jax_local_bytes(tree, specs, mesh_shape, whole_states=False):
+def _jax_local_bytes(tree, specs, mesh_shape):
     """Bytes of one device's blocks: each leaf's size over the product of
-    the axis sizes its PartitionSpec shards it by.  ``whole_states``: a
-    cache's recurrent states count whole over ``model``, as the port holds
-    them (its serving path keeps the recurrent mixers whole)."""
+    the axis sizes its PartitionSpec shards it by."""
     total = 0
     leaves, specs = _jax_leaves(tree), _jax_leaves(specs)
     assert leaves.keys() == specs.keys()
@@ -228,9 +223,6 @@ def _jax_local_bytes(tree, specs, mesh_shape, whole_states=False):
         div = 1
         for e in tuple(specs[key]):
             for a in ((e,) if isinstance(e, str) else (e or ())):
-                if whole_states and a == "model" and \
-                        key.rsplit("/", 1)[-1] not in ATTN_CACHE:
-                    continue
                 div *= mesh_shape[a]
         n = math.prod(leaf.shape)
         assert n % div == 0, key
@@ -256,8 +248,7 @@ def _jax_argument_bytes(arch, shape_name, tag):
     else:
         c = jinput.cache_specs(cfg, shape)
         total += _jax_local_bytes(c, jsharding.cache_shardings(
-            c, cfg, mesh, shape.global_batch), mesh.shape,
-            whole_states=True)
+            c, cfg, mesh, shape.global_batch), mesh.shape)
         total += shape.global_batch * 4                # the token, whole
     return total
 
@@ -276,8 +267,8 @@ def test_dryrun_argument_bytes_match_jax_partition_specs(arch, shape, tag,
     """One dense, one MoE and two recurrent cells, on a fake process group
     of 256 or 512 ranks: the report's per-device argument bytes equal the
     shard sizes reckoned from JAX's PartitionSpecs (a decode cache's
-    recurrent states whole over ``model``, as the port holds them), and
-    every field the roofline reads is there."""
+    recurrent states split over ``model`` too), and every field the
+    roofline reads is there."""
     rep = dryrun.lower_cell(arch, shape, tag == "2x16x16")
     assert rep["status"] == "ok" and rep["chips"] == math.prod(
         MESHES[tag].values())
@@ -319,6 +310,37 @@ def test_dryrun_flops_count_the_step():
         2 * b * d * 4 + b * cfg.num_heads * s * 4) + b * d * 4
     assert coll["all-to-all"] == cfg.num_layers * 2 * (
         b * cfg.num_heads * cfg.head_dim // m * 2)
+
+
+def test_dryrun_recurrent_decode_is_the_rank_program():
+    """xlstm-1.3b long_500k on the 2x16x16 mesh (B 1, whole on every rank;
+    ZeRO-1 of a model whose 4 heads do not divide 16 stores every weight
+    whole): rank 0's decode step computes its mixers' channel blocks, the
+    weights narrowed to D / 16 columns (``w_i``/``w_f`` whole: 4 heads do
+    not split 16 ways), the mLSTM's memory at its 512 / 16 key rows.  Its
+    matmul FLOPs and its collectives, reckoned by hand: per mLSTM layer
+    the q and k ``all_to_all``s (16 blocks of one padded group of Dk bf16),
+    the v and output gathers (B, D) bf16 and the float32 all-reduce of the
+    (B, H, Dh + 1) partial sums; per sLSTM layer the row-parallel
+    ``w_out``'s all-reduce; the embedding's all-reduce and the logits'
+    vocabulary gather."""
+    cfg = tconfigs.get_config("xlstm-1.3b")
+    rep = dryrun.lower_cell("xlstm-1.3b", "long_500k", True)
+    b, d, m, h, v = 1, cfg.d_model, 16, cfg.num_heads, cfg.vocab_size
+    dh = d // h
+    dk = dh // m
+    kinds = cfg.layer_kinds()
+    nm, ns = kinds.count("mlstm"), kinds.count("slstm")
+    mlstm = 4 * 2 * b * d * d // m + 2 * 2 * b * d * h + 2 * b * h * dk * dh
+    slstm = 5 * 2 * b * d * d // m
+    assert rep["per_device"]["flops"] == nm * mlstm + ns * slstm \
+        + 2 * b * d * v // m
+    coll = rep["per_device"]["collective_bytes"]
+    assert coll["all-to-all"] == nm * 2 * m * b * dk * 2
+    assert coll["all-gather"] == nm * 2 * b * d * 2 + b * v * 4
+    assert coll["all-reduce"] == b * d * 4 + nm * b * h * (dh + 1) * 4 \
+        + ns * b * d * 4
+    assert coll["reduce-scatter"] == 0
 
 
 @pytest.mark.parametrize("arch,seq_par", [("qwen2.5-3b", False),

@@ -228,8 +228,9 @@ def walk(t, s, path=()):
 
 
 def check_blocks(blocks, whole, specs, mesh, what):
-    # every block has local_shape of its placement (the recurrent states
-    # excepted: they stay whole on each rank)
+    # every block has local_shape of its placement: attention caches by
+    # KV heads or head_dim, recurrent weights and states by channels (the
+    # mLSTM's memory by its key rows)
     for (path, t, spec), (_, w, _) in zip(walk(blocks, specs),
                                          walk(whole, specs)):
         assert tuple(t.shape) == local_shape(tuple(w.shape), spec, mesh), \
@@ -281,7 +282,9 @@ for arch, mtag in CASES:
     hidden = [shp for f, _, shp, _ in placed if f == "hidden"]
     want_h = cfg.num_heads // nmodel if cfg.num_heads % nmodel == 0 \
         else cfg.num_heads
-    assert heads and all(h[2] == want_h for h in heads), heads
+    attends = any(k in ("attn", "swa") for k in cfg.layer_kinds())
+    assert (bool(heads) == attends and all(h[2] == want_h for h in heads)
+            ), heads
     seq_par = sh_p.hidden[1] == "model"
     assert all(h[1] == prompt_len(cfg) // (nmodel if seq_par else 1)
                for h in hidden), hidden
