@@ -253,8 +253,34 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``nccl``), against the unsharded step (``moe_ffn``) alike.  (c) qwen2.5-3b
    smoke: one sharded step, its ``DTensor`` state saved under ``build/``
    (removed after) and restored onto the mesh with ``shardings`` and whole:
-   every leaf bit-equal.  No kernel launches in the train step (the plain
+   every leaf bit-equal.  (d) The tensor-parallel step at ``model`` 2:
+   qwen2.5-3b at full width cut to 4 of its 36 layers, phase 12's shape,
+   one unsharded step from seeded parameters, state and batch, its loss,
+   parameters and moments saved under ``build/`` and freed; then two
+   processes, a rank each on the one card over ``gloo``
+   (``chip_smoke.py --tp-rank R --tp-world 2 --tp-dir D --tp-train``),
+   start from the same seed, place the parameters by
+   ``params_shardings`` and build the AdamW state block by block (each
+   block asserted at ``local_shape``), and take one step under
+   ``act_sharding``: each rank's ``heads`` block at 8 of 16 heads and its
+   ``logits`` at 75,968 of 151,936 columns (``recording_placements``);
+   its all-reduce bytes those the dry run records for the rank's program
+   (``tp_train_reckoning``: ``launch.dryrun.run_step`` on ``meta``
+   blocks of a fake world of 2) plus the step's own reductions
+   (``step_reductions``), and no gather of whole logits; the loss within
+   ``LOSS_TOL`` of the unsharded step's; each moment block within
+   ``GRAD_TOL`` of the same block of the reference; each parameter block
+   within lr times the difference of the updates the two sides' moments
+   give plus a bf16 ulp, and to a bf16 ulp of the reference where the
+   gradient's sign is certain and the new parameter is at least
+   ``TP_TRAIN_FAR`` x lr (``step_margins``), each leaf group's worst
+   margin printed, and the entries that miss the CPU tests' rule
+   recorded (``sign_rule_misses``); the peak memory a rank beside the
+   unsharded step's.  The step's seconds go through the host, not
+   tensor-parallel speed.  No kernel launches in the train step (the plain
    attention, as the JAX package's); the phase asserts 0 for all eight.
+   ``python3 chip_smoke.py --tp-train-depths 1,2,4`` runs this phase
+   alone at each of those depths.
 15. Tensor-parallel serving over ``model`` (``ActSharding.mesh``).  (a)
    Phase 8b's qwen2.5-3b, B 4 x 2,048 + 32 steps fed 8b's greedy tokens,
    through ``DTensor`` parameters placed by ``params_shardings`` on a 1x1
@@ -314,8 +340,9 @@ timing: after one, the host's launches are slower.
 Launch counters are set to 0 just before each of phases 4–7, 8b, each
 model of 8c, each refresh of phase 9, each discovery of phase 10,
 phase 11, 12's data plane, training and serving, 13a's distributed
-joins and 13b's forward, 14's sharded steps, and 15a's run and each
-rank's run of 15b-e (summed over the ranks), and read just after;
+joins and 13b's forward, 14's sharded steps and each rank's step of
+14d, and 15a's run and each rank's run of 15b-e (summed over the ranks),
+and read just after;
 every kernel of a path must have launched inside it.  The last
 lines are a JSON object of the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
@@ -328,6 +355,7 @@ import collections
 import contextlib
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -506,6 +534,23 @@ SLSTM_SCALED = ("_slstm/c", "_slstm/n")
 # bf16 ulp where the gradient's sign is certain, 2 lr elsewhere), held where
 # the sharded step is not bit-equal to the unsharded one
 GRAD_TOL, BF16_ULP = 2.0**-5, 2.0**-7
+# (d) the tensor-parallel train step at model 2, one process a rank on the
+# one card over gloo: qwen2.5-3b at full width cut to 4 of its 36 layers
+# (619.6 M parameters, 311.2 M of them the tied embedding), phase 12's
+# B 2 x S 2,048, remat, AdamW, one step against the unsharded step of the
+# cut from the same parameters, state and batch: the loss to
+# tests/test_torch_training.py's LOSS_TOL, the moments to GRAD_TOL (v twice
+# that); each parameter to lr times the difference of the two AdamW updates
+# the two sides' moments give plus a bf16 ulp (step_margins), and, where
+# the gradient's sign is certain and the new parameter is at least
+# TP_TRAIN_FAR x lr (its old value at least that far from the update of
+# about lr it could cancel), to a bf16 ulp of the reference, the CPU
+# tests' rule.  That rule does not hold everywhere at full width: a
+# parameter within ~1e-5 of lr nearly cancels its update, and the eps of
+# |g| / (|g| + eps) moves the small result by more than an ulp of it (the
+# entries that miss it are recorded, sign_rule_misses)
+TP_TRAIN_LAYERS, TP_TRAIN_WORLD, TP_TRAIN_FAR = 4, 2, 0.5
+LOSS_TOL = 1e-4
 
 
 def log(*parts) -> None:
@@ -3705,8 +3750,361 @@ def sharded_train_phase(torch, kops, phase12_ms=None):
         ckpt = sharded_checkpoint(torch, mesh, smi)
     counts = collections.Counter(counts_a)
     counts.update(counts_b)
+    counts_d, tp_rec = tp_train_phase(torch, smi, TP_TRAIN_LAYERS)
+    counts.update(counts_d)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s ({smi})")
-    return dict(counts), {"dense": dense, "moe": moe_rec, "checkpoint": ckpt}
+    return dict(counts), {"dense": dense, "moe": moe_rec, "checkpoint": ckpt,
+                          "tp": tp_rec}
+
+
+def tp_train_config(layers: int):
+    """Phase 14d's model: qwen2.5-3b at full width, ``layers`` layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers)
+
+
+def tp_train_reckoning(cfg, batch: int, seq: int, world: int) -> dict:
+    """The collectives of rank 0's program of one tensor-parallel train
+    step at ``model`` ``world``, as the dry run records them: its train
+    cell's program (``dryrun.run_step``: the forward, remat's recompute,
+    the backward and the vocab-parallel loss, then AdamW) on ``meta``
+    compute blocks of a 1 x ``world`` mesh of a ``fake`` world, with
+    ``act_sharding``.  {kind: bytes, "<kind> calls": count}."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.sharding import act_sharding
+    from repro_torch.models import ShapeConfig
+
+    shape = ShapeConfig("tp_train", seq, batch, "train")
+    with dryrun.fake_world(world):
+        mesh = init_device_mesh("cpu", (1, world),
+                                mesh_dim_names=("data", "model"))
+        args = dryrun.cell_arguments(cfg, shape, mesh)
+        _, _, _, moved = dryrun.run_step(
+            cfg, shape, args, act_sharding(cfg, mesh, batch, seq), 1, mesh)
+    return collective_totals(moved)
+
+
+def step_reductions(params, mesh, cfg, sh) -> int:
+    """The all-reduce bytes the sharded step adds to its program's
+    (:func:`tp_train_reckoning`) on a mesh whose dp axes have one rank:
+    each leaf's float32 gradient that is still a partial sum over
+    ``model`` (``sharded.leaf_plans``: the biases each rank narrows), the
+    loss's sum over dp and the global norm's, two float32 scalars."""
+    from repro_torch.launch.sharding import local_shape
+    from repro_torch.training import sharded
+    from repro_torch.training.tree import flatten
+
+    shapes = {path: tuple(p.shape) for path, p in flatten(params)}
+    return sum(4 * math.prod(local_shape(shapes[path], plan.compute, mesh))
+               for path, plan in sharded.leaf_plans(params, mesh, cfg,
+                                                    sh).items()
+               if "model" in plan.partial) + 2 * 4
+
+
+def tp_train_phase(torch, smi, layers: int):
+    """Phase 14d: the unsharded step of :func:`tp_train_config` from seeded
+    parameters, a fresh AdamW state and a seeded batch, its loss, new
+    parameters and moments saved under ``build/`` and freed, and the dry
+    run's record of the rank's program (:func:`tp_train_reckoning`); then
+    one tensor-parallel step at ``model`` ``TP_TRAIN_WORLD``, one process
+    a rank on the one card over ``gloo`` (:func:`tp_train_rank`), from the
+    same start.  Returns (launch counts summed over the ranks, a
+    record)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.models import init_params
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import (TrainStepConfig,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = tp_train_config(layers)
+    opt = AdamW()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    n_params = sum(p.numel() for p in leaves(params))
+    state = opt.init(params)
+    batch = seeded_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, loss, ms = timed_step(
+        torch, make_train_step(cfg, opt, TrainStepConfig(remat=True)),
+        params, state, batch)
+    peak = torch.cuda.max_memory_allocated()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_train_",
+                                 dir=ROOT / "build"))
+    try:
+        t1 = time.perf_counter()
+        torch.save({"loss": loss, "leaves": {
+            k: t.cpu() for k, t in state_leaves(params, state)}},
+            work / "reference.pt")
+        save_s = time.perf_counter() - t1
+        del params, state, batch
+        torch.cuda.empty_cache()
+        log(f"14d: the unsharded step of {cfg.name} cut to {cfg.num_layers} "
+            f"layers ({n_params} parameters): loss {loss!r}, {ms:.1f} ms, "
+            f"peak {peak / 2**30:.2f} GiB; saved in {save_s:.1f} s ({smi})")
+        world = TP_TRAIN_WORLD
+        t1 = time.perf_counter()
+        reckoned = tp_train_reckoning(cfg, TRAIN_BATCH, TRAIN_SEQ, world)
+        (work / "reckoned.json").write_text(json.dumps(reckoned))
+        log(f"14d: the dry run's record of rank 0's program "
+            f"({time.perf_counter() - t1:.1f} s): {json.dumps(reckoned)}")
+        run_ranks([(f"train {world}:{rank}",
+                    ["--tp-rank", str(rank), "--tp-world", str(world),
+                     "--tp-dir", str(work), "--tp-train",
+                     "--tp-layers", str(layers)])
+                   for rank in range(world)], "14d")
+        counts, ranks = collections.Counter(), {}
+        for rank in range(world):
+            rec = json.loads((work / f"train_{rank}.json").read_text())
+            counts.update(rec["launches"])
+            ranks[rank] = rec
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec = {"params": n_params, "unsharded_loss": loss,
+           "unsharded_step_ms": ms, "unsharded_peak_gib": peak / 2**30,
+           "ranks": ranks, "seconds": time.perf_counter() - t0}
+    log(f"phase 14d: {rec['seconds']:.1f} s; rank peaks "
+        f"{[r['peak_gib'] for r in ranks.values()]} GiB against the "
+        f"unsharded step's {peak / 2**30:.2f} ({smi})")
+    return dict(counts), rec
+
+
+def tp_train_depths(torch, depths) -> int:
+    """Phase 14d alone at each of ``depths`` layers (``--tp-train-depths``):
+    each run's ranks print their records, the entries that miss the CPU
+    tests' parameter rule among them, so that the same leaves can be read
+    at several depths.  Not the smoke run: it prints no result line, and
+    exits non-zero if a depth failed."""
+    smi = nvidia_smi()
+    log(f"card: {smi}")
+    failed = []
+    for layers in depths:
+        try:
+            tp_train_phase(torch, smi, layers)
+        except AssertionError as e:
+            log(f"14d at {layers} layers failed: {e}")
+            failed.append(layers)
+    return 1 if failed else 0
+
+
+def adamw_update(torch, m, v, step: int, eps: float):
+    """AdamW's update direction ``m_hat / (sqrt(v_hat) + eps)`` of the
+    moments after ``step`` steps (``optim.AdamW``'s arithmetic)."""
+    b1c = 1 - torch.pow(torch.tensor(0.9), step)
+    b2c = 1 - torch.pow(torch.tensor(0.95), step)
+    return (m.float() / b1c.to(m.device)) / (
+        torch.sqrt(v.float() / b2c.to(v.device)) + eps)
+
+
+def step_margins(torch, got, want, lr: float, eps: float) -> dict:
+    """{"p", "p_sure", "m", "v": max over the entries of |got - want| over
+    each entry's tolerance} (a margin <= 1 passes) of one leaf's block
+    after a step from the same state: ``got`` and ``want`` map ``"p"``,
+    ``"m"``, ``"v"`` to the rank's block and the same block of the
+    reference, and ``"m_max"``/``"v_max"`` to the largest entry of the
+    reference's whole leaf.  The moments: ``GRAD_TOL`` x (max |w| + |w|),
+    twice that for v.  The parameters, from the same bits: the difference
+    of the two AdamW updates the two sides' own moments give, times lr,
+    plus a bf16 ulp of the larger side (a sign flipped where the gradient
+    is near 0 is 2 lr; where the parameter nearly cancels its update, the
+    bf16 result is as small as that difference allows).  ``p_sure``: the
+    CPU tests' rule, a bf16 ulp of the reference, where the gradient's
+    sign is certain (``|m| > GRAD_TOL`` x the leaf's largest) and the new
+    parameter is at least ``TP_TRAIN_FAR`` x lr."""
+    out = {}
+    for kind, tol in (("m", GRAD_TOL), ("v", 2 * GRAD_TOL)):
+        w = want[kind].float()
+        out[kind] = float(((got[kind].float() - w).abs() / (
+            tol * (want[kind + "_max"] + w.abs()))).max())
+    g, w = got["p"].float(), want["p"].float()
+    du = (adamw_update(torch, got["m"], got["v"], 1, eps)
+          - adamw_update(torch, want["m"], want["v"], 1, eps)).abs()
+    # what the updates' difference leaves over, against the rounding: the
+    # same test as |g - w| <= lr du + rounding, but a margin near 1 then
+    # means a rounding near its bound, not a large du
+    rounding = BF16_ULP * torch.maximum(g.abs(), w.abs()) + 2.0**-20 * lr
+    out["p"] = float(((g - w).abs() - lr * du).clamp(min=0).div(
+        rounding).max())
+    sure = (want["m"].float().abs() > GRAD_TOL * want["m_max"]) & (
+        w.abs() >= TP_TRAIN_FAR * lr)
+    out["p_sure"] = float(((g - w).abs()[sure] / (
+        BF16_ULP * w.abs()[sure])).max()) if bool(sure.any()) else 0.0
+    return out
+
+
+def sign_rule_misses(torch, got, want, lr: float, stacked: bool,
+                     first: int = 8) -> dict:
+    """The entries of one leaf's block that miss the CPU tests' first-step
+    rule (a bf16 ulp of the reference where the gradient's sign is certain,
+    2 lr plus that ulp elsewhere), with no restriction to parameters far
+    from lr: {"n": how many, "uncertain": how many of them of uncertain
+    sign, "w_max": the largest |want| / lr among them, "per_layer": how
+    many in each layer of a stacked leaf, "first": [layer, index in the
+    layer's block, want / lr, got / lr, old / lr] of the first ``first``},
+    or None when none miss.  ``got``/``want`` as :func:`step_margins`'
+    plus ``"p0"``, the block's parameter before the step (on the host)."""
+    g, w = got["p"].float(), want["p"].float()
+    d, ulp = (g - w).abs(), BF16_ULP * w.abs()
+    sure = want["m"].float().abs() > GRAD_TOL * want["m_max"]
+    miss = (sure & (d > ulp)) | (d > 2 * lr + ulp)
+    n = int(miss.sum())
+    if not n:
+        return None
+    layers = miss.flatten(1).sum(1) if stacked else miss.sum().view(1)
+    idx = miss.flatten().nonzero()[:first, 0].tolist()
+    per = miss[0].numel() if stacked else miss.numel()
+    wf, gf, p0 = (t.flatten() for t in (w, g, got["p0"].float()))
+    return {"n": n, "uncertain": int((miss & ~sure).sum()),
+            "w_max": float(w.abs()[miss].max() / lr),
+            "per_layer": layers.tolist(), "first": [
+                [i // per, i % per, float(wf[i] / lr), float(gf[i] / lr),
+                 float(p0[i] / lr)] for i in idx]}
+
+
+def tp_train_rank(torch, kops, rank: int, world: int, work: Path,
+                  layers: int) -> int:
+    """One rank of phase 14d, in its own process on card 0: a ``gloo``
+    world of ``world`` ranks through a file store in ``work``, a 1 x
+    ``world`` ``("data", "model")`` mesh.  :func:`tp_train_config`'s
+    parameters from the reference's seed, placed by ``params_shardings``,
+    AdamW's state built block by block (``sharded.init_state``), every
+    block asserted at ``local_shape``; one step under ``act_sharding``
+    with the activations and collectives recorded: the ``heads`` block at
+    its query heads, the ``logits`` block at its vocabulary columns, the
+    all-reduce bytes those of the dry run's record of the program
+    (:func:`tp_train_reckoning`, from ``reckoned.json``) plus the step's
+    own (:func:`step_reductions`), no gather of whole logits, no kernel
+    launch; the loss to ``LOSS_TOL`` of the reference's; each parameter
+    and moment block to :func:`step_margins`' tolerances against the same
+    block of the reference's leaf, and the entries that miss the CPU
+    tests' rule recorded (:func:`sign_rule_misses`).  Writes
+    ``train_<rank>.json``."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.sharding import (act_sharding, distribute,
+                                             local_block, local_shape,
+                                             params_shardings, spec_of)
+    from repro_torch.mesh_axes import recording_collectives
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import recording_placements
+    from repro_torch.training import sharded
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.train_step import (TrainStepConfig,
+                                                 make_train_step)
+    from repro_torch.training.tree import flatten
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=300))
+    try:
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        cfg = tp_train_config(layers)
+        opt = AdamW()
+        whole = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        params = distribute(whole, params_shardings(whole, mesh, cfg), mesh)
+        del whole
+        torch.cuda.empty_cache()
+        state = sharded.init_state(opt, params, cfg)
+        trees = (("p", params), ("m", state.m), ("v", state.v))
+        nbytes = 0
+        for _, tree in trees:
+            for path, t in flatten(tree):
+                block = t.to_local()
+                assert tuple(block.shape) == local_shape(
+                    tuple(t.shape), spec_of(t), mesh), path
+                nbytes += block.numel() * block.element_size()
+        batch = seeded_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ)
+        sh = act_sharding(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ)
+        step = make_train_step(cfg, opt, TrainStepConfig(remat=True), sh=sh)
+        before = {path: t.to_local().cpu() for path, t in flatten(params)}
+        own = step_reductions(params, mesh, cfg, sh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kops.reset_launch_counts()
+        with recording_placements() as placed, \
+                recording_collectives() as moved:
+            params, state, loss, ms = timed_step(torch, step, params, state,
+                                                 batch)
+        counts = kops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        assert not any(counts.values()), f"14d: kernels launched {counts}"
+        first = {}
+        for field, _, shape, _ in placed:
+            first.setdefault(field, list(shape))
+        assert first["heads"] == [TRAIN_BATCH, TRAIN_SEQ,
+                                  cfg.num_heads // world, cfg.head_dim], \
+            first
+        assert first["logits"] == [TRAIN_BATCH, TRAIN_SEQ,
+                                   cfg.vocab_size // world], first
+        moved_by_kind = collective_totals(moved)
+        reckoned = json.loads((work / "reckoned.json").read_text())
+        assert moved_by_kind["all-reduce"] == reckoned["all-reduce"] + own, \
+            (moved_by_kind, reckoned, own)
+        logits_bytes = TRAIN_BATCH * TRAIN_SEQ * cfg.vocab_size * 4
+        assert all(n < logits_bytes for k, n in moved
+                   if k == "all-gather"), "14d: whole logits gathered"
+        ref = torch.load(work / "reference.pt", mmap=True)
+        assert np.isfinite(loss) and abs(loss - ref["loss"]) <= \
+            LOSS_TOL * (1 + abs(ref["loss"])), (loss, ref["loss"])
+        margins, misses = {}, {}
+        blocks = {kind: dict(flatten(tree)) for kind, tree in trees}
+        for path, p in flatten(params):
+            key = "/".join(path)
+            got, want = {}, {}
+            for kind in ("p", "m", "v"):
+                t = blocks[kind][path]
+                got[kind] = t.to_local()
+                whole = ref["leaves"][f"{kind}/{key}"].to(dev)
+                want[kind] = local_block(whole, spec_of(t), mesh)
+                want[kind + "_max"] = float(whole.float().abs().max())
+                del whole
+            for kind, margin in step_margins(torch, got, want, opt.lr,
+                                             opt.eps).items():
+                group = f"{kind}/{path[-1]}"
+                margins[group] = max(margins.get(group, 0.0), margin)
+            got["p0"] = before.pop(path)
+            missed = sign_rule_misses(torch, got, want, opt.lr,
+                                      path[0] == "cycles")
+            if missed:
+                misses[key] = missed
+        worst = max(margins.values())
+        rec = {"rank": rank, "backend": dist.get_backend(
+            mesh.get_group("model")), "loss": loss,
+            "reference_loss": ref["loss"], "step_s_gloo": ms / 1e3,
+            "blocks_bytes": nbytes, "peak_gib": peak / 2**30,
+            "heads": first["heads"], "logits": first["logits"],
+            "collectives": moved_by_kind, "reckoned": reckoned,
+            "step_reductions": own, "worst_margin": worst,
+            "margins": margins, "sign_rule_misses": misses,
+            "launches": counts}
+        print(json.dumps(rec), flush=True)
+        print("the step's seconds run every collective through the host "
+              "(gloo, two ranks on one card): not tensor-parallel speed",
+              flush=True)
+        assert worst <= 1.0, f"14d: a leaf outside its tolerance: {margins}"
+        (work / f"train_{rank}.json").write_text(json.dumps(rec))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 def lm_agreement(torch, got, want) -> dict:
@@ -4395,6 +4793,14 @@ def main(argv=None) -> int:
                         help=argparse.SUPPRESS)
     parser.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--tp-arch", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-train", action="store_true",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--tp-layers", type=int, default=TP_TRAIN_LAYERS,
+                        help=argparse.SUPPRESS)
+    # phase 14d alone at each of these depths (comma-separated), for the
+    # depth of the entries that miss the CPU tests' parameter rule
+    parser.add_argument("--tp-train-depths", default=None,
+                        help="run phase 14d alone at these layer counts")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4423,6 +4829,12 @@ def main(argv=None) -> int:
     # float32 matmuls and convolutions in full float32 (the plain versions)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.tp_rank is not None and args.tp_train:
+        return tp_train_rank(torch, kops, args.tp_rank, args.tp_world,
+                             Path(args.tp_dir), args.tp_layers)
+    if args.tp_train_depths:
+        return tp_train_depths(torch, [int(n) for n in
+                                       args.tp_train_depths.split(",")])
     if args.tp_rank is not None and args.tp_arch is not None:
         return tp_recurrent_rank(torch, kops, ref, args.tp_rank,
                                  args.tp_world, Path(args.tp_dir),

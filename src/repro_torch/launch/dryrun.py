@@ -24,43 +24,39 @@ here compiles, so each field of the JAX report
   * ``output_bytes``: the local blocks of the outputs: parameters and
     optimizer state (train); the last logits (B, V) float32, whole, and the
     cache (prefill, decode).
-  * ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` over one
-    rank's program (matmul, bmm and convolution FLOPs, 2 M N K; no
-    elementwise FLOPs, as the reference's HLO count).  Prefill and decode:
-    ``prefill``/``decode_step`` with ``act_sharding``'s ``ActSharding``
-    (its mesh the production mesh) on ``meta`` compute blocks of rank 0
-    (``sharding.compute_specs``) and its blocks of the batch and cache:
-    the tensor-parallel program at its local shapes (the recurrent mixers
-    at their channel blocks), the MoE through ``moe_ffn_shard_map``.
-    Train: the single-program step at the global shapes
-    (``make_train_step`` on plain tensors: forward, recompute,
-    backward and the AdamW update over ``microbatches_for`` microbatches)
-    divided by the chips; the sharded train step (``training.sharded``)
-    computes its dense layers replicated over ``model``, so a rank of a
-    mesh with ``model`` > 1 does more than this count's share.
+  * ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` over rank 0's
+    program (matmul, bmm and convolution FLOPs, 2 M N K; no elementwise
+    FLOPs, as the reference's HLO count), with ``act_sharding``'s
+    ``ActSharding`` (its mesh the production mesh) on ``meta`` compute
+    blocks of rank 0 (``sharding.compute_specs``) and its blocks of the
+    batch and cache: the tensor-parallel program at its local shapes (the
+    recurrent mixers at their channel blocks), the MoE through
+    ``moe_ffn_shard_map``.  Prefill and decode: ``prefill`` /
+    ``decode_step``.  Train: the sharded train step's program
+    (``training.sharded``) over ``microbatches_for`` microbatches of its
+    dp block of the batch: the forward, ``remat``'s recompute and the
+    backward (``train_step._chunked_xent``, the loss vocab-parallel), then
+    the AdamW update over its ZeRO-3 blocks.
   * ``bytes_accessed``: every operation of that run reads each tensor
     operand in full and writes each output in full (view operations move
-    nothing), summed (train: and divided by the chips): the traffic of the
-    unfused eager program, an upper bound of what a fused one moves.
+    nothing), summed: the traffic of the unfused eager program, an upper
+    bound of what a fused one moves.
   * ``temp_bytes``: null.  There is no compiler's buffer assignment to
     read it from, and no reckoning of the live activations is made.
   * ``collective_bytes`` (each collective's output bytes, as the
     reference's HLO count), reckoned from the placements and the policy:
-      - ``all-gather``: each parameter sharded over the dp axes is gathered
-        over them (its block with the dp axes whole): per microbatch twice
-        in training (the forward, and the backward with remat's
-        recompute), once a prefill or decode step.  Under ZeRO-1 the
-        updated parameters are gathered once a step instead.
+      - the weights' gathers, each leaf to its compute block (over dp, and
+        over ``model`` too for a weight the layers do not split): once a
+        prefill or decode step, per microbatch twice in training (the
+        forward, and the backward with remat's recompute).  Under ZeRO-1
+        the updated parameters are gathered over dp once a step too.
       - ``reduce-scatter`` (train): each gradient, per microbatch, onto the
         optimizer state's ZeRO-3 block, in float32 (the accumulation
-        type).
-      - ``all-to-all`` (train): where the expert-parallel rule holds ((B S)
-        divides by the shards), each MoE layer's two exchanges of (E, cap,
-        D) bf16 (cap from the tokens a shard routes), times 3 (the forward,
-        remat's recompute, the backward).
-      - prefill and decode: the weights' gathers above (to each leaf's
-        compute block: over dp, and over ``model`` too for a weight the
-        layers do not split), plus every collective rank 0's program runs
+        type); one a leaf, also where the leaf is a partial sum over
+        ``model`` too (the leaves each rank narrows, every weight under
+        sequence parallelism), whose reduction over ``model`` is not
+        reckoned apart.  The experts' reductions are the MoE's own (below).
+      - every collective rank 0's program runs
         (``mesh_axes.recording_collectives``, each by its kind): the
         row-parallel projections' and the vocab-parallel embedding's
         ``psum``s (float32 all-reduces), the decode's ``head_dim`` score
@@ -70,19 +66,18 @@ here compiles, so each field of the JAX report
         gathers, and the recurrent mixers' exchanges (the RG-LRU's gate
         input gather; the mLSTM's query and key ``all_to_all``s, value,
         gate and output gathers and the float32 all-reduce of its partial
-        sums over the key rows).
-      - not reckoned: in training, tensor-parallel activation collectives
-        (the train step computes its dense layers whole), the EP combine's
-        all-gather over ``model``, and the MoE's collectives where the EP
-        rule fails.
+        sums over the key rows).  In training that is the forward's, the
+        recompute's and the backward's: there each column-parallel
+        block's ``sum_gradients`` all-reduce, the adjoints of the gathers
+        and exchanges, and the vocab-parallel loss's all-reduces of the
+        row maxima and of the sums.
+      - not reckoned: the MoE's collectives where the EP rule fails.
       - ``total``: their sum.
 
 The run also records the activations the model places
-(``layers.recording_placements``; the prefill and decode steps take
-``act_sharding``'s fields and record each activation's local block; the
-train cells' single-program step takes none: the sharded step's
-placements are its parameters') and reports the largest per-device block
-of each field under ``activations``.
+(``layers.recording_placements``: each activation's local block under
+``act_sharding``'s fields) and reports the largest per-device block of
+each field under ``activations``.
 
 Nothing happens at import: no environment variable, no process group.
 """
@@ -90,7 +85,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import json
 import math
 import os
@@ -110,8 +104,6 @@ from repro_torch.launch.input_specs import (
 )
 from repro_torch.launch.mesh import (
     PRODUCTION_SHAPE,
-    axes_size,
-    dp_axes,
     make_production_mesh,
 )
 from repro_torch.launch.sharding import (
@@ -119,6 +111,7 @@ from repro_torch.launch.sharding import (
     batch_shardings,
     cache_shardings,
     compute_specs,
+    is_expert,
     local_bytes,
     local_shape,
     params_shardings,
@@ -130,7 +123,9 @@ from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.models.decode import decode_step, prefill
 from repro_torch.models.layers import recording_placements
 from repro_torch.training.optim import AdamW
-from repro_torch.training.train_step import TrainStepConfig, make_train_step
+from repro_torch.training.train_step import _chunked_xent
+from repro_torch.training.tree import flatten, flatten_up_to, leaves, \
+    tree_map
 
 
 def microbatches_for(arch: str) -> int:
@@ -229,73 +224,46 @@ def output_bytes(cfg: ArchConfig, shape: ShapeConfig, mesh, args) -> int:
         tree_local_bytes(cache, specs, mesh)
 
 
-def _dp_whole(spec, dp):
-    """A placement with the dp axes dropped (the block after gathering
-    over them)."""
-    def entry(e):
-        if e is None:
-            return None
-        axes = (e,) if isinstance(e, str) else tuple(e)
-        kept = tuple(a for a in axes if a not in dp)
-        return kept or None
-    return tuple(entry(e) for e in spec)
-
-
-def _ep_exchange_bytes(cfg: ArchConfig, tokens: int, mesh) -> int:
-    """Output bytes of one MoE layer's two all_to_alls on one rank, or 0
-    where the expert-parallel rule does not hold for ``tokens``."""
-    shards = axes_size(mesh, "model") * axes_size(mesh, dp_axes(mesh))
-    if cfg.moe is None or tokens % shards or tokens // shards < 1:
-        return 0
-    spec = cfg.moe
-    t_me = tokens // shards
-    cap = max(8, ((int(math.ceil(spec.capacity_factor * t_me * spec.top_k
-                                 / spec.num_experts)) + 7) // 8) * 8)
-    return 2 * spec.num_experts * cap * cfg.d_model * 2        # bf16
-
-
 def collective_bytes(cfg: ArchConfig, shape: ShapeConfig, mesh, args,
                      microbatches: int, sh=None,
                      recorded=()) -> Dict[str, int]:
     """The reckoning of the module docstring, per device; ``recorded``:
-    the (kind, bytes) of the collectives a prefill or decode run made."""
-    dp = dp_axes(mesh)
+    the (kind, bytes) of the collectives rank 0's program made."""
     aparams, p_sh = args["params"]
-    train = shape.kind == "train"
-    policy = zero_policy(cfg)
 
     def gathered(t, spec, kept):  # the block a gather gives, or nothing
         return 0 if kept == tuple(spec) else local_bytes(
             tuple(t.shape), t.dtype, kept, mesh)
 
-    if train:                     # each dp-sharded leaf gathered over dp
-        fsdp = sum(_map2(lambda t, s: gathered(t, s, _dp_whole(s, dp)),
-                         aparams, p_sh))
-    else:                         # each leaf gathered to its compute block
-        fsdp = sum(_map2(lambda t, s: gathered(t, s[0], tuple(
-            c if e else None for e, c in zip(*s))), aparams,
-            _zip_specs(p_sh, compute_specs(p_sh, aparams, mesh, sh))))
-    if train:
+    fsdp = sum(_map2(lambda t, s: gathered(t, s[0], tuple(
+        c if e else None for e, c in zip(*s))), aparams,
+        _zip_specs(p_sh, compute_specs(p_sh, aparams, mesh, sh))))
+    out = {"all-gather": fsdp, "reduce-scatter": 0, "all-to-all": 0,
+           "all-reduce": 0}
+    if shape.kind == "train":
         z3 = args["opt_state"][1].m
-        grads = sum(_map2(lambda t, s: local_bytes(
-            tuple(t.shape), torch.float32, s, mesh), aparams, z3))
-        if policy == "zero1":
-            all_gather = tree_local_bytes(aparams, p_sh, mesh)
-        else:
-            all_gather = 2 * microbatches * fsdp
-        reduce_scatter = microbatches * grads
-        tokens = shape.global_batch // microbatches * shape.seq_len
-        a2a = 3 * microbatches * cfg.num_layers * _ep_exchange_bytes(
-            cfg, tokens, mesh)
-        out = {"all-gather": all_gather, "reduce-scatter": reduce_scatter,
-               "all-to-all": a2a, "all-reduce": 0}
-    else:
-        out = {"all-gather": fsdp, "reduce-scatter": 0, "all-to-all": 0,
-               "all-reduce": 0}
-        for kind, nbytes in recorded:
-            out[kind] += nbytes
+        experts = set(_expert_paths(aparams, sh))
+        grads = sum(local_bytes(tuple(t.shape), torch.float32, s, mesh)
+                    for (path, t), s in zip(flatten(aparams),
+                                            flatten_up_to(aparams, z3))
+                    if path not in experts)
+        out["all-gather"] = 2 * microbatches * fsdp + (
+            tree_local_bytes(aparams, p_sh, mesh)
+            if zero_policy(cfg) == "zero1" else 0)
+        out["reduce-scatter"] = microbatches * grads
+    for kind, nbytes in recorded:
+        out[kind] += nbytes
     out["total"] = sum(out.values())
     return out
+
+
+def _expert_paths(params, sh):
+    """The paths of the MoE's expert weights where the expert-parallel
+    MoE runs (``sh.moe_mesh``): their gradients are reduced by the MoE's
+    own collectives, which the program records."""
+    if sh is None or sh.moe_mesh is None:
+        return []
+    return [path for path, t in flatten(params) if is_expert(path, t.dim())]
 
 
 def _zip_specs(a, b):
@@ -332,14 +300,22 @@ def _meta_blocks(tree, specs, mesh):
 
 def local_arguments(cfg: ArchConfig, shape: ShapeConfig, mesh, args,
                     sh) -> Dict:
-    """Rank 0's ``meta`` arguments of a prefill or decode step: the
-    parameters' compute blocks (``compute_specs``), its block of the batch
-    (and of the cache, in the port's layout, and of the token's rows)."""
+    """Rank 0's ``meta`` arguments of a step: the parameters' compute
+    blocks (``compute_specs``), its block of the batch (and of the cache,
+    in the port's layout, and of the token's rows); in training also the
+    parameters' and AdamW's blocks of the ZeRO-3 placements the update
+    runs on."""
     p, p_sh = args["params"]
     out = {"params": _meta_blocks(p, compute_specs(p_sh, p, mesh, sh),
                                   mesh)}
     rows = batch_shardings(cfg, mesh, shape.global_batch, shape.kind)
-    if shape.kind == "prefill":
+    if shape.kind == "train":
+        opt, specs = args["opt_state"]
+        out["batch"] = _meta_blocks(*args["batch"], mesh)
+        out["update"] = (_meta_blocks(p, specs.m, mesh), type(opt)(
+            step=opt.step, m=_meta_blocks(opt.m, specs.m, mesh),
+            v=_meta_blocks(opt.v, specs.v, mesh)))
+    elif shape.kind == "prefill":
         out["batch"] = _meta_blocks(*args["batch"], mesh)
     else:
         out["cache"] = _meta_blocks(*args["cache"], mesh)
@@ -348,23 +324,38 @@ def local_arguments(cfg: ArchConfig, shape: ShapeConfig, mesh, args,
     return out
 
 
+def train_program(cfg: ArchConfig, args, sh, microbatches: int) -> None:
+    """Rank 0's program of the sharded train step on its ``meta`` blocks
+    (:func:`local_arguments`): per microbatch of its rows the loss
+    (``_chunked_xent`` with ``remat``: the forward, and in the backward
+    the recompute) and its gradients; then AdamW over the ZeRO-3 blocks,
+    the accumulated gradients float32 blocks of them."""
+    params = tree_map(lambda t: t.requires_grad_(), args["params"])
+    batch = args["batch"]
+    rows = next(iter(batch.values())).shape[0] // microbatches
+    for i in range(microbatches):
+        part = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        loss = _chunked_xent(params, cfg, part, sh, remat=True)
+        torch.autograd.grad(loss, leaves(params))
+    blocks, state = args["update"]
+    grads = tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32,
+                                           device="meta"), state.m)
+    AdamW().update(grads, state, blocks)
+
+
 def run_step(cfg: ArchConfig, shape: ShapeConfig, args, sh,
              microbatches: int, mesh=None):
     """The step once on ``meta`` arguments: (FLOPs, bytes accessed,
-    placement records, collective records).  Train: the single program at
-    the global shapes; prefill and decode: rank 0's tensor-parallel
+    placement records, collective records): rank 0's tensor-parallel
     program on ``mesh`` (its blocks, :func:`local_arguments`)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     counter, traffic = FlopCounterMode(display=False), _Traffic()
-    if shape.kind != "train":
-        args = local_arguments(cfg, shape, mesh, args, sh)
+    args = local_arguments(cfg, shape, mesh, args, sh)
     with counter, traffic, recording_placements() as placed, \
             recording_collectives() as moved:
         if shape.kind == "train":
-            step = make_train_step(
-                cfg, AdamW(), TrainStepConfig(microbatches=microbatches))
-            step(args["params"][0], args["opt_state"][0], args["batch"][0])
+            train_program(cfg, args, sh, microbatches)
         elif shape.kind == "prefill":
             prefill(args["params"], cfg, args["batch"],
                     max_len=shape.seq_len, sh=sh)
@@ -377,15 +368,9 @@ def run_step(cfg: ArchConfig, shape: ShapeConfig, args, sh,
 def account(cfg: ArchConfig, shape: ShapeConfig, mesh,
             microbatches: int = 1) -> Dict[str, Any]:
     """Every per-device field of a cell's report on ``mesh``."""
-    chips = math.prod(int(n) for n in mesh.shape)
     args = cell_arguments(cfg, shape, mesh)
     seq = shape.seq_len if shape.kind != "decode" else None
     sh = act_sharding(cfg, mesh, shape.global_batch, seq=seq)
-    per = 1
-    if shape.kind == "train":
-        # the single program at the global shapes, the MoE as moe_ffn on
-        # the whole batch (see the module docstring)
-        sh, per = dataclasses.replace(sh, mesh=None, moe_mesh=None), chips
     flops, traffic, placed, moved = run_step(cfg, shape, args, sh,
                                              microbatches, mesh)
     activations: Dict[str, int] = {}
@@ -396,8 +381,8 @@ def account(cfg: ArchConfig, shape: ShapeConfig, mesh,
         "argument_bytes": argument_bytes(cfg, shape, mesh, args),
         "output_bytes": output_bytes(cfg, shape, mesh, args),
         "temp_bytes": None,
-        "flops": flops / per,
-        "bytes_accessed": traffic / per,
+        "flops": flops,
+        "bytes_accessed": traffic,
         "flops_raw_costanalysis": None,
         "collective_bytes": collective_bytes(cfg, shape, mesh, args,
                                              microbatches, sh, moved),

@@ -12,8 +12,9 @@ dimension for ``DTensor`` (:func:`spec_of` reads one back);
 does both, and :func:`narrow_tree` narrows a whole tree (a prefill's cache
 into the decode layout).
 
-The serving entry points compute on each rank's *compute block* of a
-parameter (:func:`compute_spec`): its placement with the dp axes dropped
+The serving entry points and the sharded train step compute on each
+rank's *compute block* of a parameter (:func:`compute_spec`): its
+placement with the dp axes dropped
 (ZeRO-3's shard gathered), keeping ``model`` where the layers split the
 work over it (attention by heads, the gated MLP by its FFN width, the
 embedding and head by vocabulary, the recurrent mixers by channels); every
@@ -196,7 +197,8 @@ def act_sharding(cfg: ArchConfig, mesh, batch: int,
     dense-attention shapes that pass ``seq``; the expert-parallel MoE on
     ``mesh`` for MoE configurations.  The rules are the JAX package's,
     with its reasons there.  ``mesh`` is kept (``ActSharding.mesh``): the
-    serving entry points split their work over its ``model`` axis."""
+    serving entry points and the sharded train step split their work over
+    its ``model`` axis."""
     dp = dp_axes(mesh)
     model_n = axis_sizes(mesh)["model"]
     bdim = dp if batch % axes_size(mesh, dp) == 0 else None
@@ -283,22 +285,27 @@ def moe_param_specs(params, mesh, model_axis: str = "model"):
     specs = ep_specs(dp_axes(mesh), model_axis)
 
     def visit(path, leaf):
-        lead = (None,) if "cycles" in path or "layers" in path else ()
-        if "ffn" in path and path[-1] in ("w_gate", "w_up", "w_down") \
-                and leaf.dim() == len(lead) + 3:
-            return (*lead, *specs[path[-1]])
+        if is_expert(path, leaf.dim()):
+            return (None,) * (leaf.dim() - 3) + tuple(specs[path[-1]])
         return (None,) * leaf.dim()
 
     return _map_with_path(visit, params)
 
 
 # ---------------------------------------------------------------------------
-# compute blocks: what the serving layers take of each parameter
+# compute blocks: what the layers take of each parameter
 # ---------------------------------------------------------------------------
 
 EXPERTS = ("w_gate", "w_up", "w_down")
 FFN_TP = ("w_gate", "w_up", "w_down")
 RECURRENT = ("rglru", "mlstm", "slstm")
+
+
+def is_expert(path: Tuple[str, ...], ndim: int) -> bool:
+    """Whether the leaf at ``path`` is one of an MoE's stacked expert
+    weights ((E, D, F) or (E, F, D), after any cycle axis)."""
+    lead = 1 if "cycles" in path or "layers" in path else 0
+    return "ffn" in path and path[-1] in EXPERTS and ndim == lead + 3
 
 
 def _tp_leaf(path: Tuple[str, ...], ndim: int) -> bool:
@@ -331,7 +338,7 @@ def seq_parallel(sh: Optional[ActSharding]) -> bool:
 
 def compute_spec(path: Tuple[str, ...], spec: Spec, shape: Tuple[int, ...],
                  mesh, sh: Optional[ActSharding]) -> Spec:
-    """The placement of the block the serving layers compute with, for a
+    """The placement of the block the layers compute with, for a
     parameter of ``shape`` at ``path`` stored under ``spec`` (see the
     module docstring): the experts in ``moe_ffn_shard_map``'s layout when
     ``sh.moe_mesh`` is set; a recurrent mixer's weight split by channels
@@ -343,10 +350,10 @@ def compute_spec(path: Tuple[str, ...], spec: Spec, shape: Tuple[int, ...],
     layers split the leaf over it (never under sequence parallelism, but
     for the embedding and head; never without ``sh.mesh``, where every
     rank computes whole)."""
-    lead = 1 if "cycles" in path or "layers" in path else 0
-    if sh is not None and sh.moe_mesh is not None and "ffn" in path \
-            and path[-1] in EXPERTS and len(spec) == lead + 3:
-        return (None,) * lead + tuple(ep_specs(dp_axes(mesh))[path[-1]])
+    if sh is not None and sh.moe_mesh is not None and is_expert(path,
+                                                                len(spec)):
+        return (None,) * (len(spec) - 3) + tuple(
+            ep_specs(dp_axes(mesh))[path[-1]])
     tp = sh is not None and sh.mesh is not None
     if tp and any(m in path for m in RECURRENT) and not seq_parallel(sh):
         return param_spec("/".join(path), tuple(shape), mesh,
@@ -574,14 +581,16 @@ def gather_to(x: torch.Tensor, spec_from: Spec, spec_to: Spec,
               mesh) -> torch.Tensor:
     """The block under ``spec_to`` assembled from every rank's block ``x``
     under ``spec_from`` (a tiled all-gather over each axis group that
-    ``spec_to`` drops; ``spec_to`` shards nothing ``spec_from`` keeps
-    whole).  Not recorded by autograd."""
+    ``spec_to`` drops, of more than one rank; ``spec_to`` shards nothing
+    ``spec_from`` keeps whole).  Not recorded by autograd."""
     from repro_torch.mesh_axes import all_gather
 
     for i, ax, ay in _relayout(spec_from, spec_to):
         if ay:
             raise ValueError(f"gather_to: dim {i} is whole in {spec_from}, "
                              f"sharded over {ay} in {spec_to}")
+        if axes_size(mesh, ax) == 1:
+            continue
         with torch.no_grad():
             x = all_gather(x, axis_group(mesh, ax), i)
     return x
@@ -632,7 +641,7 @@ def shard_params(params, mesh, specs):
 
 __all__ = ["param_spec", "zero_policy", "params_shardings", "act_sharding",
            "batch_shardings", "cache_shardings", "moe_param_specs",
-           "seq_parallel", "compute_spec",
+           "seq_parallel", "is_expert", "compute_spec",
            "compute_specs", "to_compute",
            "serving_gather", "narrow_tree",
            "placements", "local_shape", "local_bytes", "local_block",

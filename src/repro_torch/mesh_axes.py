@@ -47,7 +47,8 @@ from typing import Dict
 
 import torch
 
-_RECORDED = threading.local()          # .records: the open recorder
+_RECORDED = {"records": None}          # the open recorder
+_RECORD_LOCK = threading.Lock()
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
@@ -94,21 +95,24 @@ def axes_size(mesh, axes) -> int:
 
 @contextlib.contextmanager
 def recording_collectives():
-    """Collect (kind, output bytes) of every collective this thread runs
+    """Collect (kind, output bytes) of every collective this process runs
     while the block runs ("all-gather", "all-to-all", "all-reduce",
-    "reduce-scatter"): the dry run's reckoning of a program's traffic."""
-    outer = getattr(_RECORDED, "records", None)
-    _RECORDED.records = records = []
+    "reduce-scatter"): the dry run's reckoning of a program's traffic.
+    Process-wide, not per thread: on a CUDA device autograd runs the
+    backward's collectives on a thread of its own."""
+    outer = _RECORDED["records"]
+    _RECORDED["records"] = records = []
     try:
         yield records
     finally:
-        _RECORDED.records = outer
+        _RECORDED["records"] = outer
 
 
 def _record(kind: str, out: torch.Tensor) -> torch.Tensor:
-    records = getattr(_RECORDED, "records", None)
+    records = _RECORDED["records"]
     if records is not None:
-        records.append((kind, out.numel() * out.element_size()))
+        with _RECORD_LOCK:
+            records.append((kind, out.numel() * out.element_size()))
     return out
 
 
@@ -166,15 +170,16 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return _record("reduce-scatter", out.movedim(0, dim))
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``x`` over ``group``'s ranks, in a new tensor.  Not
-    recorded by autograd."""
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The sum (``op="max"``: the largest) of ``x`` over ``group``'s ranks,
+    in a new tensor.  Not recorded by autograd."""
     import torch.distributed as dist
 
     if _staged(x, group):
-        return all_reduce(x.cpu(), group).to(x.device)
+        return all_reduce(x.cpu(), group, op).to(x.device)
     out = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
+                             "max": dist.ReduceOp.MAX}[op], group=group)
     return _record("all-reduce", out)
 
 

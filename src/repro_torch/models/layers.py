@@ -20,7 +20,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.mesh_axes import psum
+from repro_torch.mesh_axes import psum, sum_gradients
 
 Params = Dict[str, torch.Tensor]
 
@@ -82,6 +82,18 @@ def block_of(vec: torch.Tensor, n: int, tp: TP) -> torch.Tensor:
     if vec.shape[-1] == n:
         return vec
     return vec.narrow(-1, tp.start(vec.shape[-1], n, "vector"), n)
+
+
+def column_input(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """The replicated input of a block this rank computes a part of (its
+    heads, FFN columns, channels or vocabulary rows): ``x`` itself, its
+    gradient summed over ``model`` (``mesh_axes.sum_gradients``, the
+    conjugate of :func:`row_parallel`'s ``psum``), since each rank's part
+    gives a partial one.  Only where autograd records it: serving pays
+    nothing."""
+    if tp.n == 1 or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return sum_gradients(x, tp.group)
 
 
 def row_parallel(y, rows: int, whole: int, tp: TP):

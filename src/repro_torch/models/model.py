@@ -50,8 +50,17 @@ whole tensor (``model`` of 1, or whole weights) runs the single program:
     ``cache_shardings`` lays them out; ``recurrent.py``'s docstring has
     the exchanges.
 
-The train step (``training``) computes whole on every rank: its
-tensor-parallel compute is not ported.
+The sharded train step (``training.sharded``) runs the same split with
+autograd: each column-parallel block's replicated input (the attention's
+q/k/v, the gated MLP's gate/up, a recurrent mixer's entry, the head's
+input and, under sequence parallelism, the whole looked-up sequence before
+a rank takes its rows) enters through :func:`layers.column_input`, whose
+gradient is summed over ``model`` (``sum_gradients``, the conjugate of
+``psum``'s identity adjoint, as Megatron pairs them); the K/V gathers'
+adjoint is a reduce-scatter and the hidden gather before the head takes
+its slice.  :func:`final_hidden` hands the train step's vocab-parallel
+loss the hidden states: no rank gathers whole logits.  Without a gradient
+``column_input`` is the identity, so serving is unchanged.
 """
 from __future__ import annotations
 
@@ -82,6 +91,7 @@ from repro_torch.models.layers import (
     attention,
     block_of,
     chunked_attention,
+    column_input,
     dense_init,
     gated_mlp,
     place,
@@ -102,13 +112,14 @@ class ActSharding:
     (``launch.sharding``): in JAX they are ``with_sharding_constraint``s,
     which change no value.  ``mesh`` (a ``DeviceMesh``, set by
     ``act_sharding``) makes the serving entry points (``forward``,
-    ``prefill``, ``decode_step``) split their work over its ``model``
-    axis, as the placements say (the module docstring): heads, FFN width
-    and vocabulary by the compute blocks' shapes, the sequence where
-    ``hidden`` shards it; ``layers.recording_placements`` records each
-    activation's local block for the dry run.  ``mesh=None`` leaves the
-    fields records and every rank computes whole: the train step
-    (``training``) takes that, its tensor-parallel compute not ported.
+    ``prefill``, ``decode_step``) and the sharded train step split their
+    work over its ``model`` axis, as the placements say (the module
+    docstring): heads, FFN width and vocabulary by the compute blocks'
+    shapes, the sequence where ``hidden`` shards it;
+    ``layers.recording_placements`` records each activation's local block
+    for the dry run.  ``mesh=None`` leaves the fields records and every
+    rank computes whole: the train step on plain tensors (one device)
+    drops the mesh.
     ``moe_mesh`` (a ``DeviceMesh``) sends every MoE layer through the
     expert-parallel ``moe_ffn_shard_map`` over its ``model`` axis and
     ``moe_dp_axes``: each rank then runs the model on its block of the
@@ -330,10 +341,15 @@ def _qkv(p: P, cfg: ArchConfig, x, positions, tp: TP = TP()):
             rope(k, positions, cfg.rope_theta), v)
 
 
-def _cross_kv(p: P, cfg: ArchConfig, src):
+def _cross_kv(p: P, cfg: ArchConfig, src, tp: TP = TP()):
     """Cross-attention keys and values of the encoder output (no bias, no
-    RoPE, as in JAX): (B, Sk, Hkv, Dh) each, at the rank's KV heads."""
+    RoPE, as in JAX): (B, Sk, Hkv, Dh) each, at the rank's KV heads.  A
+    rank that attends with part of the query heads or, under ``seq_par``,
+    with its rows reads a part of them: the encoder output enters through
+    :func:`layers.column_input`."""
     b, sk, _ = src.shape
+    if p["wq"].shape[-1] < cfg.q_dim or tp.seq_par:
+        src = column_input(src, tp)
     return ((src @ p["wk"]).reshape(b, sk, -1, cfg.head_dim),
             (src @ p["wv"]).reshape(b, sk, -1, cfg.head_dim))
 
@@ -385,6 +401,8 @@ def _attn_apply(p: P, cfg: ArchConfig, x, positions, kind: str,
     b, s, _ = x.shape
     hq = p["wq"].shape[-1] // cfg.head_dim
     h0 = tp.start(cfg.num_heads, hq, "query heads")
+    if hq < cfg.num_heads:
+        x = column_input(x, tp)
     q_offset = 0
     if kv is None:
         q, k, v = _qkv(p, cfg, x, positions, tp)
@@ -438,6 +456,8 @@ def _ffn_apply(p: P, cfg: ArchConfig, x, sh: Optional[ActSharding] = None):
                               expert_sharding=getattr(sh, "expert", None))
         out = out.reshape(*lead, -1)
         return out.narrow(1, tp.rank * rows, rows) if tp.seq_par else out
+    if p["ffn"]["w_gate"].shape[-1] < cfg.d_ff:
+        h = column_input(h, tp)
     return row_parallel(gated_mlp(h, p["ffn"], cfg.mlp),
                         p["ffn"]["w_down"].shape[0], cfg.d_ff, tp)
 
@@ -456,6 +476,9 @@ def _moe_on_mesh(x2, p: P, cfg: ArchConfig, sh: ActSharding):
     return moe.moe_ffn_gathered(x2, p, cfg.moe, mesh, dp)
 
 
+RECURRENT_INPUT = {"rglru": "w_x", "mlstm": "w_q", "slstm": "w_z"}
+
+
 def _mixer_seq(p: P, kind: str, cfg: ArchConfig, h, positions,
                use_kernel: bool, sh: Optional[ActSharding] = None):
     """A block's mixer over the normed sequence ``h``: (out, the layer's
@@ -464,6 +487,9 @@ def _mixer_seq(p: P, kind: str, cfg: ArchConfig, h, positions,
     sequence, whose cache the reference leaves malformed).  The recurrent
     states are the rank's blocks (its channels of ``w_x``)."""
     tp = tp_of(sh)
+    if kind in RECURRENT_INPUT and \
+            p[kind][RECURRENT_INPUT[kind]].shape[-1] < h.shape[-1]:
+        h = column_input(h, tp)          # the rank's channels
     if kind in ("attn", "swa"):
         out, (k, v) = _attn_apply(p["attn"], cfg, h, positions, kind,
                                   use_kernel, sh=sh, seq_par=tp.seq_par)
@@ -492,7 +518,7 @@ def _layer_seq(p: P, kind: str, cfg: ArchConfig, x, positions,
     mixed, state = _mixer_seq(p, kind, cfg, h, positions, use_kernel, sh)
     x = x + mixed
     if "xattn" in p:                 # cross-attention (decoder of enc-dec)
-        xk, xv = _cross_kv(p["xattn"], cfg, enc_out)
+        xk, xv = _cross_kv(p["xattn"], cfg, enc_out, tp_of(sh))
         hx = rmsnorm(x, p["norm_x"])
         out, _ = _attn_apply(p["xattn"], cfg, hx, positions, "attn",
                              use_kernel, kv=(xk, xv), sh=sh)
@@ -551,7 +577,9 @@ def _embed(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             raise ValueError(f"sequence parallelism: {s} positions do not "
                              f"split over {tp.n} model ranks")
         rows = s // tp.n
-        x = x.narrow(1, tp.rank * rows, rows)
+        # each rank's rows take their part of the gradient of the whole
+        # lookup, which every rank's embedding block needs
+        x = column_input(x, tp).narrow(1, tp.rank * rows, rows)
         positions = positions.narrow(1, tp.rank * rows, rows)
     return x, positions
 
@@ -562,14 +590,25 @@ def embed_scale(cfg: ArchConfig) -> float:
                     ACT_DTYPE)
 
 
+def logits_block(params: P, x, vocab: int,
+                 sh: Optional[ActSharding] = None) -> torch.Tensor:
+    """float32 logits of the final hidden states (tied or own head), at
+    this rank's block of the vocabulary where the head is a block of
+    ``vocab`` columns (its replicated input then enters through
+    :func:`layers.column_input`); recorded under ``sh.logits``."""
+    head = params.get("head")
+    cols = params["embed"].shape[0] if head is None else head.shape[-1]
+    if cols < vocab:
+        x = column_input(x, tp_of(sh))
+    logits = x @ params["embed"].T if head is None else x @ head
+    return shard(logits.to(torch.float32), sh, "logits")
+
+
 def logits_of(params: P, x, vocab: Optional[int] = None,
               sh: Optional[ActSharding] = None) -> torch.Tensor:
-    """float32 logits of the final hidden states (tied or own head).  A
-    vocab-parallel head (a block of ``vocab`` columns) gives this rank's
-    logits, recorded under ``sh.logits``, then gathered over ``model``."""
-    head = params.get("head")
-    logits = x @ params["embed"].T if head is None else x @ head
-    logits = shard(logits.to(torch.float32), sh, "logits")
+    """float32 logits of the final hidden states (tied or own head): a
+    vocab-parallel head's (:func:`logits_block`) gathered over ``model``."""
+    logits = logits_block(params, x, vocab or 0, sh)
     if vocab is not None and logits.shape[-1] < vocab:
         logits = all_gather(logits, tp_of(sh).group, logits.dim() - 1,
                             adjoint="slice")
@@ -679,7 +718,8 @@ def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             use_kernel: Optional[bool] = None,
             remat: bool = False,
             gather: Optional[Callable] = None) -> torch.Tensor:
-    """Full-sequence float32 logits (B, S, V).
+    """Full-sequence float32 logits (B, S, V): :func:`logits_of` of
+    :func:`final_hidden`.
 
     ``batch``: ``tokens`` (B, S) int, plus ``embeds`` (patch frontend) or
     ``frames`` (B, S_src, D) (the encoder's input).  ``use_kernel=None``
@@ -710,6 +750,19 @@ def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     embedding, the head, the final norm, tail layers, the encoder) is
     gathered where it is first used (``cycle`` None).
     """
+    x, params = final_hidden(params, cfg, batch, sh, use_kernel, remat,
+                             gather)
+    return logits_of(params, x, cfg.vocab_size, sh)
+
+
+def final_hidden(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+                 sh: Optional[ActSharding] = None,
+                 use_kernel: Optional[bool] = None,
+                 remat: bool = False, gather: Optional[Callable] = None):
+    """:func:`forward`'s body: (the final normed hidden states (B, S, D),
+    whole over the sequence, the parameters the head reads them with,
+    through ``gather`` where there is one).  The train step's
+    vocab-parallel loss takes them here, at its block of the logits."""
     raw, params, gather = serving_view(params, sh, gather)
     tp = tp_of(sh)
     x, positions = _embed(params, cfg, batch, tp)
@@ -741,4 +794,4 @@ def forward(params: P, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     x = rmsnorm(x, params["final_norm"])
     if tp.seq_par:
         x = all_gather(x, tp.group, 1, adjoint="slice")
-    return logits_of(params, x, cfg.vocab_size, sh)
+    return x, params

@@ -63,7 +63,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.mesh_axes import all_gather, all_to_all, psum
-from repro_torch.models.layers import TP, block_of, dense_init, row_parallel
+from repro_torch.models.layers import (TP, block_of, column_input,
+                                      dense_init, row_parallel)
 
 CONV_WIDTH = 4
 C_RGLRU = 8.0
@@ -244,6 +245,15 @@ def _mlstm_gates(p: P, x: torch.Tensor, h: int, tp: TP = TP()):
     return q, k, v, ig, fg
 
 
+def _summed_over_keys(parts: torch.Tensor, tp: TP) -> torch.Tensor:
+    """The ``q^T [C, n]`` partial sums over the rank's key rows summed over
+    ``model`` (``psum``).  Every rank then computes its ``w_o`` columns of
+    the output from the whole sum, so each one's gradient of it is partial
+    too: the sum enters :func:`layers.column_input` (Megatron's pair
+    again, this time around the state's split)."""
+    return column_input(psum(parts, tp.group), tp)
+
+
 def _mlstm_out(p: P, num, qn, x, tp: TP = TP()):
     """num / max(|q . n|, 1), heads merged, through w_o: a column block
     whose output is gathered over ``model``."""
@@ -308,7 +318,7 @@ def mlstm_seq(p: P, x: torch.Tensor, num_heads: int, state0=None,
             mem.addcmul_(ikt[t], vt[t])
             torch.matmul(qt[t], mem, out=outs[t])
     if dk < dh:                   # partial sums over the key rows
-        outs = psum(outs, tp.group)
+        outs = _summed_over_keys(outs, tp)
     outs = outs[..., 0, :].transpose(0, 1)                # (B,S,H,Dh+1)
     out = _mlstm_out(p, outs[..., :dh], outs[..., dh], x, tp)
     return out, (mem[..., :dh].contiguous(), mem[..., dh].contiguous())
@@ -327,7 +337,7 @@ def mlstm_step(p: P, x: torch.Tensor, state, num_heads: int,
     qn = (n * q).sum(-1)
     dh = c.shape[-1]
     if k.shape[-1] < dh:          # partial sums over the key rows
-        both = psum(torch.cat([num, qn[..., None]], -1), tp.group)
+        both = _summed_over_keys(torch.cat([num, qn[..., None]], -1), tp)
         num, qn = both[..., :dh], both[..., dh]
     return _mlstm_out(p, num, qn, x, tp), (c, n)
 

@@ -28,38 +28,39 @@ One step, on every rank of the mesh at once:
     ``remat`` they are gathered again in the recompute and freed after the
     cycle ("twice per microbatch", as the dry run reckons); the embedding,
     head, final norm and any tail layer are gathered where they are first
-    used.  The layers compute on the gathered tensors: whole for every
-    dense weight (dense compute is replicated over ``model``: each model
-    rank runs the same rows as its dp peers, which equals GSPMD's result in
-    value), and in ``moe_ffn_shard_map``'s layout (experts over ``model``,
-    the FFN-hidden dim over dp) for the experts when ``sh.moe_mesh`` is
-    set, so the expert parallelism of ``models.moe`` is kept;
+    used.  Each leaf is gathered to its compute block
+    (``launch.sharding.compute_spec``, as the serving entry points take
+    it): over the dp axes, keeping its ``model`` block where the layers
+    split the work over ``model``;
+  * tensor-parallel compute over ``model`` (``sh.mesh``, as GSPMD splits
+    the JAX package's jitted step under ``act_sharding``): each rank runs
+    its heads, FFN columns, recurrent channels and vocabulary block, the
+    row-parallel blocks closed by ``psum`` and every column-parallel
+    block's replicated input entered through ``sum_gradients``
+    (``models.model``'s docstring); under ``seq_par`` its rows of the
+    sequence with whole weights.  The loss is vocab-parallel
+    (``train_step._chunked_xent``): no rank holds whole logits.  The
+    experts take ``moe_ffn_shard_map``'s layout (experts over ``model``,
+    the FFN-hidden dim over dp) when ``sh.moe_mesh`` is set;
   * the loss: each rank's mean over its rows, scaled by its rows over the
     microbatch's rows (1 / ndp where the rows do not split) before the
     backward, so that the reductions sum to the global mean's gradient;
     the reported loss is that sum over dp, averaged over microbatches;
-  * gradients: the backward of each gather reduces the gathered tensor's
+  * gradients: the backward of each gather reduces the compute block's
     gradient onto the block of the ZeRO-3 placement in ``ts.accum_dtype``
-    (float32), once per microbatch and cycle: this rank's slice along
-    ``model`` (every model rank computed the same gradient), a
-    reduce-scatter over the dp axes along the dimension ZeRO-3 shards over
-    them (an all-reduce where none does).  The experts' gradients arrive
-    already summed over dp (the MoE's gather of the F shard reduce-scatters
-    its cotangent) and in the ZeRO-3 layout;
+    (float32), once per microbatch and cycle (:meth:`LeafPlan.to_grad`):
+    a reduce-scatter over the axes over which it is a partial sum
+    (:func:`leaf_plans`) along the dimension ZeRO-3 shards over them (an
+    all-reduce where none does), and a slice along any other.  The
+    experts' gradients arrive already summed over dp (the MoE's gather of
+    the F shard reduce-scatters its cotangent) and in the ZeRO-3 layout;
   * the update: the optimizer over the shards (``optim``): AdamW on the
     ZeRO-3 blocks in place, the global norm over distinct elements, and
     under ZeRO-1 the updated blocks gathered over dp once a step.
 
-Tensor-parallel compute over ``model`` (heads, FFN width and vocabulary
-split across ranks, with activation collectives, and sequence
-parallelism) is ported for serving (``forward``, ``prefill`` and
-``decode_step`` with ``ActSharding.mesh``: ``models.model``'s docstring)
-but not for this step: here ``model`` shards storage, each layer computes
-whole on every rank (``train_step._chunked_xent`` drops ``sh.mesh``), and
-``ActSharding``'s activation fields stay placement records.  Moving the
-step onto the serving path's compute blocks needs the backward of the
-row-parallel sums (``mesh_axes.psum``'s identity with ``sum_gradients`` at
-each block's entry) and gradients reduced over dp only.
+At ``model`` 1 the compute blocks are whole over ``model`` and each rank
+runs the single program on its rows: the tensor-parallel operators are the
+identity there.
 """
 from __future__ import annotations
 
@@ -69,26 +70,29 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.launch.mesh import axes_size, axis_group, axis_index, \
-    dp_axes
+    axis_sizes, dp_axes
 from repro_torch.launch.sharding import (
     _entry_axes,
     _map_with_path,
+    compute_spec,
     distribute,
+    is_expert,
     local_shape,
     params_shardings,
     placements,
     same_layout,
+    seq_parallel,
     spec_of,
     to_compute,
 )
 from repro_torch.mesh_axes import all_reduce, reduce_scatter
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import ActSharding
-from repro_torch.models.moe import ep_specs
 from repro_torch.training.tree import flatten, leaves, tree_map, unflatten
 
 F32 = torch.float32
-EXPERTS = ("w_gate", "w_up", "w_down")
+# the blocks a rank computes a part of when their weights split over model
+SPLIT_BLOCKS = ("attn", "xattn", "rglru", "mlstm", "slstm")
 
 
 def is_sharded(tree) -> bool:
@@ -176,11 +180,10 @@ def init_state(opt, params, cfg: Optional[ArchConfig]):
 @dataclasses.dataclass(frozen=True)
 class LeafPlan:
     """One parameter leaf's three placements on ``mesh``: ``stored`` (its
-    ``DTensor``), ``compute`` (what the layers take: whole, or the experts'
-    ``moe_ffn_shard_map`` layout) and ``grad`` (the ZeRO-3 block its
+    ``DTensor``), ``compute`` (what the layers take:
+    ``launch.sharding.compute_spec``) and ``grad`` (the ZeRO-3 block its
     gradient is reduced onto), and the axes over which the gradient of the
-    compute tensor is still a partial sum (the dp axes, or none for
-    experts, which the MoE sums itself)."""
+    compute block is still a partial sum (:func:`leaf_plans`)."""
 
     mesh: Any
     stored: Tuple
@@ -229,30 +232,70 @@ class LeafPlan:
 def leaf_plans(params, mesh, cfg: Optional[ArchConfig],
                sh: Optional[ActSharding]) -> Dict[Tuple[str, ...], LeafPlan]:
     """{path: :class:`LeafPlan`} of every leaf of a ``DTensor`` parameter
-    tree."""
+    tree.  ``partial``, the axes over which a compute block's gradient is
+    a partial sum:
+
+      * the dp axes, for every leaf but the experts (each dp rank computes
+        its rows);
+      * and ``model``, for a whole leaf whose gradient differs from rank
+        to rank of ``model``: a whole leaf of a block whose other weights
+        split over ``model`` (:data:`SPLIT_BLOCKS`), which every rank
+        narrows to its part (``bq``/``bk``/``bv`` through
+        ``layers.block_of``, the RG-LRU's ``lam``, the mLSTM's gates when
+        its heads do not divide) or uses for its heads alone (``wk``/``wv``
+        where the KV heads do not divide).  Each rank's gradient is nonzero
+        only on its part: reduced over dp alone it would be that part of
+        the gradient, which no loss would show.  Under ``seq_par`` every
+        weight of a decoder layer and the final norm, which a rank
+        computes whole on its rows, but the MoE's, which takes the tokens
+        whole;
+      * none, for the experts, whose gradients the MoE reduces itself.
+
+    A leaf that keeps its ``model`` block is no partial sum over
+    ``model`` (only this rank computes with it), and the norms of the
+    replicated hidden states get the same gradient on every ``model`` rank
+    (``sum_gradients`` follows them), so ``to_grad`` slices theirs."""
     dp = dp_axes(mesh)
     grad_specs = params_shardings(params, mesh, cfg, policy="zero3")
-    ep = ep_specs(dp) if sh is not None and sh.moe_mesh is not None \
-        else None
-    out = {}
+    tp = sh is not None and sh.mesh is not None and \
+        axis_sizes(mesh)["model"] > 1
+    seq_par = tp and seq_parallel(sh)
+    compute = {}
     for path, p in flatten(params):
         if p.device_mesh != mesh:
             raise ValueError(f"{'/'.join(path)}: on another mesh")
-        grad = _at(grad_specs, path)
-        lead = (None,) if "cycles" in path or "layers" in path else ()
-        if ep is not None and "ffn" in path and path[-1] in EXPERTS \
-                and p.dim() == len(lead) + 3:
-            compute = lead + tuple(ep[path[-1]])
-            if not same_layout(compute, grad):
+        compute[path] = compute_spec(path, spec_of(p), tuple(p.shape), mesh,
+                                     sh)
+
+    def keeps_model(path):
+        return any("model" in _entry_axes(e) for e in compute[path])
+
+    def partial_over_model(path):
+        if not tp or keeps_model(path):
+            return False
+        if seq_par:
+            decoder = path[0] == "cycles" or path[0].startswith("tail_")
+            moe = cfg is not None and cfg.moe is not None and "ffn" in path
+            return (decoder and not moe) or path == ("final_norm",)
+        return len(path) > 1 and path[-2] in SPLIT_BLOCKS and any(
+            keeps_model(q) for q in compute if q[:-1] == path[:-1])
+
+    out = {}
+    for path, p in flatten(params):
+        grad, co = _at(grad_specs, path), compute[path]
+        if sh is not None and sh.moe_mesh is not None and is_expert(
+                path, p.dim()):
+            if not same_layout(co, grad):
                 raise ValueError(
-                    f"{'/'.join(path)}: the expert-parallel layout {compute}"
+                    f"{'/'.join(path)}: the expert-parallel layout {co}"
                     f" differs from the ZeRO-3 placement {grad} (the "
                     "experts or their F dim do not divide the mesh)")
             partial = ()
         else:
-            compute = (None,) * p.dim()
-            partial = dp
-        out[path] = LeafPlan(mesh, spec_of(p), compute, grad, partial)
+            partial = dp + (("model",) if partial_over_model(path) else ())
+        # a sum over one rank is the block itself
+        partial = tuple(a for a in partial if axes_size(mesh, a) > 1)
+        out[path] = LeafPlan(mesh, spec_of(p), co, grad, partial)
     return out
 
 
@@ -291,6 +334,10 @@ def make_sharded_step(cfg: ArchConfig, opt, ts, sh: Optional[ActSharding]):
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
         mesh = leaves(params)[0].device_mesh
+        if sh is not None and sh.mesh is not None and \
+                axis_sizes(sh.mesh) != axis_sizes(mesh):
+            raise ValueError(f"sh.mesh {axis_sizes(sh.mesh)} is not the "
+                             f"parameters' mesh {axis_sizes(mesh)}")
         if sh is not None and sh.moe_mesh is not None and (
                 tuple(sh.moe_mesh.mesh_dim_names) != tuple(
                     mesh.mesh_dim_names)

@@ -9,9 +9,11 @@
     ``XENT_CHUNK`` positions (plus a remainder chunk), as the reference.
 
 Parameters and optimizer state that are ``DTensor``s take the sharded
-step (``training.sharded``: FSDP/ZeRO over their placements, the
-expert-parallel MoE with ``sh.moe_mesh``); plain tensors the step below,
-on one device, where ``sh``'s placements are records that change no value.
+step (``training.sharded``: FSDP/ZeRO over their placements, and with
+``sh.mesh`` the tensor-parallel compute of ``models.model`` over its
+``model`` axis, the loss vocab-parallel: :func:`_chunked_xent`); plain
+tensors take the step below, on one device, which drops ``sh.mesh``: its
+placements are records that change no value.
 
 Attention: the step calls ``forward(..., use_kernel=False)``, the plain
 attention, on every device.  The JAX package's ``forward`` never calls its
@@ -22,12 +24,16 @@ gradient.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.mesh_axes import all_reduce, psum
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import ActSharding, forward
+from repro_torch.models.layers import TP
+from repro_torch.models.model import (ActSharding, final_hidden,
+                                      logits_block, tp_of)
 from repro_torch.training.optim import AdamW
 from repro_torch.training.sharded import is_sharded, make_sharded_step
 from repro_torch.training.tree import leaves, unflatten
@@ -42,28 +48,60 @@ def _chunk_nll(lg: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, lb[..., None].to(torch.int64)).sum()
 
 
-def _chunked_xent(params, cfg: ArchConfig, batch, sh, remat: bool,
-                  chunk: int = XENT_CHUNK, gather=None) -> torch.Tensor:
-    """Mean next-token loss, the log-softmax taken chunk by chunk
-    (``gather``: ``forward``'s, for the sharded step).  The layers run
-    whole on every rank (``sh.mesh`` dropped): the train step's
-    tensor-parallel compute is not ported."""
-    if sh is not None:
-        sh = dataclasses.replace(sh, mesh=None)
-    logits = forward(params, cfg, batch, sh=sh, use_kernel=False,
-                     remat=remat, gather=gather)
-    labels = batch["labels"]
+def _chunk_nll_vocab_parallel(lg: torch.Tensor, lb: torch.Tensor, v0: int,
+                              group) -> torch.Tensor:
+    """:func:`_chunk_nll` of logits whose vocabulary is split over
+    ``group``: ``lg`` is this rank's float32 block, columns ``[v0, v0 +
+    V_b)``.  The row max over the group (an all-reduce, no gradient through
+    it), then one ``psum`` of ``sum exp(l - max)`` beside the label's logit
+    (a masked gather: the rank that holds the label gives it, the others
+    0), which GSPMD's partition of the reference's log-softmax reduces
+    alike.  No rank holds whole logits."""
+    mx = all_reduce(lg.detach().amax(-1, keepdim=True), group, op="max")
+    local = lb[..., None].to(torch.int64) - v0
+    mine = (local >= 0) & (local < lg.shape[-1])
+    picked = torch.gather(lg, -1, local.clamp(0, lg.shape[-1] - 1))
+    both = psum(torch.cat([torch.exp(lg - mx).sum(-1, keepdim=True),
+                           torch.where(mine, picked, 0.0)], -1), group)
+    return (mx[..., 0] + torch.log(both[..., 0]) - both[..., 1]).sum()
+
+
+def chunked_nll(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
+                tp: TP = TP(), chunk: int = XENT_CHUNK) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` (B, S) under float32
+    ``logits`` (B, S, V_b), the log-softmax taken chunk by chunk of
+    ``chunk`` positions (plus a remainder chunk): :func:`_chunk_nll` of
+    whole logits, :func:`_chunk_nll_vocab_parallel` of this rank's block
+    of ``vocab`` columns on ``tp``'s ``model`` axis."""
     s_tok = labels.shape[1]
-    logits = logits[:, -s_tok:, :]  # frontends prepend positions
+    nll = _chunk_nll
+    if logits.shape[-1] < vocab:
+        v0 = tp.start(vocab, logits.shape[-1], "logits")
+        nll = functools.partial(_chunk_nll_vocab_parallel, v0=v0,
+                                group=tp.group)
     n_chunks = max(1, s_tok // chunk)
     c = s_tok // n_chunks
     total = torch.stack([
-        _chunk_nll(logits[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c])
+        nll(logits[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c])
         for i in range(n_chunks)]).sum()
     rem = s_tok - n_chunks * c
     if rem:
-        total = total + _chunk_nll(logits[:, -rem:], labels[:, -rem:])
+        total = total + nll(logits[:, -rem:], labels[:, -rem:])
     return total / (labels.shape[0] * s_tok)
+
+
+def _chunked_xent(params, cfg: ArchConfig, batch, sh, remat: bool,
+                  chunk: int = XENT_CHUNK, gather=None) -> torch.Tensor:
+    """Mean next-token loss (``gather``: ``forward``'s, for the sharded
+    step).  With ``sh.mesh`` each rank computes its block of the logits
+    (``model.logits_block``), vocab-parallel where the head is
+    (:func:`chunked_nll`)."""
+    x, head = final_hidden(params, cfg, batch, sh=sh, use_kernel=False,
+                           remat=remat, gather=gather)
+    labels = batch["labels"]
+    logits = logits_block(head, x, cfg.vocab_size, sh)
+    logits = logits[:, -labels.shape[1]:, :]  # frontends prepend positions
+    return chunked_nll(logits, labels, cfg.vocab_size, tp_of(sh), chunk)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,11 +127,13 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
     same new parameters and state (``training.sharded``).
     """
     sharded_step = make_sharded_step(cfg, opt, ts, sh)
+    one_device = None if sh is None else dataclasses.replace(sh, mesh=None)
 
     def value_and_grad(params, mb):
         ps = leaves(params)
         diff = [p.detach().requires_grad_(True) for p in ps]
-        loss = _chunked_xent(unflatten(params, diff), cfg, mb, sh, ts.remat)
+        loss = _chunked_xent(unflatten(params, diff), cfg, mb, one_device,
+                             ts.remat)
         grads = torch.autograd.grad(loss, diff)
         return loss.detach(), grads
 

@@ -12,6 +12,7 @@ Placements are compared entry by entry after one normalisation:
 tuple as None.  Everything here is exact: placements, shapes, dtypes and
 byte counts are integers.
 """
+import functools
 import math
 import types
 
@@ -253,6 +254,13 @@ def _jax_argument_bytes(arch, shape_name, tag):
     return total
 
 
+@functools.lru_cache(maxsize=None)
+def _lower_cell(arch, shape, multi_pod):
+    """``dryrun.lower_cell``, once a cell in this module (the train cell
+    walks 36 layers, 4 microbatches, in about 17 s)."""
+    return dryrun.lower_cell(arch, shape, multi_pod)
+
+
 DRYRUN_CELLS = [("qwen2.5-3b", "train_4k", "16x16"),
                 ("qwen2.5-3b", "prefill_32k", "2x16x16"),
                 ("qwen3-moe-235b-a22b", "decode_32k", "16x16"),
@@ -269,7 +277,7 @@ def test_dryrun_argument_bytes_match_jax_partition_specs(arch, shape, tag,
     shard sizes reckoned from JAX's PartitionSpecs (a decode cache's
     recurrent states split over ``model`` too), and every field the
     roofline reads is there."""
-    rep = dryrun.lower_cell(arch, shape, tag == "2x16x16")
+    rep = _lower_cell(arch, shape, tag == "2x16x16")
     assert rep["status"] == "ok" and rep["chips"] == math.prod(
         MESHES[tag].values())
     pd = rep["per_device"]
@@ -310,6 +318,43 @@ def test_dryrun_flops_count_the_step():
         2 * b * d * 4 + b * cfg.num_heads * s * 4) + b * d * 4
     assert coll["all-to-all"] == cfg.num_layers * 2 * (
         b * cfg.num_heads * cfg.head_dim // m * 2)
+
+
+def test_dryrun_train_counts_the_rank_program():
+    """qwen2.5-3b train_4k on a 16x16 mesh: rank 0's tensor-parallel train
+    step, reckoned by hand.  Its dp block of the batch is 256 / 16 = 16
+    rows, 4 microbatches of 4 x 4,096 tokens (T).  A layer's forward
+    matmuls at its local widths: q over its 1 of 16 heads, k and v whole (2
+    KV heads do not divide 16), the 4,096 x 4,096 scores and their output
+    for its head, ``wo``'s rows and F / 16 of the gated MLP; the head over
+    V / 16.  The backward doubles each; ``remat`` recomputes each layer but
+    ``w_down``'s product (the recompute stops once every tensor the
+    backward saved is back).  The all-reduces: per layer the float32 (T,
+    D) sums of ``wo`` and ``w_down`` in the forward and of ``wo`` in the
+    recompute, and the bf16 (T, D) ``sum_gradients`` of the attention's
+    and the MLP's inputs in the backward; the embedding's float32 sum and
+    the head input's bf16 one; the loss's row maxima (T float32) and its
+    sums beside the label logits (2 T float32).  No whole logits: the
+    logits block is V / 16 columns."""
+    cfg = tconfigs.get_config("qwen2.5-3b")
+    shape = tmodels.SHAPES["train_4k"]
+    rep = _lower_cell("qwen2.5-3b", "train_4k", False)
+    m, mb = 16, dryrun.microbatches_for("qwen2.5-3b")
+    b, s, d = shape.global_batch // 16 // mb, shape.seq_len, cfg.d_model
+    t = b * s
+    down = 2 * t * cfg.d_ff // m * d
+    layer = 2 * t * d * (cfg.q_dim // m + 2 * cfg.kv_dim) \
+        + 2 * 2 * b * (cfg.num_heads // m) * s * s * cfg.head_dim \
+        + 2 * t * cfg.q_dim // m * d + 2 * down + down
+    head = 2 * t * d * cfg.vocab_size // m
+    want = mb * (cfg.num_layers * (4 * layer - down) + 3 * head)
+    pd = rep["per_device"]
+    assert pd["flops"] == want
+    all_reduce = mb * (cfg.num_layers * (3 * t * d * 4 + 2 * t * d * 2)
+                       + t * d * 4 + t * d * 2 + t * 4 + 2 * t * 4)
+    assert pd["collective_bytes"]["all-reduce"] == all_reduce
+    assert pd["activations"]["logits"] == t * cfg.vocab_size // m * 4
+    assert pd["activations"]["heads"] == t * cfg.head_dim * 2
 
 
 def test_dryrun_recurrent_decode_is_the_rank_program():

@@ -16,17 +16,18 @@ port runs on ``gloo`` worlds of 2 and 4 ranks (one process a rank, a
 process timeout).  Parameters and optimizer state go across with
 ``params_from_jax`` / ``state_from_jax`` and ``shard_train_state``.
 
-The port computes the dense layers replicated over ``model`` (its
-tensor-parallel compute is not ported, ROADMAP.md §1 item 17); JAX's
-GSPMD splits their contractions over ``model`` and sums the parts, which
-rounds otherwise.  For the dense model that stays within the tolerances
-below.  For the MoE it flips a near-tied route now and then: on the same
-parameters the first step's loss at 1x2 differs from JAX's own 2x1 run
-(and from the port's, which equals that run) by 5.9e-5, and later steps
-drift further.  So at ``model`` = 2 the MoE's reference is the same JAX
-step with the dense layers replicated over ``model`` (their placements
-and the activation constraints without ``model``) and the experts
-expert-parallel over it: the partition the port runs.
+At ``model`` 2 the port's step computes tensor-parallel, as GSPMD splits
+JAX's: each rank its 2 of the 4 query heads, its FFN columns and its 256
+of the 512 vocabulary columns (the loss vocab-parallel), the row-parallel
+sums closed by ``psum`` (``models.model``'s docstring; recorded per rank
+and asserted by ``test_tp_step_computes_at_its_local_widths``).  Both
+partitions sum the split contractions in another order than one device,
+and for the MoE that flips a near-tied route now and then: at step 3 of
+each ``model`` 2 case 1 or 2 of the 128 tokens route otherwise than in the
+port's unsharded step from the same state (the ranks record them), while
+the port's routes follow JAX's GSPMD step and its values stay within the
+tolerances of it at every step.  So a step whose routes differ is held to
+JAX's step alone; the first step's routes must agree.
 
 The grid: meshes ``data`` x ``model`` = 2x1, 1x2 and 2x2; qwen2.5-3b and
 qwen3-moe-235b-a22b smoke (ZeRO-1 by ``zero_policy``, plus a ZeRO-3 case of
@@ -36,7 +37,13 @@ same state (JAX's after the step before), so the tolerances of
 ``tests/test_torch_training.py::test_train_step_matches_jax`` hold for
 each step alone: the loss to ``LOSS_TOL``, the moments to ``GRAD_TOL`` (v
 to twice that), the new bf16 parameters to a bf16 ulp where the
-gradient's sign is certain and to 2 lr elsewhere.  After the first step
+gradient's sign is certain and elsewhere to 2 lr (a flipped sign) plus
+a bf16 ulp of the reference.  Where the two sides' first moments have
+opposite signs, the bound is the exact one for two updates 2 lr apart,
+each rounded to bf16 on its own: 2 lr + 2^-8 (|got| + |want|) (the
+tensor-parallel step flips one embedding entry whose parameter, 3.357e-4,
+sits near lr, to 2 lr + 1.29e-6 of JAX's: 1.0017 of the reference's ulp
+alone).  After the first step
 AdamW moves a parameter by lr x m_hat / sqrt(v_hat), no longer by lr x
 sign(g), and that update carries the moments' errors: from the second
 step on each parameter is held to a bf16 ulp plus lr times the change of
@@ -74,6 +81,10 @@ B, S, STEPS = 8, 16, 3
 LOSS_TOL = 1e-4
 GRAD_TOL = 2.0**-5
 BF16_ULP = 2.0**-7
+FLIP_ROUNDING = 2.0**-8          # bf16's unit roundoff
+# routes (a token's experts in one layer) a near tie may flip in a later
+# MoE step
+MAX_ROUTE_FLIPS = 2
 LR = 3e-4                     # AdamW's default, both packages
 CKPT_STEP = 3
 # (arch, mesh, microbatches, policy): the JAX reference takes the first
@@ -84,6 +95,7 @@ CASES = [(a, m, mb, None) for a in ARCHS for m in MESHES for mb in (1, 2)] \
 ROUTES_CASE = ("qwen3-moe-235b-a22b", "2x1", 2)
 CKPT_CASE = ("qwen2.5-3b", "2x1", 2, None)        # saved at 2x1
 CKPT_2X2_CASE = ("qwen2.5-3b", "2x2", 2, None)    # saved at 2x2
+PARTS = {"dense": ["qwen2.5-3b"], "moe": ["qwen3-moe-235b-a22b"]}
 
 
 def _tag(case):
@@ -119,11 +131,9 @@ def tokens(vocab):
 JAX_SCRIPT = COMMON + r"""
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
                            "--xla_allow_excess_precision=false")
-import dataclasses
-
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec
+from jax.sharding import Mesh
 
 from repro.configs import get_smoke_config
 from repro.launch.sharding import act_sharding, params_shardings
@@ -135,11 +145,6 @@ from repro.training.train_step import TrainStepConfig, make_train_step
 
 out = {}
 part = sys.argv[4]
-EXPERTS = ("w_gate", "w_up", "w_down")
-
-
-def drop_model(spec):
-    return PartitionSpec(*(None if e == "model" else e for e in spec))
 
 
 def save_tree(prefix, tree):
@@ -179,8 +184,7 @@ def recorded_dispatch(x_me, logits, spec, cap):
 jmoe._local_dispatch = recorded_dispatch
 done, inits = set(), set()
 for arch, mtag, mb, _ in CASES:
-    if (arch, mtag, mb) in done or (part == "dense") != (
-            arch == "qwen2.5-3b"):
+    if (arch, mtag, mb) in done or arch not in CFG["PARTS"][part]:
         continue
     done.add((arch, mtag, mb))
     cfg = get_smoke_config(arch)
@@ -195,18 +199,8 @@ for arch, mtag, mb, _ in CASES:
             save_tree(f"init/{arch}", params)
         p_sh = params_shardings(jax.eval_shape(lambda: params), mesh, cfg)
         sh = act_sharding(cfg, mesh, batch=B, seq=S)
-        if cfg.moe is not None and mesh.shape["model"] > 1:
-            # the dense layers replicated over model, the experts
-            # expert-parallel over it (see the module docstring)
-            p_sh = jax.tree_util.tree_map_with_path(
-                lambda path, s: s if str(path[-1].key) in EXPERTS
-                and len(s.spec) == 4 else NamedSharding(
-                    mesh, drop_model(s.spec)), p_sh)
-            sh = dataclasses.replace(sh, **{
-                f: drop_model(getattr(sh, f))
-                for f in ("hidden", "heads", "kv", "ffn", "logits")})
         params = jax.tree_util.tree_map(jax.device_put, params, p_sh)
-        if (arch, mtag, mb) == tuple(CFG["ROUTES_CASE"]):
+        if (arch, mtag, mb) == tuple(CFG["ROUTES_CASE"] or ()):
             fwd = jax.jit(lambda p, b: jmodels.forward(p, cfg, b, sh=sh))
             rows = B // mb
             for i in range(mb):
@@ -227,10 +221,26 @@ for arch, mtag, mb, _ in CASES:
             save_tree(prefix + "/p", params)
             save_tree(prefix + "/m", state.m)
             save_tree(prefix + "/v", state.v)
-        if part == "dense" and (arch, mtag, mb) == tuple(
-                CFG["CKPT_CASE"][:3]):
+        if (arch, mtag, mb) == tuple((CFG["CKPT_CASE"] or ())[:3]):
             jckpt.CheckpointManager(CFG["JAX_CKPT"]).save(
                 CFG["CKPT_STEP"], {"p": params, "o": state}, blocking=True)
+for arch in CFG["SPREAD"]:
+    # the first step on one device too: how far the package's own
+    # partitions round apart
+    if arch not in CFG["PARTS"][part]:
+        continue
+    cfg = get_smoke_config(arch)
+    toks = tokens(cfg.vocab_size)
+    batch = {"tokens": jnp.asarray(toks[:, :-1]),
+             "labels": jnp.asarray(toks[:, 1:])}
+    with jax.set_mesh(Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                           ("data", "model"))):
+        params = jmodels.init_params(cfg, jax.random.PRNGKey(0))
+        opt = AdamW()
+        step = jax.jit(make_train_step(
+            cfg, opt, TrainStepConfig(microbatches=1, remat=True)))
+        _, state, _ = step(params, opt.init(params), batch)
+        save_tree(f"spread/{arch}/m", state.m)
 np.savez(sys.argv[3], **out)
 print("RESULT ok")
 """
@@ -254,6 +264,7 @@ from repro_torch.launch.sharding import (act_sharding, local_shape,
 from repro_torch.mesh_axes import (all_gather, all_to_all, axis_group,
                                    sum_gradients)
 from repro_torch.models.config import ShapeConfig
+from repro_torch.models.layers import recording_placements
 from repro_torch.models.moe import recording_routes
 from repro_torch.training import optim as toptim
 from repro_torch.training import sharded as shd
@@ -370,22 +381,48 @@ for case in CASES:
                 want = sum(dryrun.tree_local_bytes(*args[r], mesh)
                            for r in ("params", "opt_state"))
                 out[f"bytes/{tag(case)}/{rank}"] = np.array([nbytes, want])
-        with recording_routes() as routes:
+        with recording_routes() as routes, \
+                recording_placements() as placed:
             pd, sd, metrics = step(pd, sd, batch)
         assert int(metrics["step"]) == k
+        if k == 1:       # the local block of each activation, as computed
+            for field, _, shape, _ in placed:
+                out.setdefault(f"placed/{tag(case)}/{field}/{rank}",
+                               np.array(shape))
         whole_p, whole_s = shd.whole_tree(pd), shd.whole_tree(sd)
+        if cfg.moe is not None:
+            # every rank's routes of each microbatch's forward, gathered in
+            # rank order: the global tokens' order of the microbatch
+            per_mb = len(routes) // mb
+            mine = torch.stack([routes[i * per_mb + layer]
+                                for i in range(mb)
+                                for layer in range(cfg.num_layers)])
+            parts = [torch.empty_like(mine) for _ in range(world)]
+            dist.all_gather(parts, mine.contiguous())
+            tp_routes = torch.cat(parts, dim=1)
         if rank == 0:
             out[f"{tag(case)}/{k}/loss"] = np.float32(metrics["loss"])
             dump(f"{tag(case)}/{k}/p", whole_p)
             dump(f"{tag(case)}/{k}/m", whole_s.m)
             dump(f"{tag(case)}/{k}/v", whole_s.v)
             p0, s0 = start(arch, tag(case), k)
-            p0, s0, m_u = tts.make_train_step(cfg, opt, ts)(p0, s0, batch)
+            with recording_routes() as routes_u:
+                p0, s0, m_u = tts.make_train_step(cfg, opt, ts)(p0, s0,
+                                                                batch)
+            if cfg.moe is not None:
+                # tokens whose experts differ from the sharded step's
+                per_mb = len(routes_u) // mb
+                want = torch.stack([routes_u[i * per_mb + layer]
+                                    for i in range(mb)
+                                    for layer in range(cfg.num_layers)])
+                out[f"{tag(case)}/{k}/route_flips"] = np.array(int(
+                    (tp_routes.sort(-1).values != want.sort(-1).values)
+                    .any(-1).sum()))
             out[f"{tag(case)}/{k}/unsharded/loss"] = np.float32(m_u["loss"])
             dump(f"{tag(case)}/{k}/unsharded/p", p0)
             dump(f"{tag(case)}/{k}/unsharded/m", s0.m)
             dump(f"{tag(case)}/{k}/unsharded/v", s0.v)
-        if k == 1 and (arch, mtag, mb) == tuple(CFG["ROUTES_CASE"]):
+        if k == 1 and (arch, mtag, mb) == tuple(CFG["ROUTES_CASE"] or ()):
             per_mb = len(routes) // mb        # forward + remat's recompute
             n_layers = cfg.num_layers
             assert len(routes) == mb * 2 * n_layers
@@ -394,20 +431,20 @@ for case in CASES:
                 for layer in range(n_layers):
                     out[f"routes/{i}/{d}/0/{layer}/{rank}"] = \
                         routes[i * per_mb + layer].numpy()
-        if case == tuple(CFG["CKPT_CASE"]) and k == STEPS:
+        if case == tuple(CFG["CKPT_CASE"] or ()) and k == STEPS:
             CheckpointManager(ckpt_a).save(
                 CFG["CKPT_STEP"], {"p": pd, "o": sd}, blocking=True)
-        if case == tuple(CFG["CKPT_2X2_CASE"]) and k == STEPS:
+        if case == tuple(CFG["CKPT_2X2_CASE"] or ()) and k == STEPS:
             CheckpointManager(ckpt_b).save(
                 CFG["CKPT_STEP"], {"p": pd, "o": sd}, blocking=True)
             if rank == 0:
                 dump("ckpt_b/p", whole_p)
                 dump("ckpt_b/o", whole_s)
-    if mesh.shape[1] == 2 and policy is None:
+    if list(case) in CFG["GRAD_CASES"]:
         # the gradients themselves, gathered, against the unsharded step's
         cap = Capture()
         p0, s0 = start(arch, tag(case), 1)
-        pd, sd = shd.shard_train_state(p0, s0, cfg, mesh)
+        pd, sd = shd.shard_train_state(p0, s0, cfg, mesh, policy)
         tts.make_train_step(cfg, cap, ts, sh=sh)(pd, sd, batch)
         if rank == 0:
             dump(f"grads/{tag(case)}", cap.grads)
@@ -415,7 +452,7 @@ for case in CASES:
             tts.make_train_step(cfg, cap, ts)(p0, s0, batch)
             dump(f"grads/{tag(case)}/unsharded", cap.grads)
 
-if world == 2:
+if world == 2 and CFG["EXTRAS"]:
     # AdafactorLite: one sharded step against its unsharded step, at 2x1
     cfg = tconfigs.get_smoke_config("qwen2.5-3b")
     mesh = mesh_of("2x1")
@@ -501,7 +538,7 @@ if world == 2:
     (cs[0] * y).sum().backward()
     out[f"coll/all_gather_slice/{rank}"] = x.grad.numpy()
 
-if world == 4:
+if world == 4 and CFG["EXTRAS"]:
     # checkpoints: the 2x1 save and the JAX package's, restored at 2x2
     cfg = tconfigs.get_smoke_config(CFG["CKPT_CASE"][0])
     mesh = mesh_of("2x2")
@@ -522,6 +559,10 @@ if world == 4:
         if rank == 0:
             dump(name, whole)
 
+EXTRA = CFG.get("EXTRA")
+if EXTRA:
+    exec(compile(open(EXTRA).read(), EXTRA, "exec"))
+
 np.savez(sys.argv[4], **out)
 dist.barrier()
 dist.destroy_process_group()
@@ -529,11 +570,24 @@ os._exit(0)      # gloo's threads may abort an interpreter's normal exit
 """
 
 
-def _config(work):
+def _config(work, cases=CASES, parts=PARTS, steps=STEPS, extras=True,
+            extra=None, spread=()):
+    """The scripts' configuration: this file's grid by default; another
+    file's ``cases`` (with the JAX processes' ``parts``, {name: archs}),
+    ``steps``, and an ``extra`` file the ranks run after the cases, without
+    this file's ``extras`` (its routes, checkpoints, AdafactorLite and
+    collectives); JAX also takes the first step of each arch of ``spread``
+    on one device (``spread/<arch>/m``)."""
     return json.dumps({
-        "B": B, "S": S, "STEPS": STEPS, "MESHES": MESHES,
-        "CASES": CASES, "ROUTES_CASE": ROUTES_CASE, "CKPT_CASE": CKPT_CASE,
-        "CKPT_2X2_CASE": CKPT_2X2_CASE, "CKPT_STEP": CKPT_STEP,
+        "B": B, "S": S, "STEPS": steps, "MESHES": MESHES,
+        "CASES": cases, "PARTS": parts, "SPREAD": list(spread),
+        "GRAD_CASES": [c for c in cases if MESHES[c[1]][1] == 2
+                       and (c[3] is None or not extras)],
+        "EXTRAS": extras, "EXTRA": extra and str(extra),
+        "ROUTES_CASE": ROUTES_CASE if extras else None,
+        "CKPT_CASE": CKPT_CASE if extras else None,
+        "CKPT_2X2_CASE": CKPT_2X2_CASE if extras else None,
+        "CKPT_STEP": CKPT_STEP,
         "CKPT_A": str(work / "ckpt_a"), "CKPT_B": str(work / "ckpt_b"),
         "JAX_CKPT": str(work / "ckpt_jax")})
 
@@ -559,27 +613,33 @@ def _run_all(cmds, timeout=600):
     assert not errors, "\n".join(errors)
 
 
-@pytest.fixture(scope="module")
-def results(tmp_path_factory):
-    """(JAX's arrays, {world: [rank r's arrays]}, the work directory)."""
-    work = tmp_path_factory.mktemp("train_sharded")
-    cfg = _config(work)
-    parts = {part: work / f"jax_{part}.npz" for part in ("dense", "moe")}
+def run_harness(work, cfg, parts, worlds):
+    """(JAX's arrays, {world: [rank r's arrays]}): the JAX processes of
+    ``parts`` at once, then each world's ranks."""
+    paths = {part: work / f"jax_{part}.npz" for part in parts}
     _run_all([[sys.executable, "-c", JAX_SCRIPT, str(ROOT), cfg, str(path),
-               part] for part, path in parts.items()])
+               part] for part, path in paths.items()])
     ref = {}
-    for path in parts.values():
+    for path in paths.values():
         ref.update(np.load(path))
     refpath = work / "ref.npz"
     np.savez(refpath, **ref)
     ranks = {}
-    for world in (2, 4):
+    for world in worlds:
         outs = [work / f"rank{world}_{r}.npz" for r in range(world)]
         store = work / f"store{world}"
         _run_all([[sys.executable, "-c", RANK_SCRIPT, str(ROOT), cfg,
                    str(refpath), str(outs[r]), str(r), str(world),
                    str(store)] for r in range(world)])
         ranks[world] = [dict(np.load(o)) for o in outs]
+    return ref, ranks
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    """(JAX's arrays, {world: [rank r's arrays]}, the work directory)."""
+    work = tmp_path_factory.mktemp("train_sharded")
+    ref, ranks = run_harness(work, _config(work), PARTS, (2, 4))
     return ref, ranks, work
 
 
@@ -601,9 +661,12 @@ def _close_grad(got, want, tol=GRAD_TOL, key=""):
                                atol=tol * np.abs(want).max(), err_msg=key)
 
 
-def _check_step(got, gp, want, wp, k):
+def _check_step(got, gp, want, wp, k, scale=1.0):
     """Step ``k``'s loss, moments and parameters: ``got[gp + ...]`` against
-    ``want[wp + ...]`` (the tolerances of the module docstring)."""
+    ``want[wp + ...]`` (the tolerances of the module docstring, the
+    moments' ``scale`` x ``GRAD_TOL``: ``tests/test_torch_tp_train.py``
+    scales them for the recurrent families)."""
+    tol = GRAD_TOL * scale
     np.testing.assert_allclose(float(got[gp + "/loss"]),
                                float(want[wp + "/loss"]), rtol=LOSS_TOL,
                                atol=LOSS_TOL)
@@ -612,25 +675,35 @@ def _check_step(got, gp, want, wp, k):
     for key in keys:
         m = _f32(want, f"{wp}/m/{key}")
         v = _f32(want, f"{wp}/v/{key}")
-        _close_grad(_f32(got, f"{gp}/m/{key}"), m, key="m/" + key)
-        _close_grad(_f32(got, f"{gp}/v/{key}"), v, tol=2 * GRAD_TOL,
+        _close_grad(_f32(got, f"{gp}/m/{key}"), m, tol=tol, key="m/" + key)
+        _close_grad(_f32(got, f"{gp}/v/{key}"), v, tol=2 * tol,
                     key="v/" + key)
         g, w = _f32(got, f"{gp}/p/{key}"), _f32(want, f"{wp}/p/{key}")
         if k == 1:
             # the update is lr x sign(g): a bf16 ulp where the sign is
-            # certain, a flipped sign (2 lr) elsewhere
-            sure = np.abs(m) > GRAD_TOL * np.abs(m).max()
+            # certain, 2 lr elsewhere
+            sure = np.abs(m) > tol * np.abs(m).max()
             np.testing.assert_allclose(g[sure], w[sure], rtol=BF16_ULP,
                                        atol=0, err_msg="p/" + key)
-            np.testing.assert_allclose(g, w, rtol=BF16_ULP, atol=2 * LR,
+            flipped = np.sign(_f32(got, f"{gp}/m/{key}")) * np.sign(m) < 0
+            np.testing.assert_allclose(g[~flipped], w[~flipped],
+                                       rtol=BF16_ULP, atol=2 * LR,
                                        err_msg="p/" + key)
+            # where the two sides' moments have opposite signs, the two
+            # updates are 2 lr apart and each side is rounded to bf16 on
+            # its own: at most half an ulp, 2^-8 of its value, each
+            bad = np.abs(g - w)[flipped] > 2 * LR + FLIP_ROUNDING * (
+                np.abs(g) + np.abs(w))[flipped]
+            assert not bad.any(), (f"p/{key}: {int(bad.sum())} flipped "
+                                   f"entries, e.g. {g[flipped][bad][:3]} "
+                                   f"against {w[flipped][bad][:3]}")
             continue
         # later the update is lr x m_hat / (sqrt(v_hat) + eps): each entry
         # may be off by what the moments' tolerances allow it (to first
         # order), plus a bf16 ulp
         c1, c2 = 1 - 0.9 ** k, 1 - 0.95 ** k
-        dm = GRAD_TOL * (np.abs(m) + np.abs(m).max()) / c1
-        dv = 2 * GRAD_TOL * (np.abs(v) + np.abs(v).max()) / c2
+        dm = tol * (np.abs(m) + np.abs(m).max()) / c1
+        dv = 2 * tol * (np.abs(v) + np.abs(v).max()) / c2
         root = np.sqrt(v / c2)
         d_update = dm / (root + 1e-8) + np.abs(m / c1) * dv / (
             2 * np.maximum(root, 1e-30) * (root + 1e-8))
@@ -654,14 +727,49 @@ def test_sharded_step_matches_jax(case, results):
 
 
 @pytest.mark.parametrize("case", CASES, ids=_tag)
+def test_tp_step_computes_at_its_local_widths(case, results):
+    """The activations every rank's step computes (``layers.
+    recording_placements`` during its first step): at ``model`` 2 the
+    attention's 2 of 4 query heads and 256 of the 512 logit columns, at
+    ``model`` 1 all of them; the hidden states whole over the sequence
+    (the heads divide, so no sequence split) at the rank's rows."""
+    _, ranks, _ = results
+    world = int(np.prod(MESHES[case[1]]))
+    ndp, nmodel = MESHES[case[1]]
+    rows = B // case[2] // ndp
+    for rank, arrays in enumerate(ranks[world]):
+        def placed(field):
+            return tuple(arrays[f"placed/{_tag(case)}/{field}/{rank}"])
+        assert placed("heads") == (rows, S, 4 // nmodel, 16)
+        assert placed("logits") == (rows, S, 512 // nmodel)
+        assert placed("hidden") == (rows, S, 64)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_tag)
 def test_sharded_step_matches_unsharded(case, results):
     """Every step against the port's unsharded step from the same state;
-    with the loss reported alike on every rank."""
+    with the loss reported alike on every rank.  A step of the MoE whose
+    routes differ from the unsharded step's (a near tie that the
+    tensor-parallel sums round across, as GSPMD's do: see the module
+    docstring) is held to JAX's step alone (``test_sharded_step_matches_
+    jax``); every other step to the unsharded one too.  The first
+    step's routes must agree, and in a later step at most
+    ``MAX_ROUTE_FLIPS`` routes (a token's experts in one layer) may
+    differ (1 or 2 are measured): a routing fault would move many more."""
     _, ranks, _ = results
     got = _rank0(ranks, case)
+    checked = 0
     for k in range(1, STEPS + 1):
+        flips = got.get(f"{_tag(case)}/{k}/route_flips")
+        if flips is not None and int(flips) > 0:
+            assert k > 1, f"step 1 routes {int(flips)} tokens otherwise"
+            assert int(flips) <= MAX_ROUTE_FLIPS, \
+                f"step {k}: {int(flips)} routes differ"
+            continue
         _check_step(got, f"{_tag(case)}/{k}", got,
                     f"{_tag(case)}/{k}/unsharded", k)
+        checked += 1
+    assert checked >= 2
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c[1] != "2x1"
