@@ -747,9 +747,13 @@ class ExtractionEngine:
         if method in PLANNED_METHODS:
             t0 = time.perf_counter()
             with obs.span("plan", category="plan") as plan_sp:
-                self._evict_stale_views()
-                rdb = self._request_db()
-                key = self._plan_key(model, method)
+                with obs.span("plan.evict_views", category="plan",
+                              detail=True):
+                    self._evict_stale_views()
+                with obs.span("plan.snapshot", category="plan", detail=True):
+                    rdb = self._request_db()
+                with obs.span("plan.key", category="plan", detail=True):
+                    key = self._plan_key(model, method)
                 plan = self._plans.get(key, count=False)
                 if plan is not None and not all(
                         v.pattern.signature in self._views
@@ -763,8 +767,11 @@ class ExtractionEngine:
                     self._plans._event("misses")
                     cached = [ViewDef(cv.name, cv.pattern)
                               for cv in self._views.values()]
-                    plan = plan_queries(rdb, queries, method,
-                                        verbose=verbose, cached_views=cached)
+                    with obs.span("plan.optimize", category="plan",
+                                  detail=True):
+                        plan = plan_queries(rdb, queries, method,
+                                            verbose=verbose,
+                                            cached_views=cached)
                     # fault site before the fill: an injected failure loses
                     # only the cache entry, and a retry rebuilds it
                     faults.fire("engine.cache_fill")
@@ -779,7 +786,8 @@ class ExtractionEngine:
                     compiler=self.compiler if self.compiled else None)
                 synchronize_tables(edges.values())
             timings.extract_s = time.perf_counter() - t0
-            self._harvest_views(rdb, plan, built, reused)
+            with obs.span("engine.harvest_views", detail=True):
+                self._harvest_views(rdb, plan, built, reused)
             provenance = PlanProvenance(
                 method=method, plan_cache_hit=hit,
                 views_built=tuple(built), views_reused=tuple(reused))
@@ -795,7 +803,8 @@ class ExtractionEngine:
             graph = ExtractedGraph(vertices=vertices, edges=edges)
             graph.block_until_ready()
         if method in PLANNED_METHODS:
-            self._remember_result(model, method, plan, graph, epoch0)
+            with obs.span("engine.remember", detail=True):
+                self._remember_result(model, method, plan, graph, epoch0)
         return ExtractionResult(graph=graph, timings=timings,
                                 provenance=provenance, plan=plan,
                                 model=model, _engine=self)

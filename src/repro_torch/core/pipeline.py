@@ -279,12 +279,26 @@ def _needed_columns_merged(merged: MergedQuery) -> set:
     return need
 
 
+def _join_span():
+    """The detail span around one join step, timed on the device too."""
+    return obs.span("pipeline.join", category="execute", detail=True,
+                    device=True)
+
+
+def _row_bytes(left: Table, right: Table) -> int:
+    """Bytes of one output row of a join: every column of both sides is
+    gathered into it."""
+    return sum(c.element_size() for t in (left, right)
+               for c in t.columns.values())
+
+
 def _traced_query(
     tables: Dict[str, Table],
     query: JoinQuery,
     order: Sequence[str],
     caps_iter,
     totals: List[torch.Tensor],
+    widths: Optional[List[int]],
     use_kernel: bool,
     use_bloom: bool,
     needed=None,
@@ -293,16 +307,21 @@ def _traced_query(
 
     Same schedule as :func:`executor.execute_query` — both walk
     :func:`repro_torch.core.model.join_schedule`, which is what keeps the
-    pre-planned capacities aligned with the joins actually run.
+    pre-planned capacities aligned with the joins actually run.  Each step
+    appends its exact requirement to ``totals`` and, when ``widths`` is
+    given, its :func:`_row_bytes` to ``widths``.
     """
     cur = _scan(tables, query.relation(order[0]), needed)
     for alias, conds, closing in join_schedule(query, order):
         nxt = _scan(tables, query.relation(alias), needed)
         on = [qualified_cond(c, alias) for c in conds]
-        cur, required = join_with_capacity(
-            cur, nxt, on, how="inner", capacity=next(caps_iter),
-            use_kernel=use_kernel,
-            bloom_bits=bloom_bits_for(nxt.capacity) if use_bloom else 0)
+        if widths is not None:
+            widths.append(_row_bytes(cur, nxt))
+        with _join_span():
+            cur, required = join_with_capacity(
+                cur, nxt, on, how="inner", capacity=next(caps_iter),
+                use_kernel=use_kernel,
+                bloom_bits=bloom_bits_for(nxt.capacity) if use_bloom else 0)
         totals.append(required)
         for c in closing:
             cur = cur.mask(cur[f"{c.left}.{c.lcol}"]
@@ -316,13 +335,14 @@ def _traced_merged(
     orders: Sequence[Tuple[str, ...]],
     caps_iter,
     totals: List[torch.Tensor],
+    widths: Optional[List[int]],
     use_kernel: bool,
     use_bloom: bool,
 ) -> Dict[str, Table]:
     """The executor's JS-OJ evaluation (Theorem 4.3), with no host syncs."""
     needed = _needed_columns_merged(merged)
     cur = _traced_query(tables, shared_query(merged), orders[0], caps_iter,
-                        totals, use_kernel, use_bloom, needed)
+                        totals, widths, use_kernel, use_bloom, needed)
     dev = cur.device
     cur = cur.with_columns(
         __srow__=torch.arange(cur.capacity, dtype=torch.int32, device=dev))
@@ -340,7 +360,7 @@ def _traced_merged(
             continue
         if len(b.relations) > 1:
             branch_tbl = _traced_query(tables, b.as_query(), orders[1 + bi],
-                                       caps_iter, totals, use_kernel,
+                                       caps_iter, totals, widths, use_kernel,
                                        use_bloom, needed)
         else:
             branch_tbl = _scan(tables, b.relations[0], needed)
@@ -351,11 +371,14 @@ def _traced_merged(
                                   device=dev)})
         on = [(f"{c.left}.{c.lcol}", f"{c.right}.{c.rcol}")
               for c in b.link_conds]
-        cur, required = left_outer_with_capacity(
-            cur, branch_tbl, on, ind, capacity=next(caps_iter),
-            use_kernel=use_kernel,
-            bloom_bits=bloom_bits_for(branch_tbl.capacity)
-            if use_bloom else 0)
+        if widths is not None:
+            widths.append(_row_bytes(cur, branch_tbl))
+        with _join_span():
+            cur, required = left_outer_with_capacity(
+                cur, branch_tbl, on, ind, capacity=next(caps_iter),
+                use_kernel=use_kernel,
+                bloom_bits=bloom_bits_for(branch_tbl.capacity)
+                if use_bloom else 0)
         totals.append(required)
 
     out: Dict[str, Table] = {}
@@ -383,14 +406,15 @@ def _stack_totals(totals: List[torch.Tensor], device) -> torch.Tensor:
 
 
 def _make_fn(program: UnitProgram, use_kernel: bool, use_bloom: bool):
+    """The unit function ``fn(tables)``, returning (outputs, totals).  Its
+    first call sets ``fn.row_bytes``, each join step's :func:`_row_bytes`
+    in ``totals`` order: static, since the function's cache key holds the
+    input schema."""
     if program.kind == "merged":
-        def fn(tables):
-            totals: List[torch.Tensor] = []
-            edges = _traced_merged(tables, program.unit, program.orders,
-                                   iter(program.capacities), totals,
-                                   use_kernel, use_bloom)
-            dev = next(iter(tables.values())).device
-            return edges, _stack_totals(totals, dev)
+        def run(tables, totals, widths):
+            return _traced_merged(tables, program.unit, program.orders,
+                                  iter(program.capacities), totals, widths,
+                                  use_kernel, use_bloom)
     else:
         # views ("query") keep every column — later queries are rewritten
         # over them and may reference any of it; edge units only carry what
@@ -398,14 +422,23 @@ def _make_fn(program: UnitProgram, use_kernel: bool, use_bloom: bool):
         needed = (_needed_columns_query(program.unit)
                   if program.kind == "edges" else None)
 
-        def fn(tables):
-            totals: List[torch.Tensor] = []
+        def run(tables, totals, widths):
             res = _traced_query(tables, program.unit, program.orders[0],
-                                iter(program.capacities), totals,
+                                iter(program.capacities), totals, widths,
                                 use_kernel, use_bloom, needed)
             if program.kind == "edges":
                 res = edge_output(res, program.unit.src, program.unit.dst)
-            return res, _stack_totals(totals, res.device)
+            return res
+
+    def fn(tables):
+        totals: List[torch.Tensor] = []
+        widths = [] if fn.row_bytes is None else None
+        out = run(tables, totals, widths)
+        if widths is not None:
+            fn.row_bytes = tuple(widths)
+        return out, _stack_totals(totals, next(iter(tables.values())).device)
+
+    fn.row_bytes = None
     return fn
 
 
@@ -523,29 +556,30 @@ class PipelineCompiler:
         return tuple((n, db.stats[n].fingerprint()) for n in inputs)
 
     def _program(self, db: Database, kind: str, unit):
-        inputs = (_merged_inputs(unit) if kind == "merged"
-                  else _query_inputs(unit))
-        pkey = (kind, unit, self._stats_fp(db, inputs))
-        with self._lock:
-            prog = self._programs.get(pkey)
-            if prog is not None:
-                self._programs.move_to_end(pkey)
-                return pkey, prog
-        with self._lock:
-            prog = self._unit_memo.get((kind, unit))
-        if prog is None:
-            if kind == "merged":
-                prog = build_merged_program(db, unit, self.margin,
-                                            self.initial_capacity_clamp)
-            else:
-                prog = build_query_program(db, unit, edges=(kind == "edges"),
-                                           margin=self.margin,
-                                           clamp=self.initial_capacity_clamp)
-            self._remember_unit(kind, unit, prog)
-        with self._lock:
-            self._programs[pkey] = prog
-            while len(self._programs) > self.max_programs:
-                self._programs.popitem(last=False)
+        with obs.span("pipeline.program", category="plan", detail=True):
+            inputs = (_merged_inputs(unit) if kind == "merged"
+                      else _query_inputs(unit))
+            pkey = (kind, unit, self._stats_fp(db, inputs))
+            with self._lock:
+                prog = self._programs.get(pkey)
+                if prog is not None:
+                    self._programs.move_to_end(pkey)
+                    return pkey, prog
+            with self._lock:
+                prog = self._unit_memo.get((kind, unit))
+            if prog is None:
+                if kind == "merged":
+                    prog = build_merged_program(db, unit, self.margin,
+                                                self.initial_capacity_clamp)
+                else:
+                    prog = build_query_program(
+                        db, unit, edges=(kind == "edges"), margin=self.margin,
+                        clamp=self.initial_capacity_clamp)
+                self._remember_unit(kind, unit, prog)
+            with self._lock:
+                self._programs[pkey] = prog
+                while len(self._programs) > self.max_programs:
+                    self._programs.popitem(last=False)
         return pkey, prog
 
     def _executable(self, prog: UnitProgram, inputs: Dict[str, Table]):
@@ -576,15 +610,18 @@ class PipelineCompiler:
         return fn
 
     def _observe_rows(self, prog: UnitProgram, caps: Tuple[int, ...],
-                      need: np.ndarray) -> None:
+                      need: np.ndarray, row_bytes: Tuple[int, ...],
+                      span) -> None:
         """Predicted-vs-actual row accounting (host-known values only).
 
         ``need`` was already synced by the overflow check, so this adds no
         device round-trips.  The estimate ratio is (actual+1)/(predicted+1)
-        — log₂ buckets make under- and over-estimates symmetric around 1 —
-        and utilization is actual/capacity (1.0 = a bucket about to
-        overflow).  The per-step values are also retained by program
-        signature for :meth:`last_rows`.
+        — log₂ buckets make under- and over-estimates symmetric around 1.
+        ``span`` (the unit's ``pipeline.run``) gets ``slot_bytes``, what the
+        join steps gather over their static capacities, and
+        ``live_bytes``, the part of it that holds rows.  The per-step
+        values are also retained by program signature for
+        :meth:`last_rows`.
         """
         if need.size == 0:
             return
@@ -592,16 +629,14 @@ class PipelineCompiler:
             "pipeline_rows_estimate_ratio",
             help="Actual/predicted rows per join step (1 = perfect "
                  "cost-model estimate).", kind=prog.kind)
-        util_h = obs.REGISTRY.histogram(
-            "pipeline_capacity_utilization",
-            help="Actual rows / planned capacity per join step.",
-            kind=prog.kind)
         actual = [int(n) for n in need.tolist()]
         for i, n in enumerate(actual):
             if i < len(prog.est_rows):
                 ratio_h.observe((n + 1.0) / (prog.est_rows[i] + 1.0))
-            if i < len(caps) and caps[i] > 0:
-                util_h.observe(n / caps[i])
+        if obs.TRACER.enabled:
+            span.set(
+                live_bytes=sum(n * w for n, w in zip(actual, row_bytes)),
+                slot_bytes=sum(c * w for c, w in zip(caps, row_bytes)))
         with self._lock:
             self._last_rows[prog.signature] = {
                 "actual": actual,
@@ -691,13 +726,14 @@ class PipelineCompiler:
             cur = dataclasses.replace(prog, capacities=caps)
             fn = self._executable(cur, inputs)
             with obs.span("pipeline.run", category="execute", detail=True,
-                          kind=prog.kind):
+                          kind=prog.kind) as run_span:
                 out, totals = fn(inputs)
             with obs.span("pipeline.sync", category="transfer", detail=True):
                 need = totals.cpu().numpy()           # the one host sync
+            obs.resolve_device_spans()
             if need.size == 0 or bool(
                     (need <= np.asarray(caps, dtype=np.int64)).all()):
-                self._observe_rows(prog, caps, need)
+                self._observe_rows(prog, caps, need, fn.row_bytes, run_span)
                 if caps != prog.capacities:
                     with self._lock:                  # skip retries next time
                         self._programs[pkey] = cur

@@ -45,6 +45,7 @@ from repro_torch.obs.trace import (  # noqa: F401
     TRACER,
     Tracer,
     new_trace_id,
+    resolve_device_spans,
     sanitize_trace_id,
     set_enabled,
     span,
@@ -55,7 +56,7 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
     "FAILURE_FAMILIES", "failure_counter", "get_registry", "CATEGORIES",
     "TRACER", "Tracer", "new_trace_id", "sanitize_trace_id", "set_enabled",
-    "span", "span_tree_shape", "traced_call",
+    "span", "span_tree_shape", "traced_call", "resolve_device_spans",
     "PlanReport", "UnitReport", "StepReport",
     "array_nbytes", "table_nbytes", "graph_nbytes", "csr_nbytes",
     "entry_nbytes",

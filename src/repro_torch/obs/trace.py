@@ -30,6 +30,26 @@ The trace store is a ring: at most ``max_traces`` retained traces of at
 most ``max_spans`` spans each — an abandoned span flood cannot OOM a
 server.
 
+**Device time.**  A span opened with ``device=True``, once CUDA is
+initialised, also records a timing event at entry and at exit on the
+device's current stream (events come from a small per-device pool on the
+tracer).  The pair waits on a bounded pending list until
+:func:`resolve_device_spans`, which the program calls right after a sync
+it already makes (the pipeline's one sync a unit), turns each completed
+pair into ``attrs["device_s"]`` with ``Event.query()`` and
+``elapsed_time`` — never a wait.  A pair still incomplete stays pending
+for the next call; one that falls off the bound is dropped; both are
+counted in ``trace_device_spans_total{outcome}``, which a sound program
+leaves at 0.  On the CPU or with the tracer disabled nothing is
+recorded.
+
+**Profiler clock.**  While ``torch.profiler`` records, every span also
+opens a profiler range of its name (a host operator, as
+``torch.profiler.record_function`` would open, but not a user
+annotation), so the program's spans sit on the profiler's own clock
+beside the kernels they launch; when it does not record, this costs one
+flag check.
+
 Exports: JSON (span list), Chrome ``chrome://tracing`` / Perfetto event
 format (:meth:`Tracer.chrome`), and an attribution summary
 (:meth:`Tracer.summary`) whose ``coverage`` is the fraction of the root
@@ -45,11 +65,61 @@ import time
 import uuid
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
+from repro_torch.obs.metrics import REGISTRY
+
 #: attribution categories a span may carry ("" -> other)
 CATEGORIES = ("plan", "compile", "execute", "transfer", "csr", "queue")
 
 _CTX: contextvars.ContextVar[Optional[Tuple[str, str]]] = \
     contextvars.ContextVar("repro_obs_span", default=None)
+
+
+#: device-timed pairs waiting for :func:`resolve_device_spans`
+MAX_PENDING_DEVICE_SPANS = 1024
+#: free timing events kept per device
+MAX_POOLED_EVENTS = 256
+_DEVICE_METRIC = "trace_device_spans_total"
+_DEVICE_HELP = ("Device-timed spans not resolved at once, by outcome: "
+                "incomplete (a resolve found the pair unfinished and left "
+                "it pending), dropped (off the pending bound).")
+
+
+def _profiler_hooks(c_module):
+    """(is the profiler recording, profiler range factory), looked up in
+    torch's private C module.  The range is recorded as an operator of the
+    host, not as a user annotation: the profiler mirrors a user annotation
+    onto the device as an interval over its kernels and the gaps between
+    them, which a reader of device intervals would count as busy time.  A
+    torch without either entry point gets a check that always says no, so
+    that only the ranges are lost."""
+    enabled = getattr(getattr(c_module, "_autograd", None),
+                      "_profiler_enabled", None)
+    make_range = getattr(getattr(c_module, "_profiler", None),
+                         "_RecordFunctionFast", None)
+    if enabled is None or make_range is None:
+        return (lambda: False), None
+    return enabled, make_range
+
+
+_profiler_enabled, _profiler_range = _profiler_hooks(torch._C)
+
+
+def _cuda_ready() -> bool:
+    """Device timing applies only once the program has initialised CUDA."""
+    return torch.cuda.is_initialized()
+
+
+def _current_device() -> int:
+    return torch.cuda.current_device()
+
+
+def _new_event(device: int):
+    """A timing event of CUDA device ``device``: ``torch.Event``'s record,
+    query and elapsed time are calls into C, with no stream object made in
+    Python."""
+    return torch.Event(torch.device("cuda", device), enable_timing=True)
 
 
 def new_trace_id() -> str:
@@ -89,11 +159,12 @@ class _Span:
 
     __slots__ = ("_tracer", "name", "category", "detail", "attrs",
                  "trace_id", "span_id", "parent_id", "_start", "_token",
-                 "_thread")
+                 "_thread", "_device", "_profiled")
 
     def __init__(self, tracer: "Tracer", name: str, category: str,
                  detail: bool, trace_id: Optional[str],
-                 start_s: Optional[float], attrs: Dict[str, object]):
+                 start_s: Optional[float], attrs: Dict[str, object],
+                 device: bool = False):
         self._tracer = tracer
         self.name = name
         self.category = category
@@ -109,6 +180,11 @@ class _Span:
         self._start = time.perf_counter() if start_s is None else start_s
         self._thread = threading.get_ident()
         self._token = _CTX.set((self.trace_id, self.span_id))
+        self._profiled = None
+        if _profiler_enabled():
+            self._profiled = _profiler_range(name)
+            self._profiled.__enter__()
+        self._device = tracer._device_begin() if device else None
 
     def set(self, **attrs) -> "_Span":
         self.attrs.update(attrs)
@@ -119,6 +195,10 @@ class _Span:
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         _CTX.reset(self._token)
+        if self._device is not None:
+            self._tracer._device_end(self._device, self.attrs)
+        if self._profiled is not None:
+            self._profiled.__exit__(None, None, None)
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
         self._tracer._store({
@@ -144,6 +224,10 @@ class Tracer:
         self._traces: "collections.OrderedDict[str, Dict]" = \
             collections.OrderedDict()
         self._ids = itertools.count(1)
+        # device timing: free events by device, and the recorded pairs
+        # (device, start, end, attrs) that wait for resolve_device_spans
+        self._events: Dict[int, List] = collections.defaultdict(list)
+        self._pending: "collections.deque" = collections.deque()
 
     # -- recording -----------------------------------------------------------
     def _next_id(self) -> str:
@@ -151,13 +235,77 @@ class Tracer:
 
     def span(self, name: str, category: str = "", detail: bool = False,
              trace_id: Optional[str] = None, start_s: Optional[float] = None,
-             **attrs):
+             device: bool = False, **attrs):
         """Context manager opening a span under the current one (or a new
         trace root).  ``trace_id`` only applies when starting a root;
-        ``start_s`` backdates the span (e.g. to a request's submit time)."""
+        ``start_s`` backdates the span (e.g. to a request's submit time);
+        ``device`` times the span on the device too (module docstring)."""
         if not self.enabled:
             return _NOOP
-        return _Span(self, name, category, detail, trace_id, start_s, attrs)
+        return _Span(self, name, category, detail, trace_id, start_s, attrs,
+                     device)
+
+    # -- device timing -------------------------------------------------------
+    def _event(self, dev: int):
+        with self._lock:
+            pool = self._events[dev]
+            event = pool.pop() if pool else None
+        return _new_event(dev) if event is None else event
+
+    def _release(self, dev: int, *events) -> None:
+        with self._lock:
+            pool = self._events[dev]
+            pool.extend(events[:max(0, MAX_POOLED_EVENTS - len(pool))])
+
+    def _device_begin(self):
+        """(device, start event) recorded on the device's current stream,
+        or None.  The program runs a unit on one stream, so the exit event
+        goes on the same stream and completes after the entry one."""
+        if not _cuda_ready():
+            return None
+        dev = _current_device()
+        start = self._event(dev)
+        start.record()
+        return dev, start
+
+    def _device_end(self, begun, attrs: Dict[str, object]) -> None:
+        dev, start = begun
+        end = self._event(dev)
+        end.record()
+        dropped = None
+        with self._lock:
+            self._pending.append((dev, start, end, attrs))
+            if len(self._pending) > MAX_PENDING_DEVICE_SPANS:
+                dropped = self._pending.popleft()
+        if dropped is not None:
+            self._release(dropped[0], dropped[1], dropped[2])
+            REGISTRY.counter(_DEVICE_METRIC, help=_DEVICE_HELP,
+                             outcome="dropped").inc()
+
+    def resolve_device_spans(self) -> int:
+        """Set ``device_s`` on every pending span whose events completed;
+        returns how many.  Never waits: call it after a sync."""
+        if not self._pending:
+            return 0
+        with self._lock:
+            pending = list(self._pending)
+            self._pending.clear()
+        later = []
+        done: Dict[int, List] = collections.defaultdict(list)
+        for dev, start, end, attrs in pending:
+            if end.query():
+                attrs["device_s"] = start.elapsed_time(end) / 1e3
+                done[dev] += (start, end)
+            else:
+                later.append((dev, start, end, attrs))
+        for dev, events in done.items():
+            self._release(dev, *events)
+        if later:
+            with self._lock:
+                self._pending.extendleft(reversed(later))
+            REGISTRY.counter(_DEVICE_METRIC, help=_DEVICE_HELP,
+                             outcome="incomplete").inc(len(later))
+        return len(pending) - len(later)
 
     def record(self, name: str, start_s: float, end_s: float,
                category: str = "", detail: bool = False,
@@ -360,10 +508,16 @@ TRACER = Tracer()
 
 def span(name: str, category: str = "", detail: bool = False,
          trace_id: Optional[str] = None, start_s: Optional[float] = None,
-         **attrs):
+         device: bool = False, **attrs):
     """Open a span on the default tracer (the usual instrumentation call)."""
     return TRACER.span(name, category=category, detail=detail,
-                       trace_id=trace_id, start_s=start_s, **attrs)
+                       trace_id=trace_id, start_s=start_s, device=device,
+                       **attrs)
+
+
+def resolve_device_spans() -> int:
+    """Resolve the default tracer's completed device-timed spans."""
+    return TRACER.resolve_device_spans()
 
 
 def set_enabled(enabled: bool) -> None:

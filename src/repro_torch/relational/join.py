@@ -21,7 +21,6 @@ are ``bool``.
 """
 from __future__ import annotations
 
-import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,21 +29,6 @@ import torch
 from repro_torch.relational.table import NULL_KEY, Table
 
 NULL_KEY64 = np.int32(2**31 - 1)
-
-# Host-time spent in the eager two-phase path's count/sync step; read by
-# benchmarks to attribute the cold-path "count" phase (the per-join host
-# round-trip the compiled pipeline eliminates).
-_TWO_PHASE_STATS = {"count_calls": 0, "count_s": 0.0}
-
-
-def two_phase_stats() -> dict:
-    """Snapshot of {count_calls, count_s} for the eager count→expand path."""
-    return dict(_TWO_PHASE_STATS)
-
-
-def reset_two_phase_stats() -> None:
-    _TWO_PHASE_STATS["count_calls"] = 0
-    _TWO_PHASE_STATS["count_s"] = 0.0
 
 
 def _null_like(k: torch.Tensor) -> torch.Tensor:
@@ -341,15 +325,12 @@ def sort_merge_join(
     """
     on = tuple((l, r) for l, r in on)
     if capacity is None:
-        t0 = time.perf_counter()
         on_left = (on[0][0],)
         on_right = (on[0][1],)
         n = int(join_count(left, right, on_left, on_right))
         if how == "left_outer":
             n += int(left.num_rows())  # upper bound incl. unmatched rows
         capacity = _round_capacity(n)
-        _TWO_PHASE_STATS["count_calls"] += 1
-        _TWO_PHASE_STATS["count_s"] += time.perf_counter() - t0
     return join_with_capacity(left, right, on, how, capacity=capacity,
                               indicator=indicator)[0]
 
@@ -372,13 +353,10 @@ def left_outer_join(
     """
     on = tuple((l, r) for l, r in on)
     if capacity is None:
-        t0 = time.perf_counter()
         n = int(join_count(left, right, (on[0][0],), (on[0][1],)))
         if len(on) == 1:
             n += int(left.num_rows())  # native outer path holds null rows too
         capacity = _round_capacity(n)
-        _TWO_PHASE_STATS["count_calls"] += 1
-        _TWO_PHASE_STATS["count_s"] += time.perf_counter() - t0
     return left_outer_with_capacity(left, right, on, indicator, capacity)[0]
 
 
