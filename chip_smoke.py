@@ -45,7 +45,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernels at the largest and the most frequent, with the bits the path
    built: ``bloom_probe`` itself, ``bloom_prune_keys`` beside the two calls
    it replaces (``bloom_probe`` + ``torch.where``, timed in the same run),
-   and ``bloom_probe`` at N = 1 (its prologue alone).
+   and ``bloom_probe`` at N = 1 (its prologue alone).  The same replays
+   record every ``join_expand`` launch (the pair expansion of each join
+   step): each is held bit for bit against ``ref.join_expand`` on its own
+   operands (row, right row, matched and valid of every slot, padding
+   included), and the largest and most frequent of each path are timed
+   beside the plain version and ``torch.searchsorted`` of the slots in the
+   count cumsum (the row map alone).
 5. The JS-MV path: ``ExtractionEngine.extract(dblp_model())`` on
    ``make_dblp(scale=100)``, cold (view built) then warm (plan cache hit,
    view reused); edge counts against numpy, digests against the plain path.
@@ -148,7 +154,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (``apply_table_delta``) share, the delta terms, the peak device memory,
    and the seconds of the manifest write, the recovery, and its restore and
    replay.  The delta refreshes must launch ``sorted_probe``,
-   ``bloom_build`` and ``bloom_probe``.
+   ``join_expand``, ``bloom_build`` and ``bloom_probe``.
 10. Discovery.  ``ExtractionEngine.discover(use_name_hints=False)`` on
    ``anonymize_columns(make_tpcds(sf=1000))`` (JS-OJ's data) and
    ``anonymize_columns(make_dblp(scale=100))`` (JS-MV's), cold then warm.
@@ -162,10 +168,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    recall, and sha1 digests of the accepted (pair, matched, sampled) with
    every profile's NDV, and of every candidate; written by
    ``examples/discovery_summary.py`` on the JAX package).  Every
-   containment check launches ``sorted_probe``, ``bloom_build`` and
-   ``bloom_probe``.  Logged: the cold and warm seconds, profile, infer
-   and synthesize seconds, containment checks a second, the peak device
-   memory and the launches.
+   containment check launches ``sorted_probe``, ``join_expand``,
+   ``bloom_build`` and ``bloom_probe``.  Logged: the cold and warm
+   seconds, profile, infer and synthesize seconds, containment checks a
+   second, the peak device memory and the launches.
 11. The graph service.  ``GraphService`` over a fresh
    ``make_tpcds(sf=1000)`` serving ``fraud_model("store")``, with 4
    workers, two tenants and a ``durable_dir`` in a temporary directory:
@@ -215,9 +221,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    repartitioned first (``left_partitioned=True``): every repartition's
    overflow must be 0 and every join's ``table_digest`` equal
    ``sort_merge_join``'s on the same tables (the plain bisection probe);
-   its ``sorted_probe`` launches are the ``distributed_join`` path, each
-   recorded and held against the plain bisection on its own operands
-   (padded 5.76M-row probe sides), the largest and most frequent timed.
+   its ``sorted_probe`` and ``join_expand`` launches are the
+   ``distributed_join`` path, each recorded and held against its plain
+   version on its own operands (padded 5.76M-row probe sides), the largest
+   and most frequent timed.
    (b) ``moe_ffn_shard_map`` on a 1x1 mesh at full width, one layer, B 4
    x S 2,048 tokens: qwen3-moe (D 4,096, 128 experts, top-8, F 1,536) and
    llama4-scout must equal ``moe_ffn`` bit for bit, with equal routes
@@ -330,9 +337,9 @@ each path on regenerated data with the wrappers recorded (``replay``, which
 checks that the replay launched every kernel as often as the timed run);
 then phase 9's three delta refreshes and phase 10's two cold discoveries
 replayed alike (the same seeded churn, the same data), every one of their
-``sorted_probe``, ``bloom_build`` and ``bloom_prune_keys`` launches held
-exactly against its plain version and the largest and most frequent
-operands of each timed; and last every
+``sorted_probe``, ``join_expand``, ``bloom_build`` and ``bloom_prune_keys``
+launches held exactly against its plain version and the largest and most
+frequent operands of each timed; and last every
 case's device time (``torch.profiler``, on operands rebuilt alike).  So no profiler session and no recorded operand comes before or
 during a path's timed run, nor a profiler session before a CUDA-event
 timing: after one, the host's launches are slower.
@@ -343,11 +350,12 @@ phase 11, 12's data plane, training and serving, 13a's distributed
 joins and 13b's forward, 14's sharded steps and each rank's step of
 14d, and 15a's run and each rank's run of 15b-e (summed over the ranks),
 and read just after;
-every kernel of a path must have launched inside it.  The last
-lines are a JSON object of the kernels, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Any failed check raises (exit != 0).
-Without a CUDA card, or outside a checkout, it exits non-zero and prints
-no result.
+every kernel of a path must have launched inside it, and on every path
+``join_expand`` as often as ``sorted_probe`` (one each a join step).  The
+last lines are a JSON object of the kernels, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.  Any failed check raises
+(exit != 0).  Without a CUDA card, or outside a checkout, it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -370,7 +378,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (fp32 table)
 HASH_OPS = 6                  # multiply, add, shift, xor, modulo, or/test
 
-JOIN_KERNELS = ("sorted_probe", "bloom_build", "bloom_probe")
+JOIN_KERNELS = ("sorted_probe", "join_expand", "bloom_build", "bloom_probe")
+PROBE_SOURCE = "src/repro_torch/kernels/csrc/sorted_probe.cu"
+# join_expand replaces no Pallas kernel: the jnp scatter and scan
+EXPAND_REPLACES = "src/repro/relational/join.py:64"
 BLOOM_SOURCE = "src/repro_torch/kernels/csrc/bloom.cu"
 BLOOM_REPLACES = "src/repro/kernels/bloom.py:29"
 PROBE_REPLACES = "src/repro/kernels/bloom.py:48"
@@ -968,23 +979,68 @@ def record_sorted_probe_calls(torch, kops, ref, rows, calls, where):
             torch, kops, ref, f"{which} of {where} ({shapes[shape]} of "
             f"{len(calls)} launches): P={shape[0]} into S={shape[1]}",
             sk, pk))
-    record_rows(torch, rows, "sorted_probe",
-                "src/repro_torch/kernels/csrc/sorted_probe.cu",
+    record_rows(torch, rows, "sorted_probe", PROBE_SOURCE,
                 "src/repro/kernels/sorted_probe.py:45", cases, device=False)
+    return cases
+
+
+def expand_case(torch, kops, ref, label, cum, match_counts, lo, order,
+                capacity):
+    """A ``record_rows`` case of join_expand, with ``torch.searchsorted`` of
+    the slots in ``cum`` (the row map alone) as the library call.  Its
+    least bytes: 18 written a slot (two int64, two flags), and read once
+    the cum, lo and match count of each left row a slot lands on (16) and
+    the order entry of each distinct matched right row (8); a compare a
+    slot."""
+    row, ridx, matched, _ = ref.join_expand(cum, match_counts, lo, order,
+                                            capacity)
+    reached = int(torch.unique(row).numel())
+    distinct = int(torch.unique(ridx[matched]).numel())
+    del row, ridx, matched
+    slots = torch.arange(capacity, dtype=torch.int64, device=cum.device)
+    return (label,
+            lambda: kops.join_expand(cum, match_counts, lo, order, capacity),
+            lambda: ref.join_expand(cum, match_counts, lo, order, capacity),
+            lambda: torch.searchsorted(cum, slots, right=True),
+            18 * capacity + 16 * reached + 8 * distinct, capacity)
+
+
+def record_join_expand_calls(torch, kops, ref, rows, calls, where):
+    """Log the (slots, left rows) of every join_expand launch ``where``, and
+    check and time the kernel with CUDA events at the largest and the most
+    frequent (cases of the kernel's row); returns the cases, for
+    ``add_device_times``."""
+    shapes = collections.Counter((args[4], args[0].shape[0])
+                                 for _, args in calls)
+    log(f"join_expand launches of {where} by (slots, left rows): "
+        f"{sorted(shapes.items())}")
+    cases = []
+    for shape, which in most(shapes).items():
+        args = next(args for _, args in calls
+                    if (args[4], args[0].shape[0]) == shape)
+        total = int(args[0][-1]) if shape[1] else 0
+        cases.append(expand_case(
+            torch, kops, ref, f"{which} of {where} ({shapes[shape]} of "
+            f"{len(calls)} launches): C={shape[0]} slots from {shape[1]} "
+            f"left rows ({total} live)", *args))
+    record_rows(torch, rows, "join_expand", PROBE_SOURCE, EXPAND_REPLACES,
+                cases, device=False)
     return cases
 
 
 def check_every_call(torch, kops, ref, calls, where):
     """Every recorded launch of the join kernels ``where`` once more, each
     against its plain version on the same operands, exact: sorted_probe
-    against the bisection, bloom_build against the plain bitset,
-    bloom_prune_keys against ``where(plain bloom_probe, keys, NULL_KEY)``.
-    Returns {kernel: launches checked}."""
+    against the bisection, join_expand against the scatter and scan of row
+    ends (every output, padding slots included), bloom_build against the
+    plain bitset, bloom_prune_keys against ``where(plain bloom_probe, keys,
+    NULL_KEY)``.  Returns {kernel: launches checked}."""
     checked = {}
     for name, recorded in calls.items():
         for i, (_, args) in enumerate(recorded):
-            if name == "sorted_probe":
-                got, want = kops.sorted_probe(*args), ref.sorted_probe(*args)
+            if name in ("sorted_probe", "join_expand"):
+                got = getattr(kops, name)(*args)
+                want = getattr(ref, name)(*args)
                 err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
             elif name == "bloom_build":
                 err = max_abs_err(torch, kops.bloom_build(*args),
@@ -1134,8 +1190,7 @@ def join_cases(torch, kops, ref, tpcds_np):
                            nbits)
     return {
         "sorted_probe": (
-            "src/repro_torch/kernels/csrc/sorted_probe.cu",
-            "src/repro/kernels/sorted_probe.py:45",
+            PROBE_SOURCE, "src/repro/kernels/sorted_probe.py:45",
             [probe_case(torch, kops, ref,
                         f"P={n} into S={fact_sorted.shape[0]}",
                         fact_sorted, fact_i),
@@ -2812,7 +2867,8 @@ def replay_refresh(torch, kops, ExtractionEngine, counts_oj, counts_mv):
 
     from repro_torch.data import dblp_model, fraud_model, make_dblp, make_tpcds
 
-    names = ("sorted_probe", "bloom_build", "bloom_prune_keys")
+    names = ("sorted_probe", "join_expand", "bloom_build",
+             "bloom_prune_keys")
     out = {"JS-OJ": collections.defaultdict(list)}
     model = fraud_model("store")
     db = make_tpcds(sf=TPCDS_SF)
@@ -2937,7 +2993,8 @@ def discovery_phase(torch, kops, ExtractionEngine):
 def replay_discovery(torch, kops, ExtractionEngine, counts):
     """Phase 10's cold discoveries once more, untimed, on regenerated data,
     the join wrappers recorded (``replay``).  {path: {name: calls}}."""
-    names = ("sorted_probe", "bloom_build", "bloom_prune_keys")
+    names = ("sorted_probe", "join_expand", "bloom_build",
+             "bloom_prune_keys")
     out = {}
     for dataset, size, path in DISCOVERY_SIZES:
         adb = anonymized(dataset, size)[0]
@@ -3273,10 +3330,11 @@ def sharded_joins(torch, kops, ref, kernel_rows, smi):
     TPC-DS SF1), on a 1x1 mesh: every repartition drops nothing, and every
     join's digest equals ``sort_merge_join``'s (the plain probe) on the
     same tables, the exchange skipped (``left_partitioned=True``) or not.
-    Launches of the distributed joins are counted and recorded: each is
-    held against the plain bisection on its own operands, and the largest
-    and most frequent are cases of the kernel's row.  Returns (counts,
-    timings, cases), the cases for ``add_device_times``."""
+    Launches of the distributed joins are counted and recorded: each
+    probe and each pair expansion is held against its plain version on its
+    own operands, and the largest and most frequent are cases of the
+    kernels' rows.  Returns (counts, timings, {kernel: cases}), the cases
+    for ``add_device_times``."""
     from repro_torch.data import make_tpcds
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.relational.distributed import (distributed_join,
@@ -3300,7 +3358,8 @@ def sharded_joins(torch, kops, ref, kernel_rows, smi):
     torch.cuda.synchronize()
     kops.reset_launch_counts()
     results = []
-    with recording(kops, "sorted_probe") as calls:
+    with recording(kops, "sorted_probe") as calls, \
+            recording(kops, "join_expand") as expand_calls:
         for label, left, right, on, cap in cases:
             lpart, lover = repartition_by_key(left, on[0][0], mesh)
             rpart, rover = repartition_by_key(right, on[0][1], mesh)
@@ -3315,11 +3374,19 @@ def sharded_joins(torch, kops, ref, kernel_rows, smi):
     assert counts["sorted_probe"] > 0, f"13a: no sorted_probe launch {counts}"
     assert len(calls) == counts["sorted_probe"], \
         f"13a: {len(calls)} sorted_probe calls recorded, {counts} launched"
-    check_every_call(torch, kops, ref, {"sorted_probe": calls},
+    assert len(expand_calls) == counts["join_expand"] == len(calls), \
+        f"13a: {len(expand_calls)} join_expand calls recorded, {counts} " \
+        f"launched"
+    check_every_call(torch, kops, ref, {"sorted_probe": calls,
+                                        "join_expand": expand_calls},
                      "distributed_join")
-    probe_cases = record_sorted_probe_calls(torch, kops, ref, kernel_rows,
-                                            calls, "distributed_join")
-    del calls
+    dj_cases = {
+        "sorted_probe": record_sorted_probe_calls(
+            torch, kops, ref, kernel_rows, calls, "distributed_join"),
+        "join_expand": record_join_expand_calls(
+            torch, kops, ref, kernel_rows, expand_calls,
+            "distributed_join")}
+    del calls, expand_calls
     timings = []
     for (label, left, right, on, cap), (_, lover, rover, got, got_part) in \
             zip(cases, results):
@@ -3351,7 +3418,7 @@ def sharded_joins(torch, kops, ref, kernel_rows, smi):
     log(f"13a: overflow 0, digests == sort_merge_join's, launches {counts}")
     del db, fact, cases, results
     torch.cuda.empty_cache()
-    return counts, timings, probe_cases
+    return counts, timings, dj_cases
 
 
 def sharded_moe(torch, kops, smi):
@@ -3488,12 +3555,12 @@ def sharded_phase(torch, kops, ref, kernel_rows):
     smi = nvidia_smi()
     t0 = time.perf_counter()
     with nccl_world(torch):
-        counts_dj, join_t, probe_cases = sharded_joins(
+        counts_dj, join_t, dj_cases = sharded_joins(
             torch, kops, ref, kernel_rows, smi)
         counts_ep, moe_t = sharded_moe(torch, kops, smi)
         mem_t = dryrun_memory(torch, smi)
     log(f"phase 13: {time.perf_counter() - t0:.1f} s ({smi})")
-    return counts_dj, counts_ep, probe_cases, {
+    return counts_dj, counts_ep, dj_cases, {
         "joins": join_t, "moe": moe_t, "dryrun": mem_t}
 
 
@@ -4998,7 +5065,7 @@ def main(argv=None) -> int:
     # host's later launches, so it comes after every CUDA-event timing)
     tpcds = make_tpcds(sf=TPCDS_SF)
     dblp = make_dblp(scale=DBLP_SCALE)
-    names = ("bloom_build", "bloom_prune_keys")
+    names = ("join_expand", "bloom_build", "bloom_prune_keys")
     (cold, _), calls = replay(
         torch, kops, names, counts_oj,
         lambda: extract_twice(ExtractionEngine(tpcds), oj_model))
@@ -5013,7 +5080,17 @@ def main(argv=None) -> int:
     probe_cases, probe_pairs = record_probe_calls(
         torch, kops, ref, kernel_rows,
         calls["bloom_prune_keys"] + calls_mv["bloom_prune_keys"])
-    del calls, calls_mv
+    # every pair expansion of 4-5 against its plain version; the largest
+    # and most frequent operands of each path timed
+    refresh_cases = collections.defaultdict(list)
+    for path, recorded in (("JS-OJ", calls), ("JS-MV", calls_mv)):
+        check_every_call(torch, kops, ref,
+                         {"join_expand": recorded["join_expand"]},
+                         f"{path} extraction")
+        refresh_cases["join_expand"] += record_join_expand_calls(
+            torch, kops, ref, kernel_rows, recorded["join_expand"],
+            f"{path} extraction")
+    del calls, calls_mv, recorded
     _, calls = replay(torch, kops, ["segment_counts", "frontier_expand"],
                       counts_oja,
                       lambda: analyze_oj(kops, ExtractionEngine(tpcds),
@@ -5036,8 +5113,8 @@ def main(argv=None) -> int:
     # phase 9's delta refreshes and phase 10's discoveries: every launch
     # against its plain version, the largest and most frequent operands
     # timed
-    refresh_cases = collections.defaultdict(list)
-    refresh_cases["sorted_probe"] += dj_cases
+    for kernel, cases in dj_cases.items():
+        refresh_cases[kernel] += cases
 
     def replays():        # one path's recorded operands alive at a time
         for path, calls in replay_refresh(torch, kops, ExtractionEngine,
@@ -5054,6 +5131,8 @@ def main(argv=None) -> int:
         check_every_call(torch, kops, ref, calls, where)
         refresh_cases["sorted_probe"] += record_sorted_probe_calls(
             torch, kops, ref, kernel_rows, calls["sorted_probe"], where)
+        refresh_cases["join_expand"] += record_join_expand_calls(
+            torch, kops, ref, kernel_rows, calls["join_expand"], where)
         refresh_cases["bloom_build"] += record_bloom_calls(
             torch, kops, ref, kernel_rows, calls["bloom_build"], where)
         cases, pairs = record_probe_calls(
@@ -5098,6 +5177,11 @@ def main(argv=None) -> int:
     untimed = [(row["name"], case["shape"]) for row in kernel_rows
                for case in row["cases"] if case["device_ms"] is None]
     assert not untimed, f"cases without a device time: {untimed}"
+    # the probe and the pair expansion run once each in every join step
+    unpaired = {p: (c["sorted_probe"], c["join_expand"])
+                for p, c in by_path.items()
+                if c["sorted_probe"] != c["join_expand"]}
+    assert not unpaired, f"sorted_probe / join_expand launches {unpaired}"
     for row in kernel_rows:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}

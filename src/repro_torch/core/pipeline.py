@@ -24,7 +24,8 @@ operator-at-a-time extraction.  This module removes it:
   next step.
 * **Kernels** — with ``use_kernel`` (auto-on for CUDA via
   :func:`repro_torch.kernels.ops.resolve_use_kernel`) the join probe runs
-  the ``sorted_probe`` kernel and each join prunes probe rows through the
+  the ``sorted_probe`` kernel, the pair expansion the ``join_expand``
+  kernel, and each join prunes probe rows through the
   ``bloom`` semi-join prefilter kernels before the capacity expansion; on
   the CPU the wrappers take the plain versions.
 

@@ -35,6 +35,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "sorted_probe": {
         "repro_sorted_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "repro_join_expand": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _P),
     },
     "bloom": {
         "repro_bloom_build": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -1,3 +1,6 @@
+// The join library: the probe (sorted_probe, first) and the pair expansion
+// (join_expand, at the end of this file).
+//
 // Join probe: (lo, hi) match range of every probe key in the sorted build keys.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/sorted_probe.py
@@ -158,5 +161,199 @@ extern "C" int repro_sorted_probe(const void* sorted, const void* probe,
       (const int32_t*)sorted, (uint32_t)n_sorted, (uint32_t)stride,
       (const int32_t*)fence, (uint32_t)n_fence, (const int32_t*)probe,
       n_probe, (int32_t*)lo, (int32_t*)hi);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Join expansion: every output slot of a join step mapped to its left row and
+// its right row, with no atomics.
+//
+// Replaces no TPU kernel: the JAX package (src/repro/relational/join.py,
+// _expansion) and this port's plain version (kernels/ref.py join_expand)
+// scatter a 1 at every left row's end (index_add_ of clamp(cum, 0, C)) and
+// scan.  On this card that scatter serialises: join outputs are
+// prefix-compacted, so every padding row of a step's left side has
+// cum == total and adds to one int64 word, 38-105M times in the later steps
+// of a TPC-DS SF10 request (79 ms of one step's 89 on an H100).
+//
+// What it computes, for every slot j in [0, C), with n left rows:
+//   row[j]     = min(#{i : cum[i] <= j}, n - 1)   (the first i with cum[i] > j)
+//   start      = row > 0 ? cum[row - 1] : 0,  rank = j - start
+//   matched[j] = rank < match_counts[row]
+//   ridx[j]    = order[clamp(lo[row] + rank, 0, rc - 1)]  (0 when rc == 0)
+//   valid[j]   = j < total = cum[n - 1]
+// bit for bit what the plain version gives, padding slots included (n == 0:
+// row 0, start 0, no match).
+//
+// Bound.  18 bytes written a slot (two int64, two flags), and read once the
+// 16 bytes of cum, lo and match_counts of each left row a slot lands on and
+// the 8 bytes of order of each distinct matched right row: 2.9 GB, 0.86 ms
+// at 3.35 TB/s, for the last step of a TPC-DS SF10 request (2^27 slots,
+// 28.8M rows reached).  The order reads are a gather: where the right side
+// is large and its rows scattered, each 8-byte read moves a 32-byte sector.
+//
+// Design: each block owns a tile of kExpandTile consecutive slots.
+//  * A first small kernel finds every tile's first row by bisecting cum in
+//    global memory, one thread a tile boundary: bounds[t] = min(first i with
+//    cum[i] > t * kExpandTile, n - 1).  The rows of tile t then lie in
+//    [bounds[t], bounds[t + 1]], so the second kernel's blocks never search
+//    the whole of cum.
+//  * The tile stages cum[b - 1 .. e - 1] (b, e its bounds) in shared memory
+//    when that stretch fits (kExpandStage), and each slot bisects it, from
+//    the row of the thread's previous slot.  A stretch too long for shared
+//    memory (a run of zero-count rows, as a selective inner join leaves) is
+//    bisected in global memory inside the same bounds.
+//  * A tile past total (the padding slots, most slots of the late steps)
+//    has b == e: an empty search, every slot on row n - 1.
+//  * Each thread takes 4 consecutive slots at a time: it finds their 4 rows
+//    first, then loads their match counts and first matches, then their 4
+//    entries of order, so that no load waits on a search or on another
+//    slot's load (7% less time than one slot after another, on the
+//    benchmark's steps).  It stores row and ridx as two 16-byte stores each
+//    and the flags as one 4-byte store each: a warp writes 1 KB of each
+//    int64 output.
+// The output depends on nothing but the operands (no atomics, no order
+// between blocks).
+//
+// Launch: two kernels on the caller's stream, no synchronisation, no
+// allocation.  The wrapper handles C == 0 without a launch.  Returns
+// cudaGetLastError() as an int.
+
+namespace {
+
+constexpr int kExpandThreads = 256;
+constexpr int kExpandVec = 4;   // consecutive slots a thread stores at once
+// = sorted_probe.EXPAND_TILE in the wrapper
+constexpr int kExpandTile = kExpandThreads * kExpandVec * 2;
+constexpr int kExpandStage = 4096;   // cum entries staged (32 KB)
+
+// The first i in [lo, hi) with a[i] > j, else hi.
+template <bool kGlobal>
+__device__ __forceinline__ uint32_t first_above(const int64_t* __restrict__ a,
+                                                uint32_t lo, uint32_t hi,
+                                                int64_t j) {
+  uint32_t n = hi - lo;
+  while (n > 0) {
+    const uint32_t h = n >> 1;
+    const int64_t v = kGlobal ? __ldg(a + lo + h) : a[lo + h];
+    if (v <= j) { lo += h + 1; n -= h + 1; } else n = h;
+  }
+  return lo;
+}
+
+__global__ void expand_bounds_kernel(const int64_t* __restrict__ cum,
+                                     uint32_t n, int64_t n_bounds,
+                                     int32_t* __restrict__ bounds) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_bounds) return;
+  const uint32_t r = first_above<true>(cum, 0, n, t * (int64_t)kExpandTile);
+  bounds[t] = (int32_t)min(r, n - 1);
+}
+
+__global__ void __launch_bounds__(kExpandThreads)
+join_expand_kernel(const int64_t* __restrict__ cum,
+                   const int32_t* __restrict__ match_counts,
+                   const int32_t* __restrict__ lo,
+                   const int64_t* __restrict__ order,
+                   const int32_t* __restrict__ bounds, uint32_t n, int64_t rc,
+                   int64_t capacity, int64_t* __restrict__ row_out,
+                   int64_t* __restrict__ ridx_out,
+                   uint8_t* __restrict__ matched_out,
+                   uint8_t* __restrict__ valid_out) {
+  // s_cum[k] = cum[b - 1 + k] for k in [0, e - b], s_cum[0] = 0 when b == 0
+  __shared__ int64_t s_cum[kExpandStage + 1];
+  const int64_t j0 = (int64_t)blockIdx.x * kExpandTile;
+  const uint32_t b = n ? (uint32_t)bounds[blockIdx.x] : 0;
+  const uint32_t e = n ? (uint32_t)bounds[blockIdx.x + 1] : 0;
+  const int64_t total = n ? __ldg(cum + n - 1) : 0;
+  const bool staged = e - b <= kExpandStage;
+  if (staged) {
+    for (uint32_t k = threadIdx.x; k <= e - b; k += kExpandThreads)
+      s_cum[k] = (b + k > 0) ? __ldg(cum + b + k - 1) : 0;
+    __syncthreads();
+  }
+  uint32_t r = b;   // the row of this thread's previous slot
+  for (int64_t jb = j0 + (int64_t)threadIdx.x * kExpandVec;
+       jb < j0 + kExpandTile && jb < capacity;
+       jb += kExpandThreads * kExpandVec) {
+    uint32_t rows[kExpandVec];
+    int64_t start[kExpandVec];
+#pragma unroll
+    for (int v = 0; v < kExpandVec; ++v) {
+      const int64_t j = jb + v;
+      if (staged) {
+        r = b + first_above<false>(s_cum, r - b + 1, e - b + 1, j) - 1;
+        start[v] = s_cum[r - b];
+      } else {
+        r = first_above<true>(cum, r, e, j);
+        start[v] = r > 0 ? __ldg(cum + r - 1) : 0;
+      }
+      rows[v] = r;
+    }
+    int32_t mc[kExpandVec], first[kExpandVec];
+#pragma unroll
+    for (int v = 0; v < kExpandVec; ++v) {
+      mc[v] = n ? __ldg(match_counts + rows[v]) : 0;
+      first[v] = n ? __ldg(lo + rows[v]) : 0;
+    }
+    int64_t ridx[kExpandVec];
+    uint8_t matched[kExpandVec], valid[kExpandVec];
+#pragma unroll
+    for (int v = 0; v < kExpandVec; ++v) {
+      const int64_t j = jb + v, rank = j - start[v];
+      const int64_t pos = (int64_t)first[v] + rank;
+      matched[v] = rank < mc[v];
+      ridx[v] = rc > 0 ? __ldg(order + min(max(pos, (int64_t)0), rc - 1)) : 0;
+      valid[v] = j < total;
+    }
+    if (jb + kExpandVec <= capacity) {
+      longlong2* ro = reinterpret_cast<longlong2*>(row_out + jb);
+      longlong2* io = reinterpret_cast<longlong2*>(ridx_out + jb);
+      ro[0] = make_longlong2(rows[0], rows[1]);
+      ro[1] = make_longlong2(rows[2], rows[3]);
+      io[0] = make_longlong2(ridx[0], ridx[1]);
+      io[1] = make_longlong2(ridx[2], ridx[3]);
+      *reinterpret_cast<uchar4*>(matched_out + jb) =
+          make_uchar4(matched[0], matched[1], matched[2], matched[3]);
+      *reinterpret_cast<uchar4*>(valid_out + jb) =
+          make_uchar4(valid[0], valid[1], valid[2], valid[3]);
+    } else {
+      for (int v = 0; v < kExpandVec && jb + v < capacity; ++v) {
+        row_out[jb + v] = rows[v];
+        ridx_out[jb + v] = ridx[v];
+        matched_out[jb + v] = matched[v];
+        valid_out[jb + v] = valid[v];
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// bounds: scratch of n_bounds = ceil(capacity / kExpandTile) + 1 int32 on
+// the card.  row and ridx 16-byte aligned, matched and valid 4-byte
+// aligned (fresh allocations are).
+extern "C" int repro_join_expand(const void* cum, const void* match_counts,
+                                 const void* lo, const void* order,
+                                 void* bounds, void* row, void* ridx,
+                                 void* matched, void* valid, int64_t n,
+                                 int64_t rc, int64_t capacity,
+                                 int64_t n_bounds, void* stream) {
+  const int64_t tiles = (capacity + kExpandTile - 1) / kExpandTile;
+  if (capacity <= 0 || n < 0 || n > 0x7fffffff || rc < 0 ||
+      n_bounds != tiles + 1 || tiles > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  if ((((uintptr_t)row | (uintptr_t)ridx) & 15) ||
+      (((uintptr_t)matched | (uintptr_t)valid) & 3))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n > 0)
+    expand_bounds_kernel<<<(unsigned)((n_bounds + 255) / 256), 256, 0, s>>>(
+        (const int64_t*)cum, (uint32_t)n, n_bounds, (int32_t*)bounds);
+  join_expand_kernel<<<(unsigned)tiles, kExpandThreads, 0, s>>>(
+      (const int64_t*)cum, (const int32_t*)match_counts, (const int32_t*)lo,
+      (const int64_t*)order, (const int32_t*)bounds, (uint32_t)n, rc,
+      capacity, (int64_t*)row, (int64_t*)ridx, (uint8_t*)matched,
+      (uint8_t*)valid);
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,7 @@ from repro_torch.kernels import sorted_probe as _sorted_probe
 from repro_torch.kernels import spmv as _spmv
 
 sorted_probe = _sorted_probe.sorted_probe
+join_expand = _sorted_probe.join_expand
 bloom_build = _bloom.bloom_build
 bloom_probe = _bloom.bloom_probe
 # the probe kernel's prune mode: its launches count as bloom_probe's
@@ -30,9 +31,10 @@ edge_min_label = _label_prop.edge_min_label
 frontier_expand = _frontier.frontier_expand
 flash_attention = _flash.flash_attention
 
-WRAPPERS = {"sorted_probe": sorted_probe, "bloom_build": bloom_build,
-            "bloom_probe": bloom_probe, "segment_counts": segment_counts,
-            "edge_spmv": edge_spmv, "edge_min_label": edge_min_label,
+WRAPPERS = {"sorted_probe": sorted_probe, "join_expand": join_expand,
+            "bloom_build": bloom_build, "bloom_probe": bloom_probe,
+            "segment_counts": segment_counts, "edge_spmv": edge_spmv,
+            "edge_min_label": edge_min_label,
             "frontier_expand": frontier_expand,
             "flash_attention": flash_attention}
 

@@ -32,6 +32,40 @@ def sorted_probe(sorted_keys: torch.Tensor, probe_keys: torch.Tensor):
     return lo, hi
 
 
+def take(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``col[idx]``; zeros of ``col``'s dtype when ``col`` is empty (every
+    slot is invalid)."""
+    if col.shape[0] == 0:
+        return torch.zeros(idx.shape, dtype=col.dtype, device=col.device)
+    return col[idx]
+
+
+def join_expand(cum: torch.Tensor, match_counts: torch.Tensor,
+                lo: torch.Tensor, order: torch.Tensor, capacity: int):
+    """A join step's output slots ``[0, capacity)`` mapped to rows:
+    (row, ridx, matched, valid).
+
+    ``row[j] = #{i : cum[i] <= j}`` (a scatter of 1 at each left row's end,
+    then a scan), clamped to the last row; ``rank = j - cum[row - 1]`` is
+    the slot's place among its row's outputs; ``matched = rank <
+    match_counts[row]``; ``ridx = order[clamp(lo[row] + rank, 0, rc - 1)]``
+    (0 when ``order`` is empty); ``valid = j < cum[-1]``.  Output is
+    prefix-compacted: a slot past the total is padding.
+    """
+    dev = cum.device
+    n = cum.shape[0]
+    slots = torch.arange(capacity, dtype=torch.int64, device=dev)
+    mark = torch.zeros((capacity + 1,), dtype=torch.int64, device=dev)
+    mark.index_add_(0, torch.clamp(cum, 0, capacity), torch.ones_like(cum))
+    row = torch.clamp(torch.cumsum(mark, 0)[:capacity], 0, max(n - 1, 0))
+    before = torch.cat([cum.new_zeros(1), cum[:-1]]) if n else cum
+    rank = slots - take(before, row)
+    matched = rank < take(match_counts, row)
+    rpos = torch.clamp(take(lo, row) + rank, 0, max(order.shape[0] - 1, 0))
+    total = cum[-1] if n else torch.zeros((), dtype=torch.int64, device=dev)
+    return row, take(order, rpos), matched, slots < total
+
+
 def segment_counts(values: torch.Tensor, valid: torch.Tensor,
                    num_segments: int) -> torch.Tensor:
     """Masked histogram: int32 counts of the valid ``values`` per bin.

@@ -8,8 +8,8 @@ build/probe over disk pages.  Here every join is
 
 which keeps every shape static, so a whole plan unit runs on the device
 with one host sync at its end.  ``N``-to-``N`` joins are handled exactly:
-each left row expands into ``hi - lo`` output rows via a cumsum/scatter
-expansion.
+each left row expands into ``hi - lo`` output rows via a cumsum and a
+mapping of output slots to rows (``kernels.ops.join_expand``).
 
 Outer-join semantics follow Theorem 4.3 of the paper: a left row with no
 match emits exactly one output row whose right side is *null*, signalled by
@@ -26,6 +26,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.relational.table import NULL_KEY, Table
 
 NULL_KEY64 = np.int32(2**31 - 1)
@@ -34,13 +35,6 @@ NULL_KEY64 = np.int32(2**31 - 1)
 def _null_like(k: torch.Tensor) -> torch.Tensor:
     """0-d int32 ``NULL_KEY`` on ``k``'s device (keeps ``where`` in int32)."""
     return torch.tensor(int(NULL_KEY64), dtype=torch.int32, device=k.device)
-
-
-def _gather(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``col[idx]``; zeros when ``col`` is empty (every slot is invalid)."""
-    if col.shape[0] == 0:
-        return torch.zeros(idx.shape, dtype=col.dtype, device=col.device)
-    return col[idx]
 
 
 def composite_key(table: Table, cols: Sequence[str]) -> torch.Tensor:
@@ -57,31 +51,6 @@ def composite_key(table: Table, cols: Sequence[str]) -> torch.Tensor:
         raise ValueError(f"composite_key takes exactly 1 column, got {cols}")
     k = table[cols[0]].to(torch.int32)
     return torch.where(table.valid, k, _null_like(k))
-
-
-def _expansion(counts: torch.Tensor, capacity: int):
-    """Map output slots [0, capacity) to (source row, within-row rank).
-
-    Given per-left-row output counts, returns (row, rank, valid, total) for
-    each output slot.  Output is prefix-compacted: slot j is valid iff
-    j < total.  ``total`` is the exact pre-truncation requirement (int64).
-    """
-    dev = counts.device
-    counts = counts.to(torch.int64)
-    n = counts.shape[0]
-    cum = torch.cumsum(counts, 0)                # inclusive
-    total = cum[-1] if n else torch.zeros((), dtype=torch.int64, device=dev)
-    slots = torch.arange(capacity, dtype=torch.int64, device=dev)
-    # row[j] = #{i : cum[i] <= j}: a scatter of row ends plus a scan
-    mark = torch.zeros((capacity + 1,), dtype=torch.int64, device=dev)
-    mark.index_add_(0, torch.clamp(cum, 0, capacity),
-                    torch.ones_like(cum))
-    row = torch.cumsum(mark, 0)[:capacity]
-    row = torch.clamp(row, 0, max(n - 1, 0))
-    start = _gather(cum, row) - _gather(counts, row)  # exclusive offset
-    rank = slots - start
-    valid = slots < total
-    return row, rank, valid, total
 
 
 def join_count(
@@ -157,20 +126,22 @@ def _join_core(
     else:
         raise ValueError(f"unknown join kind {how!r}")
 
-    row, rank, valid, total = _expansion(counts, capacity)
-    matched = rank < _gather(match_counts, row)
-    rpos = torch.clamp(_gather(lo, row) + rank, 0,
-                       max(right.capacity - 1, 0))
-    ridx = _gather(order, rpos)
+    cum = torch.cumsum(counts, 0, dtype=torch.int64)          # inclusive
+    total = cum[-1] if cum.shape[0] else cum.new_zeros(())
+    # output slots -> (left row, right row, matched, valid), prefix-compacted
+    from repro_torch.kernels import ops as kops
+
+    expand = kops.join_expand if use_kernel else ref.join_expand
+    row, ridx, matched, valid = expand(cum, match_counts, lo, order, capacity)
 
     cols = {}
     for name, col in left.columns.items():
-        cols[name] = _gather(col, row)
+        cols[name] = ref.take(col, row)
     for name, col in right.columns.items():
         if name in cols:
             raise ValueError(
                 f"column collision on {name!r}; prefix aliases first")
-        cols[name] = _gather(col, ridx)
+        cols[name] = ref.take(col, ridx)
     out_valid = valid
     if how == "left_outer":
         ind = matched & valid
@@ -199,7 +170,8 @@ def join_with_capacity(
     number of output slots the first-key expansion needed; if it exceeds
     ``capacity`` the output was truncated and the caller must re-execute at
     a larger capacity (the pipeline's overflow-retry).  ``use_kernel``
-    routes the probe phase through the ``sorted_probe`` kernel;
+    routes the probe through the ``sorted_probe`` kernel and the pair
+    expansion through ``join_expand``;
     ``bloom_bits > 0`` additionally prunes probe rows through a Bloom-filter
     semi-join *before* the capacity expansion.  Bloom filters have no false
     negatives, so pruning is exact for inner joins and turns outer-join

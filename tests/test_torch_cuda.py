@@ -158,6 +158,132 @@ def test_cuda_edge_cases_match_plain(cuda):
     assert kops.bloom_probe(bits, empty).shape == (0,)
 
 
+def _expand_operands(slots, pad, how, seed, zeros=0.3, n=None, rc=None):
+    """A join step's expansion operands on the CPU: ``n`` left rows (the
+    slots by default) whose trailing rows are padding (count 0), so that
+    about ``pad`` of the ``slots`` output slots lie past the total; live
+    rows have 1-3 matches, or none for a share ``zeros`` of them (an outer
+    join emits one row for those).  (cum, match_counts, lo, order)."""
+    rng = np.random.default_rng(seed)
+    n = slots if n is None else n
+    rc = n // 2 if rc is None else rc
+    mc = rng.integers(1, 4, n) * (rng.random(n) >= zeros)
+    per_row = np.maximum(mc, how != "inner").mean() if n else 0
+    live = min(n, int(slots * (1 - pad) / per_row)) if per_row else n
+    mc[live:] = 0
+    lo = rng.integers(0, max(rc - 3, 1), n)
+    mc = np.minimum(mc, rc - lo) if rc else mc * 0
+    counts = mc if how == "inner" else \
+        np.where(np.arange(n) < live, np.maximum(mc, 1), 0)
+    return (torch.from_numpy(np.cumsum(counts, dtype=np.int64)),
+            _t(mc.astype(np.int32)), _t(lo.astype(np.int32)),
+            torch.from_numpy(rng.permutation(rc).astype(np.int64)))
+
+
+def _expand_matches_plain(operands, capacity, cuda):
+    cum, mc, lo, order = (t.to(cuda) for t in operands)
+    before = kops.launch_counts()["join_expand"]
+    got = kops.join_expand(cum, mc, lo, order, capacity)
+    want = tref.join_expand(cum, mc, lo, order, capacity)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["join_expand"] == before + (capacity > 0)
+    for name, g, w in zip(("row", "ridx", "matched", "valid"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    return int(cum[-1]) if cum.shape[0] else 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["inner", "left_outer"])
+@pytest.mark.parametrize("slots,pad", [(2**20, 0.25), (2**22, 0.5),
+                                       (2**24, 0.75), (2**26, 0.25),
+                                       (2**26, 0.75)])
+def test_cuda_join_expand_matches_plain(cuda, slots, pad, how):
+    """The kernel against the scatter-and-scan plain version, bit for bit
+    on every output, at the main path's step sizes (pow-2 capacities, left
+    sides as long as the output, their trailing rows padding)."""
+    total = _expand_matches_plain(
+        _expand_operands(slots, pad, how, seed=slots + int(100 * pad)),
+        slots, cuda)
+    assert abs(1 - total / slots - pad) < 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "no-left-rows", "no-right-rows", "all-padding", "total-over-capacity",
+    "ragged-capacity", "zero-count-runs", "one-slot", "no-slots",
+    "left-longer-than-output"])
+def test_cuda_join_expand_edge_cases(cuda, case):
+    """Empty sides, no slot, a capacity off the tile and vector widths,
+    more rows than slots, and runs of zero-count rows longer than a tile's
+    shared-memory stage (the kernel then bisects in global memory)."""
+    slots, kw = 2**16, {}
+    how = "left_outer" if case in ("no-left-rows", "no-right-rows") \
+        else "inner"
+    if case == "no-left-rows":
+        kw = dict(n=0, rc=100)
+    elif case == "no-right-rows":
+        kw = dict(rc=0)
+    elif case == "all-padding":
+        kw = dict(zeros=1.0)
+    elif case == "zero-count-runs":
+        kw = dict(n=2**22, zeros=0.9995)
+    elif case == "left-longer-than-output":
+        kw = dict(n=2**20)
+    pad = 0.5
+    if case == "total-over-capacity":
+        pad = -1.0                     # twice the slots' worth of rows
+    operands = _expand_operands(slots, pad, how, seed=7, **kw)
+    capacity = {"ragged-capacity": slots + 3, "one-slot": 1,
+                "no-slots": 0}.get(case, slots)
+    total = _expand_matches_plain(operands, capacity, cuda)
+    if case == "total-over-capacity":
+        assert total > capacity
+    if case == "zero-count-runs":
+        gaps = np.diff(np.flatnonzero(np.diff(_np(operands[0]),
+                                              prepend=0)))
+        assert gaps.max() > 4096       # past kExpandStage rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tpcds", "dblp"])
+def test_cuda_pipeline_join_expand_gives_the_plain_tables(cuda, case):
+    """A compiled-pipeline request with ``use_kernel`` true (probe and
+    expansion kernels) and false (plain versions), the Bloom prefilter off
+    in both: every edge table equal, column by column and slot by slot,
+    and one ``join_expand`` launch for each join step."""
+    from repro_torch import obs
+    from repro_torch.api import ExtractionEngine
+    from repro_torch.core.pipeline import PipelineCompiler
+    import repro_torch.data as tdata
+
+    if case == "tpcds":
+        db, model = tdata.make_tpcds(sf=50, device=cuda), \
+            tdata.fraud_model("store")
+    else:
+        db, model = tdata.make_dblp(scale=1, device=cuda), tdata.dblp_model()
+    obs.set_enabled(True)
+    results = {}
+    for use_kernel in (False, True):
+        engine = ExtractionEngine(db, compiler=PipelineCompiler(
+            use_kernel=use_kernel, use_bloom=False, device=cuda))
+        before = kops.launch_counts()["join_expand"]
+        with obs.span("test.request") as root:
+            results[use_kernel] = engine.extract(model)
+        torch.cuda.synchronize()
+        launches = kops.launch_counts()["join_expand"] - before
+        steps = sum(s["name"] == "pipeline.join"
+                    for s in obs.TRACER.get(root.trace_id))
+        assert steps > 0 and launches == (steps if use_kernel else 0)
+    plain, kernel = results[False].edges, results[True].edges
+    assert set(plain) == set(kernel)
+    for label, t in plain.items():
+        k = kernel[label]
+        assert t.capacity == k.capacity and torch.equal(t.valid, k.valid)
+        assert set(t.columns) == set(k.columns)
+        for name, col in t.columns.items():
+            assert torch.equal(col, k[name]), (label, name)
+
+
 # ---------------------------------------------------------------------------
 # the graph kernels
 # ---------------------------------------------------------------------------

@@ -340,7 +340,7 @@ def test_segment_counts_grid_rejects_an_empty_launch(n_values):
 
 
 def test_cpu_graph_wrappers_never_launch():
-    """(f) CPU tensors take the plain versions: all eight counters stay 0."""
+    """(f) CPU tensors take the plain versions: every counter stays 0."""
     kops.reset_launch_counts()
     src, dst, valid, n = _coo_case("ragged")
     s, d, v = _t(src), _t(dst), _t(valid)
@@ -356,9 +356,10 @@ def test_cpu_graph_wrappers_never_launch():
     kv = torch.zeros(1, 4, 1, 8)
     kops.flash_attention(torch.zeros(1, 4, 2, 8), kv, kv)
     counts = kops.launch_counts()
-    assert set(counts) == {"sorted_probe", "bloom_build", "bloom_probe",
-                           "segment_counts", "edge_spmv", "edge_min_label",
-                           "frontier_expand", "flash_attention"}
+    assert set(counts) == {"sorted_probe", "join_expand", "bloom_build",
+                           "bloom_probe", "segment_counts", "edge_spmv",
+                           "edge_min_label", "frontier_expand",
+                           "flash_attention"}
     assert all(v == 0 for v in counts.values()), counts
 
 

@@ -275,10 +275,38 @@ def test_cpu_tensors_never_launch():
     kops.sorted_probe(k, k)
     kops.bloom_probe(kops.bloom_build(k, torch.ones(64, dtype=torch.bool),
                                       256), k)
+    lo, hi = kops.sorted_probe(k, k)
+    kops.join_expand(torch.cumsum(hi - lo, 0, dtype=torch.int64), hi - lo,
+                     lo, torch.arange(64), 128)
     assert kops.launch_counts() == {
-        "sorted_probe": 0, "bloom_build": 0, "bloom_probe": 0,
-        "segment_counts": 0, "edge_spmv": 0, "edge_min_label": 0,
-        "frontier_expand": 0, "flash_attention": 0}
+        "sorted_probe": 0, "join_expand": 0, "bloom_build": 0,
+        "bloom_probe": 0, "segment_counts": 0, "edge_spmv": 0,
+        "edge_min_label": 0, "frontier_expand": 0, "flash_attention": 0}
+
+
+@pytest.mark.parametrize("bad", ["cum-int32", "lo-int64", "order-int32",
+                                 "short-lo", "strided-cum",
+                                 "negative-capacity"])
+def test_join_expand_rejects_what_the_kernel_cannot_take(bad):
+    cum = torch.arange(8, dtype=torch.int64)
+    mc = torch.ones(8, dtype=torch.int32)
+    lo = torch.zeros(8, dtype=torch.int32)
+    order = torch.arange(4)
+    capacity = 16
+    if bad == "cum-int32":
+        cum = cum.to(torch.int32)
+    elif bad == "lo-int64":
+        lo = lo.to(torch.int64)
+    elif bad == "order-int32":
+        order = order.to(torch.int32)
+    elif bad == "short-lo":
+        lo = lo[:7]
+    elif bad == "strided-cum":
+        cum = torch.arange(16, dtype=torch.int64)[::2]
+    else:
+        capacity = -1
+    with pytest.raises((TypeError, ValueError)):
+        kops.join_expand(cum, mc, lo, order, capacity)
 
 
 def test_port_imports_no_jax_and_no_reference():

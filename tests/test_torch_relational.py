@@ -226,6 +226,80 @@ def test_zero_capacity_sides_give_empty_joins():
     assert not out.to_numpy()["m"].any()
 
 
+def _gather0(col, idx):
+    if col.shape[0] == 0:
+        return torch.zeros(idx.shape, dtype=col.dtype, device=col.device)
+    return col[idx]
+
+
+def _frozen_expansion(counts, match_counts, lo, order, capacity):
+    """The join step's pair expansion as ``relational/join.py`` wrote it
+    before the ``join_expand`` kernel (``_expansion`` plus the index work of
+    ``_join_core``), kept here as the pin: (row, ridx, matched, valid,
+    total)."""
+    counts = counts.to(torch.int64)
+    n = counts.shape[0]
+    cum = torch.cumsum(counts, 0)
+    total = cum[-1] if n else torch.zeros((), dtype=torch.int64)
+    slots = torch.arange(capacity, dtype=torch.int64)
+    mark = torch.zeros((capacity + 1,), dtype=torch.int64)
+    mark.index_add_(0, torch.clamp(cum, 0, capacity), torch.ones_like(cum))
+    row = torch.clamp(torch.cumsum(mark, 0)[:capacity], 0, max(n - 1, 0))
+    rank = slots - (_gather0(cum, row) - _gather0(counts, row))
+    matched = rank < _gather0(match_counts, row)
+    rpos = torch.clamp(_gather0(lo, row) + rank, 0,
+                       max(order.shape[0] - 1, 0))
+    return row, _gather0(order, rpos), matched, slots < total, total
+
+
+# (left rows, right rows, capacity, share of trailing padding rows, share
+# of zero-count rows among the live ones)
+EXPAND_CASES = {
+    "zero-counts-between-live-rows": (400, 120, 1024, 0.0, 0.5),
+    "all-padding": (64, 50, 32, 1.0, 0.0),
+    "no-left-rows": (0, 50, 16, 0.0, 0.0),
+    "no-right-rows": (40, 0, 64, 0.2, 0.0),
+    "total-over-capacity": (300, 200, 64, 0.1, 0.2),
+    "trailing-75pct-padding": (1024, 300, 1024, 0.75, 0.3),
+}
+
+
+@pytest.mark.parametrize("how", ["inner", "left_outer"])
+@pytest.mark.parametrize("case", list(EXPAND_CASES))
+def test_join_expand_plain_pins_the_old_expansion(case, how):
+    """``ref.join_expand`` (and the wrapper on a CPU tensor) give, slot for
+    slot and padding included, what the scatter-and-scan expansion and
+    ``_join_core``'s index arithmetic gave."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as tref
+
+    n, rc, capacity, pad, zeros = EXPAND_CASES[case]
+    rng = np.random.default_rng(len(case) + n)
+    live = n - int(round(n * pad))
+    valid = np.arange(n) < live
+    lo = rng.integers(0, max(rc - 3, 1), n).astype(np.int32)
+    mc = rng.integers(1, 4, n) * (rng.random(n) >= zeros) * valid
+    mc = np.minimum(mc, rc - lo).astype(np.int32) if rc else mc * 0
+    counts = np.where(valid, np.maximum(mc, 1), 0) if how == "left_outer" \
+        else mc
+    counts, mc, lo = (torch.from_numpy(a.astype(np.int32))
+                      for a in (counts, mc, lo))
+    order = torch.from_numpy(rng.permutation(rc).astype(np.int64))
+    want = _frozen_expansion(counts, mc, lo, order, capacity)
+    total = int(want[4])
+    if case == "total-over-capacity":
+        assert total > capacity
+    if case == "trailing-75pct-padding":
+        assert total < capacity
+    cum = torch.cumsum(counts, 0, dtype=torch.int64)
+    kops.reset_launch_counts()
+    for got in (tref.join_expand(cum, mc, lo, order, capacity),
+                kops.join_expand(cum, mc, lo, order, capacity)):
+        for g, w in zip(got, want[:4]):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert kops.launch_counts()["join_expand"] == 0
+
+
 @pytest.mark.parametrize("how", ["inner", "left_outer"])
 def test_overflow_signal_at_capacity_8(sides, how):
     (jl, tl), (jrt, trt) = sides
