@@ -22,6 +22,11 @@ operator-at-a-time extraction.  This module removes it:
   JAX package keys its executables.  PyTorch runs eagerly, so what is
   cached is the built function; capturing each as a CUDA graph is the
   next step.
+* **Column liveness** — each join step gathers only the columns that the
+  rest of its unit reads after it (later steps' conditions, its own
+  post-filters, the unit's outputs), worked out once per unit function;
+  a JS-OJ member is cut to its dedup keys and edge ends before its dedup.
+  Views keep every column: later queries are rewritten over them.
 * **Kernels** — with ``use_kernel`` (auto-on for CUDA via
   :func:`repro_torch.kernels.ops.resolve_use_kernel`) the join probe runs
   the ``sorted_probe`` kernel, the pair expansion the ``join_expand``
@@ -254,30 +259,83 @@ def _scan(tables: Dict[str, Table], rel, needed=None) -> Table:
     return t
 
 
+def _cond_columns(conds) -> set:
+    """Qualified columns of both endpoints of each condition."""
+    return ({f"{c.left}.{c.lcol}" for c in conds}
+            | {f"{c.right}.{c.rcol}" for c in conds})
+
+
 def _needed_columns_query(query: JoinQuery) -> set:
     """Qualified columns a query's joins, post-filters, and outputs touch."""
-    need = set()
-    for c in query.conds:
-        need.add(f"{c.left}.{c.lcol}")
-        need.add(f"{c.right}.{c.rcol}")
-    need.add(query.src.qualified())
-    need.add(query.dst.qualified())
-    return need
+    return _cond_columns(query.conds) | {query.src.qualified(),
+                                         query.dst.qualified()}
 
 
 def _needed_columns_merged(merged: MergedQuery) -> set:
     need = _needed_columns_query(shared_query(merged))
     for b in merged.branches:
-        for c in b.inner_conds + b.link_conds:
-            need.add(f"{c.left}.{c.lcol}")
-            need.add(f"{c.right}.{c.rcol}")
+        need |= _cond_columns(b.inner_conds + b.link_conds)
     for m in merged.members:
-        for c in m.residual_conds:
-            need.add(f"{c.left}.{c.lcol}")
-            need.add(f"{c.right}.{c.rcol}")
-        need.add(m.src.qualified())
-        need.add(m.dst.qualified())
+        need |= _cond_columns(m.residual_conds)
+        need |= {m.src.qualified(), m.dst.qualified()}
     return need
+
+
+# ---------------------------------------------------------------------------
+# Column liveness: what each join step gathers
+# ---------------------------------------------------------------------------
+
+def _chain_reads(query: JoinQuery, order: Sequence[str]) -> list:
+    """A join chain's steps as ``(key, post)`` column reads: ``key`` the
+    first condition's columns (read to build the sort keys, before the
+    expansion), ``post`` the post-filter and closing conditions' (read
+    from the step's output)."""
+    return [(_cond_columns(conds[:1]), _cond_columns(conds[1:] + closing))
+            for _, conds, closing in join_schedule(query, order)]
+
+
+def _live_gathers(reads: Sequence[Tuple[Optional[set], set]],
+                  tail: set) -> Tuple[frozenset, ...]:
+    """Per join step, the columns it gathers: its own ``post`` columns and
+    every column read after it, by later steps or by ``tail`` (the unit's
+    outputs).  ``reads`` is in execution order; an entry whose ``key`` is
+    ``None`` reads ``post`` between steps without joining."""
+    live = set(tail)
+    gathers = []
+    for key, post in reversed(reads):
+        if key is not None:
+            gathers.append(frozenset(live | post))
+            live |= key
+        live |= post
+    return tuple(reversed(gathers))
+
+
+def _gather_sets(program: "UnitProgram") -> Tuple[Optional[frozenset], ...]:
+    """Each join step's gather set, in ``program.capacities`` order; None
+    (every column) for the steps of a view (``kind == "query"``), which
+    keeps every column because later queries are rewritten over it."""
+    if program.kind == "query":
+        return (None,) * len(program.capacities)
+    unit = program.unit
+    if program.kind == "edges":
+        return _live_gathers(_chain_reads(unit, program.orders[0]),
+                             {unit.src.qualified(), unit.dst.qualified()})
+    reads = _chain_reads(shared_query(unit), program.orders[0])
+    tail = {"__srow__"}
+    for bi, b in enumerate(unit.branches):
+        tail.add(f"__m__{b.id}")
+        if not b.relations:
+            reads.append((None, _cond_columns(b.link_conds)))
+            continue
+        tail.add(f"__brow__{b.id}")
+        if len(b.relations) > 1:
+            reads += _chain_reads(b.as_query(), program.orders[1 + bi])
+        reads.append((_cond_columns(b.link_conds[:1]),
+                      _cond_columns(b.link_conds[1:])))
+    for m in unit.members:
+        tail |= _cond_columns(m.residual_conds)
+        tail |= {m.src.qualified(), m.dst.qualified()}
+    return _live_gathers(reads, tail)
 
 
 def _join_span():
@@ -286,11 +344,27 @@ def _join_span():
                     device=True)
 
 
-def _row_bytes(left: Table, right: Table) -> int:
-    """Bytes of one output row of a join: every column of both sides is
-    gathered into it."""
+def _row_bytes(left: Table, right: Table, gather=None) -> int:
+    """Bytes of one output row of a join: the columns of both sides named
+    in ``gather`` (every column when ``None``) are gathered into it."""
     return sum(c.element_size() for t in (left, right)
-               for c in t.columns.values())
+               for n, c in t.columns.items() if gather is None or n in gather)
+
+
+def _record_widths(widths: Optional[list], left: Table, right: Table,
+                   gather, lost: int) -> int:
+    """Append a step's row bytes, (gathered, every column), to ``widths``.
+
+    "Every column" is what the step would gather had no step pruned: the
+    columns of both sides plus ``lost``, the bytes of the columns that
+    earlier steps left out of them.  Returns what the step's output lacks
+    in turn (0 when ``widths`` is None: nothing is recorded)."""
+    if widths is None:
+        return 0
+    kept = _row_bytes(left, right, gather)
+    every = _row_bytes(left, right) + lost
+    widths.append((kept, every))
+    return every - kept
 
 
 def _traced_query(
@@ -298,36 +372,41 @@ def _traced_query(
     query: JoinQuery,
     order: Sequence[str],
     caps_iter,
+    gathers_iter,
     totals: List[torch.Tensor],
-    widths: Optional[List[int]],
+    widths: Optional[list],
     use_kernel: bool,
     use_bloom: bool,
     needed=None,
-) -> Table:
+) -> Tuple[Table, int]:
     """The executor's join chain, with static capacities and no host syncs.
 
     Same schedule as :func:`executor.execute_query` — both walk
     :func:`repro_torch.core.model.join_schedule`, which is what keeps the
     pre-planned capacities aligned with the joins actually run.  Each step
-    appends its exact requirement to ``totals`` and, when ``widths`` is
-    given, its :func:`_row_bytes` to ``widths``.
+    gathers the columns ``gathers_iter`` yields for it (None: all), appends
+    its exact requirement to ``totals`` and, when ``widths`` is given, its
+    row bytes to ``widths`` (:func:`_record_widths`).  Returns the chain's
+    table and the row bytes it lacks against a chain that prunes nothing.
     """
     cur = _scan(tables, query.relation(order[0]), needed)
+    lost = 0
     for alias, conds, closing in join_schedule(query, order):
         nxt = _scan(tables, query.relation(alias), needed)
         on = [qualified_cond(c, alias) for c in conds]
-        if widths is not None:
-            widths.append(_row_bytes(cur, nxt))
+        gather = next(gathers_iter)
+        lost = _record_widths(widths, cur, nxt, gather, lost)
         with _join_span():
             cur, required = join_with_capacity(
                 cur, nxt, on, how="inner", capacity=next(caps_iter),
                 use_kernel=use_kernel,
-                bloom_bits=bloom_bits_for(nxt.capacity) if use_bloom else 0)
+                bloom_bits=bloom_bits_for(nxt.capacity) if use_bloom else 0,
+                gather=gather)
         totals.append(required)
         for c in closing:
             cur = cur.mask(cur[f"{c.left}.{c.lcol}"]
                            == cur[f"{c.right}.{c.rcol}"])
-    return cur
+    return cur, lost
 
 
 def _traced_merged(
@@ -335,15 +414,20 @@ def _traced_merged(
     merged: MergedQuery,
     orders: Sequence[Tuple[str, ...]],
     caps_iter,
+    gathers_iter,
     totals: List[torch.Tensor],
-    widths: Optional[List[int]],
+    widths: Optional[list],
     use_kernel: bool,
     use_bloom: bool,
 ) -> Dict[str, Table]:
-    """The executor's JS-OJ evaluation (Theorem 4.3), with no host syncs."""
+    """The executor's JS-OJ evaluation (Theorem 4.3), with no host syncs.
+
+    Each member is cut to its dedup keys, src and dst once its rows are
+    masked, so its dedup sorts and gathers only those."""
     needed = _needed_columns_merged(merged)
-    cur = _traced_query(tables, shared_query(merged), orders[0], caps_iter,
-                        totals, widths, use_kernel, use_bloom, needed)
+    cur, lost = _traced_query(tables, shared_query(merged), orders[0],
+                              caps_iter, gathers_iter, totals, widths,
+                              use_kernel, use_bloom, needed)
     dev = cur.device
     cur = cur.with_columns(
         __srow__=torch.arange(cur.capacity, dtype=torch.int32, device=dev))
@@ -360,11 +444,12 @@ def _traced_merged(
             cur = cur.with_columns(**{ind: mask})
             continue
         if len(b.relations) > 1:
-            branch_tbl = _traced_query(tables, b.as_query(), orders[1 + bi],
-                                       caps_iter, totals, widths, use_kernel,
-                                       use_bloom, needed)
+            branch_tbl, branch_lost = _traced_query(
+                tables, b.as_query(), orders[1 + bi], caps_iter,
+                gathers_iter, totals, widths, use_kernel, use_bloom, needed)
         else:
             branch_tbl = _scan(tables, b.relations[0], needed)
+            branch_lost = 0
         brow = f"__brow__{b.id}"
         rowid_cols[b.id] = brow
         branch_tbl = branch_tbl.with_columns(
@@ -372,14 +457,15 @@ def _traced_merged(
                                   device=dev)})
         on = [(f"{c.left}.{c.lcol}", f"{c.right}.{c.rcol}")
               for c in b.link_conds]
-        if widths is not None:
-            widths.append(_row_bytes(cur, branch_tbl))
+        gather = next(gathers_iter)
+        lost = _record_widths(widths, cur, branch_tbl, gather,
+                              lost + branch_lost)
         with _join_span():
             cur, required = left_outer_with_capacity(
                 cur, branch_tbl, on, ind, capacity=next(caps_iter),
                 use_kernel=use_kernel,
                 bloom_bits=bloom_bits_for(branch_tbl.capacity)
-                if use_bloom else 0)
+                if use_bloom else 0, gather=gather)
         totals.append(required)
 
     out: Dict[str, Table] = {}
@@ -390,10 +476,11 @@ def _traced_merged(
         for c in m.residual_conds:
             keep = keep & (cur[f"{c.left}.{c.lcol}"]
                            == cur[f"{c.right}.{c.rcol}"])
-        member_rows = cur.mask(keep)
         dedup_keys = ["__srow__"] + [
             rowid_cols[bid] for bid in m.branch_ids if bid in rowid_cols
         ]
+        member_rows = cur.mask(keep).select(dict.fromkeys(
+            dedup_keys + [m.src.qualified(), m.dst.qualified()]))
         member_rows = dedup(member_rows, dedup_keys)
         out[m.name] = edge_output(member_rows, m.src, m.dst)
     return out
@@ -407,15 +494,20 @@ def _stack_totals(totals: List[torch.Tensor], device) -> torch.Tensor:
 
 
 def _make_fn(program: UnitProgram, use_kernel: bool, use_bloom: bool):
-    """The unit function ``fn(tables)``, returning (outputs, totals).  Its
-    first call sets ``fn.row_bytes``, each join step's :func:`_row_bytes`
-    in ``totals`` order: static, since the function's cache key holds the
-    input schema."""
+    """The unit function ``fn(tables)``, returning (outputs, totals).
+
+    Each join step's gather set (:func:`_gather_sets`) is worked out once
+    here.  The first call sets ``fn.row_bytes``, each join step's gathered
+    :func:`_row_bytes` in ``totals`` order, and
+    ``fn.pruned_bytes``, the bytes the steps no longer gather over their
+    capacities: static, since the function's cache key holds the input
+    schema and the capacities."""
+    gathers = _gather_sets(program)
     if program.kind == "merged":
-        def run(tables, totals, widths):
+        def run(tables, gathers_iter, totals, widths):
             return _traced_merged(tables, program.unit, program.orders,
-                                  iter(program.capacities), totals, widths,
-                                  use_kernel, use_bloom)
+                                  iter(program.capacities), gathers_iter,
+                                  totals, widths, use_kernel, use_bloom)
     else:
         # views ("query") keep every column — later queries are rewritten
         # over them and may reference any of it; edge units only carry what
@@ -423,10 +515,11 @@ def _make_fn(program: UnitProgram, use_kernel: bool, use_bloom: bool):
         needed = (_needed_columns_query(program.unit)
                   if program.kind == "edges" else None)
 
-        def run(tables, totals, widths):
-            res = _traced_query(tables, program.unit, program.orders[0],
-                                iter(program.capacities), totals, widths,
-                                use_kernel, use_bloom, needed)
+        def run(tables, gathers_iter, totals, widths):
+            res, _ = _traced_query(tables, program.unit, program.orders[0],
+                                   iter(program.capacities), gathers_iter,
+                                   totals, widths, use_kernel, use_bloom,
+                                   needed)
             if program.kind == "edges":
                 res = edge_output(res, program.unit.src, program.unit.dst)
             return res
@@ -434,12 +527,16 @@ def _make_fn(program: UnitProgram, use_kernel: bool, use_bloom: bool):
     def fn(tables):
         totals: List[torch.Tensor] = []
         widths = [] if fn.row_bytes is None else None
-        out = run(tables, totals, widths)
+        out = run(tables, iter(gathers), totals, widths)
         if widths is not None:
-            fn.row_bytes = tuple(widths)
+            fn.row_bytes = tuple(kept for kept, _ in widths)
+            fn.pruned_bytes = sum(
+                c * (every - kept)
+                for c, (kept, every) in zip(program.capacities, widths))
         return out, _stack_totals(totals, next(iter(tables.values())).device)
 
     fn.row_bytes = None
+    fn.pruned_bytes = None
     return fn
 
 
@@ -612,15 +709,17 @@ class PipelineCompiler:
 
     def _observe_rows(self, prog: UnitProgram, caps: Tuple[int, ...],
                       need: np.ndarray, row_bytes: Tuple[int, ...],
-                      span) -> None:
+                      pruned_bytes: int, span) -> None:
         """Predicted-vs-actual row accounting (host-known values only).
 
         ``need`` was already synced by the overflow check, so this adds no
         device round-trips.  The estimate ratio is (actual+1)/(predicted+1)
         — log₂ buckets make under- and over-estimates symmetric around 1.
         ``span`` (the unit's ``pipeline.run``) gets ``slot_bytes``, what the
-        join steps gather over their static capacities, and
-        ``live_bytes``, the part of it that holds rows.  The per-step
+        join steps gather over their static capacities, ``live_bytes``, the
+        part of it that holds rows, and ``pruned_bytes``, what the steps
+        would gather besides over the same capacities had none of them
+        left a column out (the unit function's).  The per-step
         values are also retained by program signature for
         :meth:`last_rows`.
         """
@@ -637,7 +736,8 @@ class PipelineCompiler:
         if obs.TRACER.enabled:
             span.set(
                 live_bytes=sum(n * w for n, w in zip(actual, row_bytes)),
-                slot_bytes=sum(c * w for c, w in zip(caps, row_bytes)))
+                slot_bytes=sum(c * w for c, w in zip(caps, row_bytes)),
+                pruned_bytes=pruned_bytes)
         with self._lock:
             self._last_rows[prog.signature] = {
                 "actual": actual,
@@ -734,7 +834,8 @@ class PipelineCompiler:
             obs.resolve_device_spans()
             if need.size == 0 or bool(
                     (need <= np.asarray(caps, dtype=np.int64)).all()):
-                self._observe_rows(prog, caps, need, fn.row_bytes, run_span)
+                self._observe_rows(prog, caps, need, fn.row_bytes,
+                                   fn.pruned_bytes, run_span)
                 if caps != prog.capacities:
                     with self._lock:                  # skip retries next time
                         self._programs[pkey] = cur

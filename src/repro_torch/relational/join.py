@@ -21,7 +21,7 @@ are ``bool``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Collection, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -105,12 +105,15 @@ def _join_core(
     capacity: int,
     indicator: Optional[str],
     use_kernel: bool,
+    gather: Optional[Collection[str]] = None,
 ) -> Tuple[Table, torch.Tensor]:
     """Static-capacity pair expansion; returns (table, required_rows).
 
     ``required_rows`` is the exact (on-device, pre-truncation) number of
     output slots the join needed; the result is silently prefix-truncated
     when it exceeds ``capacity``, which callers detect by comparing the two.
+    Only the columns named in ``gather`` (every column when ``None``) are
+    gathered into the output.
     """
     order = torch.argsort(rk, stable=True)
     rk_sorted = rk[order]
@@ -136,12 +139,14 @@ def _join_core(
 
     cols = {}
     for name, col in left.columns.items():
-        cols[name] = ref.take(col, row)
+        if gather is None or name in gather:
+            cols[name] = ref.take(col, row)
     for name, col in right.columns.items():
-        if name in cols:
+        if name in left.columns:
             raise ValueError(
                 f"column collision on {name!r}; prefix aliases first")
-        cols[name] = ref.take(col, ridx)
+        if gather is None or name in gather:
+            cols[name] = ref.take(col, ridx)
     out_valid = valid
     if how == "left_outer":
         ind = matched & valid
@@ -162,6 +167,7 @@ def join_with_capacity(
     indicator: Optional[str] = None,
     use_kernel: bool = False,
     bloom_bits: int = 0,
+    gather: Optional[Collection[str]] = None,
 ) -> Tuple[Table, torch.Tensor]:
     """Join at a static capacity with no host syncs; returns (table, required).
 
@@ -175,10 +181,15 @@ def join_with_capacity(
     ``bloom_bits > 0`` additionally prunes probe rows through a Bloom-filter
     semi-join *before* the capacity expansion.  Bloom filters have no false
     negatives, so pruning is exact for inner joins and turns outer-join
-    prunees into (correct) unmatched null rows.
+    prunees into (correct) unmatched null rows.  ``gather`` names the
+    columns of either side to carry into the output (``None``: all of
+    them); the columns of the conditions after the first are gathered too,
+    since they are post-filters of the expansion.
     """
     on = list(on)
     key_on, rest = on[:1], on[1:]
+    if gather is not None and rest:
+        gather = set(gather).union(*rest)
     on_left = tuple(l for l, _ in key_on)
     on_right = tuple(r for _, r in key_on)
     lk = composite_key(left, on_left)
@@ -190,7 +201,7 @@ def join_with_capacity(
                                 bloom_bits)
         lk = kops.bloom_prune_keys(bits, lk)
     out, total = _join_core(left, right, lk, rk, how, capacity, indicator,
-                            use_kernel)
+                            use_kernel, gather)
     for lcol, rcol in rest:
         keep = out[lcol] == out[rcol]
         if how == "left_outer" and indicator is not None:
@@ -209,6 +220,7 @@ def left_outer_with_capacity(
     capacity: int,
     use_kernel: bool = False,
     bloom_bits: int = 0,
+    gather: Optional[Collection[str]] = None,
 ) -> Tuple[Table, torch.Tensor]:
     """Exact left-outer join at static capacity; (table, required).
 
@@ -217,20 +229,23 @@ def left_outer_with_capacity(
     expansion (at ``capacity``) plus exactly one null row appended per
     unmatched left row (output capacity ``capacity + left.capacity``, which
     is static and can never overflow — ``required`` tracks the inner part).
+    ``gather`` is :func:`join_with_capacity`'s; both parts carry the same
+    columns.
     """
     on = list(on)
     if len(on) == 1:
         return join_with_capacity(
             left, right, on, how="left_outer", capacity=capacity,
             indicator=indicator, use_kernel=use_kernel,
-            bloom_bits=bloom_bits)
+            bloom_bits=bloom_bits, gather=gather)
     dev = left.device
     rowid = "__rowid__"
     rowids = torch.arange(left.capacity, dtype=torch.int32, device=dev)
     lt = left.with_columns(**{rowid: rowids})
     inner, total = join_with_capacity(
         lt, right, on, how="inner", capacity=capacity,
-        use_kernel=use_kernel, bloom_bits=bloom_bits)
+        use_kernel=use_kernel, bloom_bits=bloom_bits,
+        gather=None if gather is None else {*gather, rowid})
     hits = torch.zeros((left.capacity,), dtype=torch.int32, device=dev)
     if left.capacity:
         hits.index_add_(0, inner[rowid].to(torch.int64),
@@ -238,29 +253,19 @@ def left_outer_with_capacity(
     unmatched = left.valid & (hits == 0)
 
     matched_part = inner.with_columns(**{indicator: inner.valid})
-    null_right = {
-        name: torch.zeros((left.capacity,), dtype=col.dtype, device=dev)
-        for name, col in right.columns.items()
-    }
-    unmatched_part = Table(
-        columns={
-            **left.columns,
-            rowid: rowids,
-            **null_right,
-            indicator: torch.zeros((left.capacity,), dtype=torch.bool,
-                                   device=dev),
-        },
-        valid=unmatched,
-    )
-    names = matched_part.column_names()
+
+    def unmatched_col(name: str) -> torch.Tensor:
+        if name in left.columns:
+            return left[name]
+        dtype = torch.bool if name == indicator else right[name].dtype
+        return torch.zeros((left.capacity,), dtype=dtype, device=dev)
+
     cols = {
-        n: torch.cat([matched_part[n], unmatched_part[n]])
-        for n in names
+        n: torch.cat([matched_part[n], unmatched_col(n)])
+        for n in matched_part.column_names() if n != rowid
     }
-    valid = torch.cat([matched_part.valid, unmatched_part.valid])
-    return Table(
-        columns={k: v for k, v in cols.items() if k != rowid}, valid=valid
-    ), total
+    valid = torch.cat([matched_part.valid, unmatched])
+    return Table(columns=cols, valid=valid), total
 
 
 def round_capacity(n: int) -> int:

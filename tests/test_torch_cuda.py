@@ -284,6 +284,50 @@ def test_cuda_pipeline_join_expand_gives_the_plain_tables(cuda, case):
             assert torch.equal(col, k[name]), (label, name)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["inner", "left_outer", "left_outer_rows"])
+@pytest.mark.parametrize("n_conds", [1, 2])
+def test_cuda_gather_keeps_the_full_joins_columns(cuda, how, n_conds):
+    """A join on the card with the probe and expansion kernels, ``gather``
+    set against not: the columns gathered, the valid mask and the required
+    count equal the full join's on every slot, the post-filter columns
+    are gathered besides, and ``join_expand`` runs once a join."""
+    from repro_torch.relational import Table
+    from repro_torch.relational import join as tjoin
+
+    rng = np.random.default_rng(11)
+
+    def side(n, prefix, names):
+        cols = {f"{prefix}.{c}": rng.integers(0, hi, n).astype(np.int32)
+                for c, hi in zip(names, (40_000, 4, 2**31 - 2))}
+        valid = _t(rng.random(n) >= 0.1, cuda)
+        return Table.from_arrays(device=cuda, **cols).mask(valid)
+
+    left, right = side(200_000, "L", "kxa"), side(50_000, "R", "kxb")
+    on = [("L.k", "R.k"), ("L.x", "R.x")][:n_conds]
+    gather = {"L.a", "R.b"}
+
+    def join(**kw):
+        kw.update(capacity=2**19, use_kernel=True)
+        if how == "left_outer_rows":
+            return tjoin.left_outer_with_capacity(left, right, on, "m", **kw)
+        return tjoin.join_with_capacity(left, right, on, how, indicator="m",
+                                        **kw)
+
+    full, full_req = join()
+    before = kops.launch_counts()["join_expand"]
+    part, part_req = join(gather=gather)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["join_expand"] == before + 1
+    assert int(part_req) == int(full_req) <= 2**19
+    assert torch.equal(part.valid, full.valid)
+    rest = {c for cond in on[1:] for c in cond}
+    assert set(part.columns) == (gather | rest
+                                 | ({"m"} if how != "inner" else set()))
+    for name, col in part.columns.items():
+        assert torch.equal(col, full[name]), name
+
+
 # ---------------------------------------------------------------------------
 # the graph kernels
 # ---------------------------------------------------------------------------

@@ -207,3 +207,168 @@ def test_engine_rejects_unported_modes(dbs):
         engine.extract(tdata.fraud_model("store"), method="sqlgraph")
     with pytest.raises(ValueError, match="planned methods"):
         engine.refresh(tdata.fraud_model("store"), method="ringo")
+
+
+# ---------------------------------------------------------------------------
+# column liveness: what each join step and each member's dedup carries
+# ---------------------------------------------------------------------------
+
+def _record_units(monkeypatch):
+    """(program, unit function) of every unit function built from here on
+    (the process-wide store is emptied first)."""
+    built = []
+    make = tpipe._make_fn
+
+    def record(program, *args):
+        fn = make(program, *args)
+        built.append((program, fn))
+        return fn
+
+    monkeypatch.setattr(tpipe, "_make_fn", record)
+    tpipe.clear_executable_cache()
+    return built
+
+
+def _view_alias(query):
+    (alias,) = [r.alias for r in query.relations
+                if r.table.startswith("view_")]
+    return alias
+
+
+def _fraud_merged(plan_mod, data_mod):
+    """The fraud model's Sell and Buy as one JS-OJ unit over the largest
+    shared pattern (at sf=1 the planner keeps them apart)."""
+    base = plan_mod.ExtractionPlan(
+        views=(), reused=(),
+        units=tuple(plan_mod.PlanUnit(single=q)
+                    for q in data_mod.fraud_model("store").queries()))
+    cands = plan_mod._oj_candidates(base)
+    best = max(cands, key=lambda c: len(c.units[-1].group.pattern.relations))
+    return best.units[-1].group
+
+
+def test_dblp_steps_gather_what_later_steps_read(dbs, monkeypatch):
+    """Co-auth's and Auth-Edit's last steps (chain ⋈ view) gather only the
+    two columns the edge projection reads; the view's unit gathers every
+    column, since later queries are rewritten over it."""
+    built = _record_units(monkeypatch)
+    td, _, plan = _port_plan(dbs, "dblp")
+    text.run_plan(td.snapshot(), plan,
+                  compiler=tpipe.PipelineCompiler(device="cpu"))
+    edges = {p.unit.name: (p, fn) for p, fn in built if p.kind == "edges"}
+    prog, _ = edges["Co-auth"]
+    assert tpipe._gather_sets(prog)[-1] == {
+        "A2.a_id", f"{_view_alias(prog.unit)}.p0.a_id"}
+    prog, _ = edges["Auth-Edit"]
+    assert tpipe._gather_sets(prog)[-1] == {
+        "E.e_id", f"{_view_alias(prog.unit)}.p0.a_id"}
+    for prog, fn in edges.values():
+        assert len(tpipe._gather_sets(prog)) == len(prog.capacities) == \
+            len(fn.row_bytes)
+        assert fn.pruned_bytes > 0
+    views = [(p, fn) for p, fn in built if p.kind == "query"]
+    assert views
+    for prog, fn in views:
+        assert set(tpipe._gather_sets(prog)) == {None}
+        assert fn.pruned_bytes == 0
+
+
+def test_each_fraud_member_dedups_its_own_columns(dbs, monkeypatch):
+    """A JS-OJ member is cut to its dedup keys, src and dst before its
+    dedup; the unit's edges still equal the JAX package's."""
+    jd, td = dbs["tpcds"]
+    merged = _fraud_merged(tplan, tdata)
+    seen = []
+    dedup = tpipe.dedup
+
+    def record(table, keys):
+        seen.append(set(table.columns))
+        return dedup(table, keys)
+
+    monkeypatch.setattr(tpipe, "dedup", record)
+    got = tpipe.PipelineCompiler(device="cpu").run_merged(td, merged)
+    assert len(merged.members) == 2
+    assert seen == [
+        {"__srow__", *(f"__brow__{b}" for b in m.branch_ids),
+         m.src.qualified(), m.dst.qualified()}
+        for m in merged.members]
+    assert all(len(cols) == 4 for cols in seen)
+    want = jpipe.PipelineCompiler().run_merged(jd,
+                                               _fraud_merged(jplan, jdata))
+    assert _digests(got) == {k: jops.table_digest(t) for k, t in want.items()}
+
+
+@pytest.mark.parametrize("case", ["dblp", "fraud-merged"])
+def test_pruned_units_give_the_unpruned_tables(dbs, monkeypatch, case):
+    """With every step gathering every column (no liveness), each edge
+    table is the same, column by column and slot by slot."""
+    td = dbs["dblp" if case == "dblp" else "tpcds"][1]
+
+    def run():
+        tpipe.clear_executable_cache()
+        comp = tpipe.PipelineCompiler(device="cpu")
+        if case == "dblp":
+            _, _, plan = _port_plan(dbs, "dblp")
+            return text.run_plan(td.snapshot(), plan, compiler=comp)[0]
+        return comp.run_merged(td, _fraud_merged(tplan, tdata))
+
+    pruned = run()
+    monkeypatch.setattr(tpipe, "_gather_sets",
+                        lambda program: (None,) * len(program.capacities))
+    full = run()
+    tpipe.clear_executable_cache()
+    assert set(pruned) == set(full)
+    for label, t in full.items():
+        p = pruned[label]
+        assert torch.equal(p.valid, t.valid)
+        assert set(p.columns) == set(t.columns)
+        for name, col in t.columns.items():
+            assert torch.equal(p[name], col), (label, name)
+
+
+def test_post_filter_and_closing_columns_are_gathered(monkeypatch):
+    """A query whose steps have a second condition (a post-filter) and a
+    cycle-closing one (a self-condition): the compiled unit keeps the
+    columns they read until they are read, so its edges equal the eager
+    executor's bag, and the unpruned unit's tables slot by slot."""
+    from repro_torch.core.executor import edge_output, execute_query
+    from repro_torch.core.model import (ColumnRef, JoinCond, JoinQuery,
+                                        Relation)
+
+    rng = np.random.default_rng(5)
+    n = 600
+
+    def cols(*names):
+        out = {c: rng.integers(0, 6, n).astype(np.int32) for c in names}
+        out["id"] = np.arange(n, dtype=np.int32)
+        out["valid"] = rng.random(n) < 0.9
+        return out
+
+    td = tdb.from_numpy_tables({"a": cols("k", "x", "w"),
+                                "b": cols("k", "x", "m", "w"),
+                                "c": cols("m", "u", "v", "w")},
+                               device="cpu")
+    query = JoinQuery(
+        name="cyc",
+        relations=(Relation("A", "a"), Relation("B", "b"),
+                   Relation("C", "c")),
+        conds=(JoinCond("A", "k", "B", "k"), JoinCond("A", "x", "B", "x"),
+               JoinCond("B", "m", "C", "m"), JoinCond("C", "u", "C", "v")),
+        src=ColumnRef("A", "id"), dst=ColumnRef("C", "id"))
+
+    def run():
+        tpipe.clear_executable_cache()
+        return tpipe.PipelineCompiler(device="cpu").run_query_edges(td,
+                                                                    query)
+
+    got = run()
+    want = edge_output(execute_query(td, query), query.src, query.dst)
+    assert int(want.valid.sum()) > 0
+    assert tops.table_digest(got) == tops.table_digest(want)
+    monkeypatch.setattr(tpipe, "_gather_sets",
+                        lambda program: (None,) * len(program.capacities))
+    full = run()
+    tpipe.clear_executable_cache()
+    assert torch.equal(got.valid, full.valid)
+    for name, col in full.columns.items():
+        assert torch.equal(got[name], col), name

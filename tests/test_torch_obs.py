@@ -35,6 +35,21 @@ CASES = {
 }
 
 
+# The bytes of one output row of each join step, by (unit kind, steps).
+# A view ("query") keeps every column of its tables: dblp's author ⋈
+# wrote ⋈ paper, tpcds's one-step view.  Every other step gathers only
+# what a later step or the unit's output reads: an edge unit's steps two
+# int32 columns; tpcds's merged unit two in its shared chain, then five
+# in its outer attachment (the shared chain's two and its row id, the
+# branch's output column and row id).
+STEP_WIDTHS = {
+    "dblp": {("query", 2): (24, 36), ("edges", 2): (8, 8),
+             ("edges", 3): (8, 8, 8)},
+    "tpcds": {("query", 1): (32,), ("edges", 2): (8, 8),
+              ("merged", 2): (8, 20)},
+}
+
+
 @pytest.fixture(scope="module")
 def cpu_dbs():
     return {name: make("cpu") for name, (make, _, _) in CASES.items()}
@@ -248,9 +263,9 @@ def test_join_spans_hold_live_rows_and_slots(cpu_dbs, case):
         caps = compiles[-1]["attrs"]["capacities"]
         a = runs[-1]["attrs"]                   # the attempt that fit
         if caps:
-            # a row gathers at least one int32 key of each side
+            widths = STEP_WIDTHS[case][(a["kind"], len(caps))]
             assert 0 < a["live_bytes"] <= a["slot_bytes"]
-            assert a["slot_bytes"] >= 8 * sum(caps)
+            assert a["slot_bytes"] == sum(c * w for c, w in zip(caps, widths))
         else:
             assert "slot_bytes" not in a
     assert any(s["name"] == "pipeline.program" for s in spans)
@@ -274,7 +289,12 @@ def test_a_unit_function_knows_its_step_widths(cpu_dbs):
         assert len(fn.row_bytes) == len(key[2])
 
 
-def test_row_bytes_counts_every_column_of_both_sides():
+@pytest.mark.parametrize("gather,want", [
+    pytest.param(None, 4 + 8 + 4 + 1, id="every-column"),
+    pytest.param({"a.v", "b.f"}, 8 + 1, id="gather"),
+    pytest.param({"b.k", "c.z"}, 4, id="names-of-neither-side"),
+])
+def test_row_bytes_counts_every_column_of_both_sides(gather, want):
     from repro_torch.relational import Table
 
     left = Table.from_arrays(device="cpu", **{
@@ -283,7 +303,63 @@ def test_row_bytes_counts_every_column_of_both_sides():
     right = Table.from_arrays(device="cpu", **{
         "b.k": torch.zeros(2, dtype=torch.int32),
         "b.f": torch.zeros(2, dtype=torch.bool)})
-    assert pipeline_mod._row_bytes(left, right) == 4 + 8 + 4 + 1
+    assert pipeline_mod._row_bytes(left, right, gather) == want
+
+
+def _kind(key):
+    """A unit function's kind, from its store key's program signature."""
+    sig = key[0]
+    return "merged" if sig[0] == "m" else ("edges" if sig[2] else "query")
+
+
+def _fitted_runs(spans):
+    """(kind, capacities, attributes) of each unit's attempt that fit: its
+    last ``pipeline.run`` and the capacities of its last build."""
+    by_parent = _children(spans)
+    out = []
+    for unit in {s["parent"] for s in spans if s["name"] == "pipeline.run"}:
+        kids = sorted(by_parent[unit], key=lambda s: s["start_s"])
+        comp = [s for s in kids if s["name"].startswith("pipeline.compile:")]
+        run = [s for s in kids if s["name"] == "pipeline.run"][-1]
+        out.append((run["attrs"]["kind"],
+                    tuple(comp[-1]["attrs"]["capacities"]), run["attrs"]))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_pruned_bytes_are_the_capacities_times_the_pruned_widths(
+        cpu_dbs, monkeypatch, case):
+    """``pruned_bytes`` on a unit's ``pipeline.run`` is Σ capacity × (the
+    bytes of a row of every column less those gathered) over its steps
+    (``fn.pruned_bytes``), so it and ``slot_bytes`` add up to what the
+    steps would gather with every column kept."""
+    clear_executable_cache()
+    _, spans = _extract(cpu_dbs[case], case)
+    pruned = {(_kind(k), k[2]): fn
+              for k, fn in pipeline_mod._EXECUTABLE_CACHE.items()}
+    monkeypatch.setattr(pipeline_mod, "_gather_sets",
+                        lambda program: (None,) * len(program.capacities))
+    clear_executable_cache()
+    _, full_spans = _extract(cpu_dbs[case], case)
+    full = {(_kind(k), k[2]): fn
+            for k, fn in pipeline_mod._EXECUTABLE_CACHE.items()}
+    clear_executable_cache()
+    assert set(pruned) == set(full)
+    full_slots = {(kind, caps): a["slot_bytes"]
+                  for kind, caps, a in _fitted_runs(full_spans) if caps}
+    runs = [r for r in _fitted_runs(spans) if r[1]]
+    assert len(runs) == len(full_slots)
+    assert any(a["pruned_bytes"] > 0 for _, _, a in runs)
+    for kind, caps, a in runs:
+        fn, every = pruned[(kind, caps)], full[(kind, caps)].row_bytes
+        assert full[(kind, caps)].pruned_bytes == 0
+        assert a["pruned_bytes"] == fn.pruned_bytes == sum(
+            c * (w - k) for c, w, k in zip(caps, every, fn.row_bytes))
+        assert a["pruned_bytes"] + a["slot_bytes"] == \
+            sum(c * w for c, w in zip(caps, every)) == \
+            full_slots[(kind, caps)]
+        if kind == "query":
+            assert a["pruned_bytes"] == 0
 
 
 def test_steps_of_an_overflowed_attempt_are_marked_retry(cpu_dbs):

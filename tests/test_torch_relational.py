@@ -141,6 +141,48 @@ def test_join_with_capacity_parity(sides, how, on, use_kernel, bloom):
     _same(jt, tt)
 
 
+def _join_of(how, left, right, on, **kw):
+    """(table, required) of one capacity join: ``inner`` and ``left_outer``
+    through :func:`join_with_capacity` (the native outer path, whose extra
+    conditions clear the indicator), ``left_outer_rows`` through
+    :func:`left_outer_with_capacity` (with two conditions, the inner
+    expansion on ``__rowid__`` plus the unmatched rows)."""
+    if how == "left_outer_rows":
+        return tjoin.left_outer_with_capacity(left, right, on, "m", **kw)
+    return tjoin.join_with_capacity(left, right, on, how, indicator="m",
+                                    **kw)
+
+
+@pytest.mark.parametrize("how", ["inner", "left_outer", "left_outer_rows"])
+@pytest.mark.parametrize("on", [
+    pytest.param([("L.k", "R.k")], id="one-cond"),
+    pytest.param([("L.k", "R.k"), ("L.x", "R.x")], id="post-filter"),
+])
+@pytest.mark.parametrize("gather", [
+    pytest.param({"L.a", "R.b"}, id="payload"),
+    pytest.param({"L.k", "R.x"}, id="keys"),
+    pytest.param({"R.b"}, id="right-only"),
+    pytest.param(set(), id="none"),
+])
+def test_gather_keeps_the_full_joins_columns(sides, how, on, gather):
+    """``gather=S`` gives the full join's columns S, its valid mask and its
+    required count, bit for bit on every slot (padding included); the
+    post-filter columns are gathered besides, and nothing else."""
+    (_, tl), (_, trt) = sides
+    kw = dict(capacity=1024, use_kernel=False)
+    full, full_req = _join_of(how, tl, trt, on, **kw)
+    part, part_req = _join_of(how, tl, trt, on, gather=gather, **kw)
+    assert int(part_req) == int(full_req)
+    assert part.capacity == full.capacity
+    assert torch.equal(part.valid, full.valid)
+    rest = {c for cond in on[1:] for c in cond}
+    indicator = {"m"} if how != "inner" else set()
+    assert set(part.columns) == gather | rest | indicator
+    for name in part.columns:
+        assert part[name].dtype == full[name].dtype, name
+        assert torch.equal(part[name], full[name]), name
+
+
 @pytest.mark.parametrize("how", ["inner", "left_outer"])
 @pytest.mark.parametrize("bloom", [256, 1024, 16384])
 def test_bloom_pruned_join_parity(how, bloom):
